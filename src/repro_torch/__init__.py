@@ -1,0 +1,38 @@
+"""SAGIPS in PyTorch and CUDA — the port of `repro` to an NVIDIA H100.
+
+The JAX package `repro` is the reference; this package mirrors its module
+names where that helps a reader find the counterpart, and imports nothing
+from it (nor JAX).  Plain tensor code is PyTorch; every Pallas kernel of a
+ported path is a hand-written CUDA kernel under `kernels/csrc/`.
+
+Ported so far: the `proxy1d` solve service (`serving.SolveService`,
+`python -m repro_torch.launch.serve`) with the inverse-CDF event sampler
+as a CUDA kernel.
+
+Device policy: entry points take `device=`; with none they run on CUDA and
+raise when CUDA is absent (`resolve_device`).  They never fall back to the
+CPU on their own.  The CPU runs only when asked for, which is how the tests
+run here; a kernel wrapper then takes its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, or CUDA when None.
+
+    Raises `RuntimeError` when CUDA is asked for (or defaulted to) and
+    `torch.cuda.is_available()` is False; pass `device="cpu"` to run the
+    plain PyTorch path on purpose."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default, but torch.cuda.is_available() "
+            "is False on this host; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    return dev

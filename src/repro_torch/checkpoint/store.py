@@ -1,0 +1,115 @@
+"""Read the JAX package's checkpoint store — how weights cross to the port.
+
+`repro.checkpoint.store` writes a training state as path-flattened numpy
+arrays plus JSON metadata:
+
+    <dir>/step_<n>/arrays.npz      keys like "gen/0/w", "gen/0/b", ...
+    <dir>/step_<n>/meta.json       {"step", "keys", "dtypes", ["user"]}
+
+bf16 leaves are stored as their uint16 bit pattern, with "bfloat16" in
+`dtypes`; they are widened here to fp32 by a 16-bit shift, which is exact
+(no `ml_dtypes` needed).  Only numpy and json are used to read.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import warnings
+import zipfile
+import zlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.gan import Generator
+
+_SEP = "/"
+
+# what a process killed mid-save can leave behind: truncated or garbage
+# zip members, a half-written meta.json, missing files.  A structural
+# mismatch (no generator, wrong shapes) is not in this set and raises.
+_CORRUPT = (OSError, EOFError, zlib.error, zipfile.BadZipFile,
+            json.JSONDecodeError)
+
+
+def list_steps(directory: str) -> List[int]:
+    """All `step_N` numbers under `directory`, ascending (empty if none)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for d in os.listdir(directory)
+                  if (m := re.fullmatch(r"step_(\d+)", d)))
+
+
+def widen_bf16(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns -> the same values as fp32 (exact)."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def read_step(directory: str, step: int) -> Dict[str, np.ndarray]:
+    """All arrays of one step, bf16 leaves widened to fp32."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        arrays = {}
+        for key in data.files:
+            raw = data[key]
+            if meta["dtypes"].get(key) == "bfloat16":
+                raw = widen_bf16(raw)
+            arrays[key] = raw
+    return arrays
+
+
+def generator_from_numpy(flat: Dict[str, np.ndarray], device=None
+                         ) -> Generator:
+    """Path-flattened generator arrays {"0/w": [R, in, out], "0/b": [R,
+    out], ...} -> the port's stacked generator, fp32 on `device`."""
+    dev = resolve_device(device)
+    n_layers = len({k.split(_SEP)[0] for k in flat})
+    want = {f"{i}{_SEP}{leaf}" for i in range(n_layers) for leaf in "wb"}
+    if set(flat) != want:
+        raise ValueError(f"generator leaves must be {sorted(want)}, got "
+                         f"{sorted(flat)}")
+    layers = []
+    for i in range(n_layers):
+        w, b = (np.asarray(flat[f"{i}{_SEP}{leaf}"]) for leaf in "wb")
+        if w.ndim != 3 or b.shape != (w.shape[0], w.shape[2]):
+            raise ValueError(
+                f"layer {i}: expected a stacked w [R, in, out] and b [R, "
+                f"out], got {w.shape} and {b.shape}")
+        if layers and layers[-1]["w"].shape[2] != w.shape[1]:
+            raise ValueError(f"layer {i}: input width {w.shape[1]} does not "
+                             f"match the previous output "
+                             f"{layers[-1]['w'].shape[2]}")
+        layers.append({"w": torch.from_numpy(w.astype(np.float32)).to(dev),
+                       "b": torch.from_numpy(b.astype(np.float32)).to(dev)})
+    return layers
+
+
+def load_generator_stack(directory: str, device=None
+                         ) -> Tuple[Optional[Generator], Optional[int]]:
+    """The newest loadable step's generator stack (the leaves under
+    "gen/"), as `(stack, step)`, or `(None, None)` when the directory holds
+    no loadable step.  A step that fails to read (a process killed
+    mid-save) is skipped with a warning and the next-newest is tried, as
+    `repro.checkpoint.store.restore_latest` does; a step without a
+    generator, or with one of the wrong structure, raises."""
+    for step in reversed(list_steps(directory)):
+        try:
+            arrays = read_step(directory, step)
+        except _CORRUPT as e:
+            warnings.warn(f"checkpoint step_{step} in {directory} failed to "
+                          f"load ({type(e).__name__}: {e}); falling back to "
+                          "the previous step")
+            continue
+        prefix = f"gen{_SEP}"
+        gen = {k[len(prefix):]: v for k, v in arrays.items()
+               if k.startswith(prefix)}
+        if not gen:
+            raise KeyError(f"checkpoint step_{step} in {directory} holds no "
+                           f"generator ('gen/...' keys)")
+        return generator_from_numpy(gen, device), step
+    return None, None

@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port, their plain PyTorch versions
+(`ref`) and the builder that compiles `csrc/` at first use (`build`).
+
+Ported: `inverse_cdf` (the Pallas `_icdf_kernel` of
+`repro.kernels.inverse_cdf`).  Still to port: the imaging mask and blur,
+flash attention and the SSD scan (ROADMAP.md queue B).
+"""

@@ -1,0 +1,99 @@
+"""Pluggable inverse problems — the workload layer of the port.
+
+Counterpart of `repro.problems`: everything the solver stack needs to know
+about a workload lives behind `InverseProblem`, and a registry maps names
+to instances.  Registered so far: `proxy1d`, the paper's 1D proxy app.
+The JAX package's other problems (proxy2d, linear_blur, imaging,
+imaging_blur) come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..core.residuals import normalized_residuals
+
+
+class InverseProblem:
+    """Interface every SAGIPS workload implements."""
+
+    name: str
+    n_params: int
+    obs_dim: int
+    noise_channels: int
+
+    # image-valued parameter spaces set this to their (H, W); None is a
+    # flat parameter vector and the MLP generator
+    param_shape: Tuple[int, int] | None = None
+
+    # default events per parameter sample for reference data (Tab. III)
+    events_per_sample: int = 100
+
+    # serving-quality bar on mean|r̂| of a trained stack's solve
+    solve_threshold: float = 0.5
+
+    def true_params(self, device=None) -> torch.Tensor:
+        """Loop-closure truth in (0,1)^n_params, fp32 on `device`."""
+        raise NotImplementedError
+
+    def sample_events(self, params, u):
+        """params [K, n_params] in (0,1); u [K, E, noise_channels] uniform.
+
+        Returns events [K*E, obs_dim]."""
+        raise NotImplementedError
+
+    def make_reference_data(self, generator: torch.Generator, n_events: int,
+                            params=None, device=None):
+        """Toy measurement [n_events, obs_dim]: events generated from the
+        truth (or `params`), the uniforms drawn from `generator`."""
+        raise NotImplementedError
+
+    # -- defaults ------------------------------------------------------------
+
+    def residuals(self, pred_params, true_params=None):
+        """Normalized parameter residuals (Eq. 6) against this problem's
+        truth, with the safe denominator of `core.residuals`."""
+        tp = (self.true_params(pred_params.device) if true_params is None
+              else true_params)
+        return normalized_residuals(pred_params, tp)
+
+    def mean_abs_residual(self, pred_params, true_params=None):
+        return self.residuals(pred_params, true_params).abs().mean()
+
+
+# ----------------------------------------------------------------------------
+# registry
+
+
+_REGISTRY: Dict[str, InverseProblem] = {}
+
+
+def register(problem: InverseProblem) -> InverseProblem:
+    """Add a problem instance to the registry (idempotent per name)."""
+    for attr in ("name", "n_params", "obs_dim", "noise_channels"):
+        if getattr(problem, attr, None) is None:
+            raise ValueError(f"problem is missing required attribute {attr!r}")
+    _REGISTRY[problem.name] = problem
+    return problem
+
+
+def get_problem(name: str) -> InverseProblem:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown inverse problem {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}") from None
+
+
+def available() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def _register_builtin():
+    from . import proxy1d  # noqa: F401  (registers on import)
+
+
+_register_builtin()
+
+__all__ = ["InverseProblem", "available", "get_problem", "register"]

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels on the card (marker `sm90`).
+
+These tests need an NVIDIA sm_90 (Hopper) card and skip elsewhere; the
+`sm90_card` fixture decides at run time.  They import no JAX, so they run
+on the card's machine, which has none:
+
+    PYTHONPATH=src python -m pytest -q -m sm90 tests/test_torch_cuda.py
+
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors (fp32 rtol 1e-4 / atol 1e-5, bf16 2e-2), its wrapper is shown to
+raise on what the kernel does not take, and the solve service on the card
+is shown to launch the kernel and to agree with the CPU on the same draws.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.serving import REDUCED
+from repro_torch.core import gan
+from repro_torch.core.workflow import make_solver, solve_draws
+from repro_torch.kernels.inverse_cdf import (counts, inverse_cdf,
+                                             inverse_cdf_channels)
+from repro_torch.kernels.ref import inverse_cdf_ref
+from repro_torch.problems import get_problem
+from repro_torch.serving import SolveService
+
+pytestmark = pytest.mark.sm90
+FP32 = dict(rtol=1e-4, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def sm90_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (none on this host)")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip(f"needs sm_90, found sm_"
+                    f"{''.join(map(str, torch.cuda.get_device_capability(0)))}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(shape, udtype, pdtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    K, C = shape[0], shape[2]
+    u = torch.rand(shape, generator=g)
+    mu = torch.rand((K, C), generator=g) * 4 - 2
+    s = torch.rand((K, C), generator=g) * 0.95 + 0.05
+    k = torch.rand((K, C), generator=g) * 2 - 1
+    return (u.to(dev, udtype), mu.to(dev, pdtype), s.to(dev, pdtype),
+            k.to(dev, pdtype))
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 64, 2), (1000, 77, 1), (3, 5, 2),
+                                   (257, 130, 2)])
+def test_kernel_matches_plain(sm90_card, shape, udtype, pdtype):
+    u, mu, s, k = _inputs(shape, udtype, pdtype, sm90_card)
+    before = counts.launches
+    y = inverse_cdf_channels(u, mu, s, k)
+    torch.cuda.synchronize()
+    assert counts.launches == before + 1
+    assert y.dtype == udtype and y.shape == u.shape and y.is_cuda
+    tol = FP32 if udtype == torch.float32 else BF16
+    torch.testing.assert_close(y.float(), inverse_cdf_ref(u, mu, s, k).float(),
+                               **tol)
+
+
+def test_kernel_two_dim_entry_and_clamp(sm90_card):
+    u = torch.tensor([[0.0, 1.0, -3.0, 4.0, 1e-7, 1 - 1e-7, 0.5,
+                       float("nan")]], device=sm90_card)
+    mu, s, k = (torch.tensor([v], device=sm90_card) for v in (0.3, 0.7, -0.2))
+    y = inverse_cdf(u, mu, s, k)
+    ref = inverse_cdf_ref(u, mu, s, k)
+    assert torch.isnan(y[0, -1])
+    torch.testing.assert_close(y[:, :-1], ref[:, :-1], **FP32)
+
+
+def test_kernel_wrapper_raises(sm90_card):
+    u, mu, s, k = _inputs((8, 16, 2), torch.float32, torch.float32, sm90_card)
+    before = (counts.launches, counts.plain_calls)
+    with pytest.raises(TypeError):
+        inverse_cdf_channels(u.half(), mu, s, k)
+    with pytest.raises(TypeError):
+        inverse_cdf_channels(u, mu.bfloat16(), s, k)       # mixed params
+    with pytest.raises(ValueError, match="contiguous"):
+        inverse_cdf_channels(u.transpose(0, 1).contiguous().transpose(0, 1),
+                             mu, s, k)
+    with pytest.raises(ValueError):
+        inverse_cdf_channels(u, mu.cpu(), s, k)
+    assert (counts.launches, counts.plain_calls) == before
+
+
+def test_service_on_the_card_launches_the_kernel(sm90_card):
+    prob = get_problem("proxy1d")
+    stack = gan.init_generator(torch.Generator().manual_seed(0), ranks=2,
+                               device=sm90_card)
+    svc = SolveService(REDUCED, device=sm90_card)
+    svc.register_problem("proxy1d", gen_stack=stack)
+    ys = [prob.make_reference_data(torch.Generator().manual_seed(i), n,
+                                   device="cpu").numpy()
+          for i, n in enumerate((5, 16, 40, 64))]
+    counts.reset()
+    tickets = [svc.submit("proxy1d", y) for y in ys]
+    svc.run_until_empty()
+    assert counts.plain_calls == 0
+    assert counts.launches == svc.cache.stats["compiles"] + 2   # 2 batches
+    cpu = SolveService(REDUCED, device="cpu")
+    cpu.register_problem("proxy1d", gen_stack=stack)
+    cpu_tickets = [cpu.submit("proxy1d", y) for y in ys]
+    cpu.run_until_empty()
+    for t, c in zip(tickets, cpu_tickets):
+        for key in ("params", "sigma", "score"):
+            np.testing.assert_allclose(t.result()[key], c.result()[key],
+                                       **FP32)
+
+
+def test_solver_draws_are_device_independent(sm90_card):
+    prob = get_problem("proxy1d")
+    cpu = solve_draws(REDUCED.solve, 2, prob, "cpu")
+    card = solve_draws(REDUCED.solve, 2, prob, sm90_card)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+    stack = gan.init_generator(torch.Generator().manual_seed(1), ranks=2,
+                               device="cpu")
+    ys = torch.zeros(1, 16, 2)
+    mask = torch.ones(1, 16, dtype=torch.bool)
+    out_cpu = make_solver(prob, REDUCED.solve, cpu)(stack, ys, mask)
+    out_card = make_solver(prob, REDUCED.solve, card)(
+        [{k: v.to(sm90_card) for k, v in layer.items()} for layer in stack],
+        ys.to(sm90_card), mask.to(sm90_card))
+    for key, v in out_cpu.items():
+        torch.testing.assert_close(out_card[key].cpu(), v, **FP32)
