@@ -5,9 +5,11 @@ names where that helps a reader find the counterpart, and imports nothing
 from it (nor JAX).  Plain tensor code is PyTorch; every Pallas kernel of a
 ported path is a hand-written CUDA kernel under `kernels/csrc/`.
 
-Ported so far: the `proxy1d` solve service (`serving.SolveService`,
-`python -m repro_torch.launch.serve`) with the inverse-CDF event sampler
-as a CUDA kernel.
+Ported so far: the solve service (`serving.SolveService`,
+`python -m repro_torch.launch.serve`) for `proxy1d` and the imaging
+problems `imaging` and `imaging_blur`, with the inverse-CDF event sampler,
+the inpainting mask and the 3-tap blur as CUDA kernels, and the conv
+generator of the imaging problems (`models.convgen`).
 
 Device policy: entry points take `device=`; with none they run on CUDA and
 raise when CUDA is absent (`resolve_device`).  They never fall back to the

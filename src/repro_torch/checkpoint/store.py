@@ -9,6 +9,12 @@ arrays plus JSON metadata:
 bf16 leaves are stored as their uint16 bit pattern, with "bfloat16" in
 `dtypes`; they are widened here to fp32 by a 16-bit shift, which is exact
 (no `ml_dtypes` needed).  Only numpy and json are used to read.
+
+`load_generator_stack` restores the MLP generator only, as the JAX
+service's checkpoint route does (it restores into an MLP template).  The
+conv generator's path-flattened arrays ("proj/w", "convs/0/w", ...) cross
+through `conv_generator_from_numpy` and are served with
+`register_problem(gen_stack=...)`.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..core.gan import Generator
+from ..models.convgen import ConvGenerator
 
 _SEP = "/"
 
@@ -89,6 +96,49 @@ def generator_from_numpy(flat: Dict[str, np.ndarray], device=None
     return layers
 
 
+def conv_generator_from_numpy(flat: Dict[str, np.ndarray], device=None
+                              ) -> ConvGenerator:
+    """Path-flattened conv generator arrays {"proj/w": [R, noise, h0·w0·c0],
+    "proj/b", "convs/<i>/w": [R, 3, 3, cin, cout], "convs/<i>/b": [R,
+    cout], ...} (the JAX `models.convgen` stack) -> the port's stacked conv
+    generator, fp32 on `device`.  Raises ValueError on missing or extra
+    keys and on shapes that do not chain into one generator."""
+    dev = resolve_device(device)
+    n_convs = len({k.split(_SEP)[1] for k in flat
+                   if k.startswith(f"convs{_SEP}")})
+    want = {f"proj{_SEP}w", f"proj{_SEP}b"} | {
+        f"convs{_SEP}{i}{_SEP}{leaf}" for i in range(n_convs)
+        for leaf in "wb"}
+    if n_convs == 0 or set(flat) != want:
+        raise ValueError(f"conv generator leaves must be {sorted(want)} "
+                         f"with at least one conv, got {sorted(flat)}")
+    arrays = {k: np.asarray(v) for k, v in flat.items()}
+    pw, pb = arrays[f"proj{_SEP}w"], arrays[f"proj{_SEP}b"]
+    if pw.ndim != 3 or pb.shape != (pw.shape[0], pw.shape[2]):
+        raise ValueError(f"proj: expected a stacked w [R, noise, out] and b "
+                         f"[R, out], got {pw.shape} and {pb.shape}")
+    R, width = pw.shape[0], None
+    for i in range(n_convs):
+        w, b = (arrays[f"convs{_SEP}{i}{_SEP}{leaf}"] for leaf in "wb")
+        if w.ndim != 5 or w.shape[:3] != (R, 3, 3) \
+                or b.shape != (R, w.shape[4]):
+            raise ValueError(
+                f"convs/{i}: expected a stacked HWIO w [{R}, 3, 3, cin, cout] "
+                f"and b [{R}, cout], got {w.shape} and {b.shape}")
+        if i == 0 and pw.shape[2] % w.shape[3]:
+            raise ValueError(f"convs/0: {w.shape[3]} input channels do not "
+                             f"divide the projection's {pw.shape[2]} outputs")
+        if width is not None and w.shape[3] != width:
+            raise ValueError(f"convs/{i}: {w.shape[3]} input channels, but "
+                             f"the previous conv has {width} outputs")
+        width = w.shape[4]
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+           for k, v in arrays.items()}
+    return {"proj": {leaf: out[f"proj{_SEP}{leaf}"] for leaf in "wb"},
+            "convs": [{leaf: out[f"convs{_SEP}{i}{_SEP}{leaf}"]
+                       for leaf in "wb"} for i in range(n_convs)]}
+
+
 def load_generator_stack(directory: str, device=None
                          ) -> Tuple[Optional[Generator], Optional[int]]:
     """The newest loadable step's generator stack (the leaves under
@@ -96,7 +146,8 @@ def load_generator_stack(directory: str, device=None
     no loadable step.  A step that fails to read (a process killed
     mid-save) is skipped with a warning and the next-newest is tried, as
     `repro.checkpoint.store.restore_latest` does; a step without a
-    generator, or with one of the wrong structure, raises."""
+    generator, or with one of the wrong structure (a conv generator among
+    them), raises."""
     for step in reversed(list_steps(directory)):
         try:
             arrays = read_step(directory, step)
@@ -111,5 +162,11 @@ def load_generator_stack(directory: str, device=None
         if not gen:
             raise KeyError(f"checkpoint step_{step} in {directory} holds no "
                            f"generator ('gen/...' keys)")
+        if f"proj{_SEP}w" in gen:
+            raise ValueError(
+                f"checkpoint step_{step} in {directory} holds a conv "
+                f"generator; the checkpoint route restores the MLP only, as "
+                f"the JAX service's does: carry it with "
+                f"conv_generator_from_numpy and register it with gen_stack=")
         return generator_from_numpy(gen, device), step
     return None, None

@@ -1,23 +1,27 @@
-"""The paper's generator MLP — the solve path's half of `repro.core.gan`.
+"""The generators — the solve path's half of `repro.core.gan`.
 
     generator  noise(135) -> 128 -> 128 -> 128 -> 6   = 51,206 params
 
 (§V-A: Leaky ReLU hidden activations, Kaiming-normal init, sigmoid head
-bounding the parameters to the unit cube.)  A generator is a list of
-layers `{"w": [in, out], "b": [out]}` — the JAX package's layout, so a
+bounding the parameters to the unit cube.)  The MLP is a list of layers
+`{"w": [in, out], "b": [out]}` — the JAX package's layout, so a
 checkpoint's path-flattened keys ("0/w", "0/b", ...) map one to one — and
 a stack of R generators carries a leading `[R, ...]` axis on every leaf.
-The discriminator comes with the training path.
+A problem with an image-valued `param_shape` gets the convolutional
+generator of `models.convgen` instead, a dict `{"proj", "convs"}`; as in
+the JAX package, `generate_params` dispatches on that structure.  The
+discriminator comes with the training path.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..models import convgen
 
 NOISE_DIM = 135
 N_PARAMS = 6                     # p_0..p_5 of the loop-closure test
@@ -25,6 +29,7 @@ GEN_WIDTHS = (NOISE_DIM, 128, 128, 128, N_PARAMS)
 LEAK = 0.01
 
 Generator = List[Dict[str, torch.Tensor]]
+AnyGenerator = Union[Generator, convgen.ConvGenerator]
 
 
 def gen_widths(n_params=None):
@@ -50,8 +55,13 @@ def init_mlp(generator: torch.Generator, widths: Sequence[int], ranks=None,
 
 
 def init_generator(generator: torch.Generator, n_params=None, ranks=None,
-                   device=None) -> Generator:
-    """The paper's MLP generator in fp32 (`ranks=R`: an [R, ...] stack)."""
+                   device=None, param_shape=None) -> AnyGenerator:
+    """The paper's MLP generator in fp32 (`ranks=R`: an [R, ...] stack), or
+    the conv generator when the problem declares an image-valued
+    `param_shape` (H, W), as `repro.core.gan.init_generator` dispatches."""
+    if param_shape is not None:
+        return convgen.init_conv_generator(generator, param_shape, NOISE_DIM,
+                                           ranks, device)
     return init_mlp(generator, gen_widths(n_params), ranks, device)
 
 
@@ -68,11 +78,30 @@ def mlp_apply(params: Generator, x, final_activation=None):
     return x
 
 
-def generate_params(gen_params: Generator, noise):
+def generate_params(gen_params: AnyGenerator, noise):
     """noise [..., NOISE_DIM] -> parameter samples [..., n_params] in the
-    unit cube.  A stack [R, ...] takes noise [R, M, NOISE_DIM]."""
+    unit cube.  A stack [R, ...] takes noise [R, M, NOISE_DIM].  A dict is
+    the conv generator, a list the MLP."""
+    if isinstance(gen_params, dict):
+        return convgen.conv_generator_apply(gen_params, noise)
     return mlp_apply(gen_params, noise, final_activation=torch.sigmoid)
 
 
-def param_count(params: Generator) -> int:
-    return sum(t.numel() for layer in params for t in layer.values())
+def leaves(params: AnyGenerator) -> Iterator[torch.Tensor]:
+    """Every weight and bias of a generator of either layout."""
+    if isinstance(params, dict):
+        yield from convgen.flatten(params).values()
+    else:
+        for layer in params:
+            yield from layer.values()
+
+
+def map_leaves(fn, params: AnyGenerator) -> AnyGenerator:
+    """The same generator structure with `fn` applied to every leaf."""
+    if isinstance(params, dict):
+        return convgen.map_leaves(fn, params)
+    return [{k: fn(v) for k, v in layer.items()} for layer in params]
+
+
+def param_count(params: AnyGenerator) -> int:
+    return sum(t.numel() for t in leaves(params))

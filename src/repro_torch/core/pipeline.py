@@ -46,16 +46,3 @@ def sample_events(params, u):
     k = _affine(params[:, 2::3], *_K_RANGE)        # p2, p5
     return inverse_cdf_channels(u, mu, s, k).reshape(K * E, C)
 
-
-def make_reference_data(generator: torch.Generator, n_events: int,
-                        params=None, device=None):
-    """The toy data set: `n_events` events generated from the truth (or
-    `params` [6]).  The uniforms are drawn from `generator` on its own
-    device, then moved to `device`."""
-    dev = resolve_device(device)
-    params = true_params(dev) if params is None else params.to(dev)
-    E = EVENTS_PER_SAMPLE
-    K = -(-n_events // E)
-    u = torch.rand((K, E, 2), generator=generator,
-                   device=generator.device).to(dev)
-    return sample_events(params[None, :].expand(K, -1), u)[:n_events]

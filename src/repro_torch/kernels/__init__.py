@@ -2,6 +2,7 @@
 (`ref`) and the builder that compiles `csrc/` at first use (`build`).
 
 Ported: `inverse_cdf` (the Pallas `_icdf_kernel` of
-`repro.kernels.inverse_cdf`).  Still to port: the imaging mask and blur,
-flash attention and the SSD scan (ROADMAP.md queue B).
+`repro.kernels.inverse_cdf`) and `imaging` (`_mask_kernel` and
+`_blur_kernel` of `repro.kernels.imaging`).  Still to port: flash
+attention and the SSD scan (ROADMAP.md queue B).
 """

@@ -1,0 +1,126 @@
+"""The imaging operators: CUDA kernels on the card, plain on the CPU.
+
+Counterpart of `repro.kernels.imaging`:
+
+    mask_apply(x, m)   y[k, p] = x[k, p]·m[p]       (problem `imaging`)
+    blur2d(x)          separable 3-tap blur of      (problem `imaging_blur`)
+                       each [H, W] image, zero
+                       boundary
+
+both in fp32 math, written in x's dtype (fp32 or bf16), one launch of
+`csrc/imaging.cu` each.  The Pallas kernels take `block_k`/`block_p`; the
+tile arguments here are `threads` (per block, for the mask) and `images`
+(whole images per block, for the blur), and the result does not depend
+on them.
+
+Dispatch is by the tensor's device and nothing else, as for
+`kernels.inverse_cdf`: the inputs are checked first, then a CPU tensor
+goes to the plain version (`ref.mask_apply_ref`, `ref.blur2d_ref`) and a
+CUDA tensor to the kernel, which either launches or raises.  Each kernel
+has its `Counts`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+from .inverse_cdf import Counts
+from .ref import blur2d_ref, mask_apply_ref
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+mask_counts = Counts()
+blur_counts = Counts()
+
+
+def _check(name, t, dim):
+    if t.dim() != dim:
+        raise ValueError(f"{name} must have {dim} dims, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the imaging kernels run on cuda or cpu tensors, "
+                         f"got {t.device}")
+
+
+def _raise_on(err, what, x):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)} {x.dtype})")
+
+
+def mask_apply(x, m, threads: int = 256):
+    """x [K, P] image rows; m [P] 0/1 mask -> x·m [K, P] in x's dtype.
+
+    `threads` per block of the kernel: a multiple of 32 in [32, 1024]."""
+    _check("x", x, 2)
+    _check("m", m, 1)
+    if m.shape[0] != x.shape[1]:
+        raise ValueError(f"m must be [P] = [{x.shape[1]}] for x "
+                         f"{tuple(x.shape)}, got {tuple(m.shape)}")
+    if m.device != x.device:
+        raise ValueError(f"m is on {m.device}, x on {x.device}")
+    if not (32 <= threads <= 1024 and threads % 32 == 0):
+        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
+                         f"got {threads}")
+    if x.device.type == "cpu":
+        mask_counts.plain_calls += 1
+        return mask_apply_ref(x, m)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _kernels().repro_mask_apply(
+            x.data_ptr(), m.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[m.dtype], threads,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "mask_apply", x)
+    mask_counts.launches += 1
+    return y
+
+
+def blur2d(x, images: int = 4):
+    """x [K, H, W] images -> separable 3-tap (0.25, 0.5, 0.25) blur, rows
+    then columns, zero boundary, in x's dtype.  The operator is symmetric,
+    so it is its own adjoint.
+
+    `images` whole images per block of the kernel (>= 1, at most K are
+    used); the block's images are staged in shared memory, so the kernel
+    raises when that many H·W fp32 images do not fit there."""
+    _check("x", x, 3)
+    if images < 1:
+        raise ValueError(f"images must be >= 1, got {images}")
+    if x.device.type == "cpu":
+        blur_counts.plain_calls += 1
+        return blur2d_ref(x)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    K, H, W = x.shape
+    with torch.cuda.device(x.device):
+        err = _kernels().repro_blur2d(
+            x.data_ptr(), y.data_ptr(), K, H, W, _DTYPE_CODES[x.dtype],
+            images, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "blur2d", x)
+    blur_counts.launches += 1
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """The library of `csrc/imaging.cu`, built on first use, with the C
+    signatures of its two entry points."""
+    lib = build.load("imaging")
+    lib.repro_mask_apply.restype = ctypes.c_int
+    lib.repro_mask_apply.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.repro_blur2d.restype = ctypes.c_int
+    lib.repro_blur2d.argtypes = [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int64] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib

@@ -8,8 +8,10 @@ is the C = 1 case.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (`ref.inverse_cdf_ref`), a CUDA tensor to the kernel,
-which either launches or raises.  `counts` records both, so a run can
-show that its path went through the kernel.
+which either launches or raises.  u is checked before dispatch, so the
+CPU refuses a u the kernel would refuse (a strided view among them).
+`counts` records both routes, so a run can show that its path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -55,6 +57,10 @@ def inverse_cdf_channels(u, mu, s, k):
     y is contiguous, so `y.reshape(K * E, C)` is a view."""
     if u.dim() != 3:
         raise ValueError(f"u must be [K, E, C], got shape {tuple(u.shape)}")
+    if u.dtype not in _DTYPE_CODES:
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+    if not u.is_contiguous():
+        raise ValueError("u must be contiguous")
     K, E, C = u.shape
     for name, p in (("mu", mu), ("s", s), ("k", k)):
         if tuple(p.shape) != (K, C):
@@ -62,8 +68,6 @@ def inverse_cdf_channels(u, mu, s, k):
                              f"{tuple(u.shape)}, got {tuple(p.shape)}")
         if p.device != u.device:
             raise ValueError(f"{name} is on {p.device}, u on {u.device}")
-    if u.dtype not in _DTYPE_CODES:
-        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
     if u.device.type == "cpu":
         counts.plain_calls += 1
         return inverse_cdf_ref(u, mu, s, k)
@@ -75,9 +79,7 @@ def inverse_cdf_channels(u, mu, s, k):
 
 def _launch(u, mu, s, k):
     """One launch of the CUDA kernel over u [K, E, C] on the current
-    stream.  Raises on any input the kernel does not take."""
-    if not u.is_contiguous():
-        raise ValueError("u must be contiguous")
+    stream.  Raises on any parameter the kernel does not take."""
     pdtype = mu.dtype
     for name, p in (("mu", mu), ("s", s), ("k", k)):
         if p.dtype != pdtype or p.dtype not in _DTYPE_CODES:

@@ -8,6 +8,7 @@ each kernel against them on the card.  Counterpart of `repro.kernels.ref`.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 # u is clamped to [U_EPS, 1 - U_EPS] before the logit (repro.kernels.ref)
 U_EPS = 1e-6
@@ -26,3 +27,27 @@ def inverse_cdf_ref(u, mu, s, k):
     mu, s, k = (p.float().unsqueeze(1) for p in (mu, s, k))
     y = mu + s * torch.log(uf / (1.0 - uf)) + k * (uf - 0.5)
     return y.to(u.dtype)
+
+
+# separable 3-tap blur weights (repro.kernels.imaging): w0 + 2·w1 = 1
+BLUR_W0 = 0.5
+BLUR_W1 = 0.25
+
+
+def mask_apply_ref(x, m):
+    """x [K, P]; m [P] 0/1 observation mask -> x·m, fp32 math, in x's
+    dtype (the inpainting occlusion)."""
+    return (x.float() * m.float()[None, :]).to(x.dtype)
+
+
+def blur2d_ref(x):
+    """x [K, H, W] -> separable 3-tap (0.25, 0.5, 0.25) blur, rows then
+    columns, zero boundary, fp32 math, in x's dtype.  The zero-boundary
+    shifts are pad + slice, in the oracle's order of operations."""
+    xf = x.float()
+    up = F.pad(xf[:, 1:, :], (0, 0, 0, 1))         # x[r + 1], 0 at the bottom
+    down = F.pad(xf[:, :-1, :], (0, 0, 1, 0))      # x[r - 1], 0 at the top
+    v = BLUR_W0 * xf + BLUR_W1 * (up + down)
+    left = F.pad(v[:, :, 1:], (0, 1))              # v[c + 1]
+    right = F.pad(v[:, :, :-1], (1, 0))            # v[c - 1]
+    return (BLUR_W0 * v + BLUR_W1 * (left + right)).to(x.dtype)

@@ -7,12 +7,18 @@ registered inverse problems on the card.
 
 Registers each `--problem NAME[:CKPT_DIR]` (the newest generator stack in
 the JAX package's checkpoint store; without a directory, an untrained
-2-rank prior stack made from `--seed`), then runs a demo client: submits
+2-rank MLP prior stack with the problem's n_params outputs, made from
+`--seed`), then runs a demo client: submits
 `--requests` observation batches generated from each problem's truth
 (sizes swept across the bucket ladder), drains the queue, and reports
 per-bucket latency percentiles, residuals against the truth and the
 cache/queue counters.  Backpressure rejections are honored by draining
 and resubmitting.  Runs on CUDA unless `--device cpu` is given.
+
+The image problems (`imaging`, `imaging_blur`) are served here as the JAX
+CLI serves them: both routes give an MLP stack (1024 outputs), since the
+checkpoint route restores the MLP only.  Their conv generator is served
+through `SolveService.register_problem(name, gen_stack=...)`.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import serving as serving_cfg
 from repro_torch.core import gan
-from repro_torch.kernels.inverse_cdf import counts
+from repro_torch.kernels import imaging as imaging_kernels
+from repro_torch.kernels import inverse_cdf
 from repro_torch.problems import available, get_problem
 from repro_torch.serving import Backpressure, ServingError, SolveService
 
@@ -40,8 +47,10 @@ def main(argv=None):
                     metavar="NAME[:CKPT_DIR]",
                     help=f"problem to serve (repeatable); one of "
                          f"{available()}; append :DIR to restore a trained "
-                         f"generator checkpoint, else a fresh 2-rank prior "
-                         f"stack is served (demo mode)")
+                         f"MLP generator checkpoint, else a fresh 2-rank "
+                         f"MLP prior stack with the problem's n_params "
+                         f"outputs is served (demo mode), image problems "
+                         f"included, as the JAX CLI does")
     ap.add_argument("--preset", choices=("default", "reduced"),
                     default="reduced")
     ap.add_argument("--requests", type=int, default=16,
@@ -80,8 +89,9 @@ def main(argv=None):
                 stack = gan.init_generator(g, n_params=prob.n_params,
                                            ranks=2, device=device)
                 svc.register_problem(name, gen_stack=stack)
-                print(f"[serve] {name}: UNTRAINED 2-rank prior stack "
-                      f"(demo mode; pass {name}:CKPT_DIR for a trained one)")
+                print(f"[serve] {name}: UNTRAINED 2-rank MLP prior stack, "
+                      f"135 -> {prob.n_params} (demo mode; pass "
+                      f"{name}:CKPT_DIR for a trained one)")
         except ServingError as e:
             raise SystemExit(f"[serve] error: {e}")
 
@@ -122,8 +132,11 @@ def main(argv=None):
         print(f"[serve] {name:>12s} bucket {bucket:>5d}: {len(xs):3d} req, "
               f"p50 {_percentile(xs, 50)*1e3:8.1f} ms, "
               f"p99 {_percentile(xs, 99)*1e3:8.1f} ms")
-    print(f"[serve] sampler: {counts.launches} kernel launches, "
-          f"{counts.plain_calls} plain calls")
+    for kernel, c in (("sampler", inverse_cdf.counts),
+                      ("mask_apply", imaging_kernels.mask_counts),
+                      ("blur2d", imaging_kernels.blur_counts)):
+        print(f"[serve] {kernel}: {c.launches} kernel launches, "
+              f"{c.plain_calls} plain calls")
     if args.stats:
         _print_snapshot(svc.snapshot())
     else:

@@ -2,9 +2,9 @@
 
 Counterpart of `repro.problems`: everything the solver stack needs to know
 about a workload lives behind `InverseProblem`, and a registry maps names
-to instances.  Registered so far: `proxy1d`, the paper's 1D proxy app.
-The JAX package's other problems (proxy2d, linear_blur, imaging,
-imaging_blur) come with later slices.
+to instances.  Registered so far: `proxy1d`, the paper's 1D proxy app,
+and the imaging problems `imaging` and `imaging_blur`.  The JAX package's
+other problems (proxy2d, linear_blur) come with later slices.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..core.residuals import normalized_residuals
 
 
@@ -43,13 +44,22 @@ class InverseProblem:
         Returns events [K*E, obs_dim]."""
         raise NotImplementedError
 
+    # -- defaults ------------------------------------------------------------
+
     def make_reference_data(self, generator: torch.Generator, n_events: int,
                             params=None, device=None):
         """Toy measurement [n_events, obs_dim]: events generated from the
-        truth (or `params`), the uniforms drawn from `generator`."""
-        raise NotImplementedError
-
-    # -- defaults ------------------------------------------------------------
+        truth (or `params`), `events_per_sample` per parameter sample, the
+        uniforms drawn from `generator` on its own device, then moved to
+        `device` (as `repro.problems.InverseProblem.make_reference_data`)."""
+        dev = resolve_device(device)
+        params = self.true_params(dev) if params is None else params.to(dev)
+        E = self.events_per_sample
+        K = -(-n_events // E)
+        u = torch.rand((K, E, self.noise_channels), generator=generator,
+                       device=generator.device).to(dev)
+        return self.sample_events(params[None, :].repeat(K, 1),
+                                  u)[:n_events]
 
     def residuals(self, pred_params, true_params=None):
         """Normalized parameter residuals (Eq. 6) against this problem's
@@ -91,7 +101,7 @@ def available() -> Tuple[str, ...]:
 
 
 def _register_builtin():
-    from . import proxy1d  # noqa: F401  (registers on import)
+    from . import imaging, proxy1d  # noqa: F401  (register on import)
 
 
 _register_builtin()

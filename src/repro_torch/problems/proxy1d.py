@@ -19,10 +19,5 @@ class Proxy1D(InverseProblem):
     def sample_events(self, params, u):
         return pipeline.sample_events(params, u)
 
-    def make_reference_data(self, generator, n_events: int, params=None,
-                            device=None):
-        return pipeline.make_reference_data(generator, n_events, params,
-                                            device)
-
 
 register(Proxy1D())

@@ -17,7 +17,13 @@ Counterpart of `repro.serving.service`.  Request lifecycle:
 
 The service runs on one device (`device=`, CUDA unless the caller asks for
 the CPU).  The generator stack, the solve draws and every batch live
-there; on CUDA the sampler is the hand-written kernel.
+there; on CUDA the forward model's kernels are the hand-written ones.
+
+A generator stack comes in either layout of `core.gan`: the MLP (a list,
+checked against `gen_widths`) or, for a problem with an image-valued
+`param_shape`, the conv generator (a dict, checked leaf by leaf against
+`models.convgen.leaf_shapes`).  As in the JAX package, the checkpoint
+route restores the MLP only; a conv stack is registered with `gen_stack=`.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from .. import resolve_device
 from ..checkpoint.store import load_generator_stack
 from ..core import gan
 from ..core.workflow import SolveConfig, make_solver, solve_draws
+from ..models import convgen
 from ..obs.counters import Counters
 from ..problems import get_problem
 from .bucketing import bucket_for, pad_events, validate_buckets
@@ -110,6 +117,36 @@ def _train_hint(problem, checkpoint_dir) -> str:
             f"--problem {problem.name} --checkpoint-dir {checkpoint_dir}")
 
 
+def _check_stack(name, problem, gen_stack):
+    """Raise `ServingError` unless `gen_stack` is an [R, ...] stack of a
+    generator that `problem` can be served with."""
+    if isinstance(gen_stack, dict):
+        if problem.param_shape is None:
+            raise ServingError(
+                f"{name!r} has a flat parameter vector and is served by the "
+                f"MLP generator; got a conv generator stack")
+        want = convgen.leaf_shapes(problem.param_shape, gan.NOISE_DIM)
+        got = {k: tuple(v.shape[1:])
+               for k, v in convgen.flatten(gen_stack).items()}
+        if got != want:
+            widths = convgen.conv_gen_widths(problem.param_shape,
+                                             gan.NOISE_DIM)
+            raise ServingError(
+                f"conv generator leaves {got} do not make {name!r}'s "
+                f"param_shape {problem.param_shape}: expected {want} (layer "
+                f"widths {widths})")
+    else:
+        widths = (gen_stack[0]["w"].shape[-2], gen_stack[-1]["w"].shape[-1])
+        if widths != (gan.NOISE_DIM, problem.n_params):
+            raise ServingError(
+                f"generator maps {widths[0]} -> {widths[1]}, but {name!r} "
+                f"needs {gan.NOISE_DIM} -> {problem.n_params}")
+    ranks = {t.shape[0] for t in gan.leaves(gen_stack)}
+    if len(ranks) != 1:
+        raise ServingError(f"generator leaves disagree on the rank axis: "
+                           f"{sorted(ranks)}")
+
+
 class SolveService:
     """Batched solve server over registered `InverseProblem`s.
 
@@ -136,8 +173,9 @@ class SolveService:
     def register_problem(self, name: str, checkpoint_dir: Optional[str] = None,
                          gen_stack=None, step: Optional[int] = None):
         """Make `name` servable.  Provide a trained generator stack either
-        directly (`gen_stack`, the `core.gan` `[R, ...]` layout) or via
-        `checkpoint_dir` (the newest step of the JAX package's store)."""
+        directly (`gen_stack`, an `[R, ...]` stack in either `core.gan`
+        layout) or via `checkpoint_dir` (the newest step of the JAX
+        package's store; the MLP only, as in the JAX service)."""
         try:
             problem = get_problem(name)
         except KeyError as e:
@@ -160,13 +198,15 @@ class SolveService:
                     f"no trained generator checkpoint for problem {name!r} "
                     f"under {checkpoint_dir!r}.  "
                     f"{_train_hint(problem, checkpoint_dir)}")
-        gen_stack = [{k: v.to(self.device, torch.float32)
-                      for k, v in layer.items()} for layer in gen_stack]
-        widths = (gen_stack[0]["w"].shape[-2], gen_stack[-1]["w"].shape[-1])
-        if widths != (gan.NOISE_DIM, problem.n_params):
+        try:
+            gen_stack = gan.map_leaves(
+                lambda t: t.to(self.device, torch.float32), gen_stack)
+        except (KeyError, AttributeError, TypeError) as e:
             raise ServingError(
-                f"generator maps {widths[0]} -> {widths[1]}, but {name!r} "
-                f"needs {gan.NOISE_DIM} -> {problem.n_params}")
+                f"gen_stack for {name!r} is neither an MLP (a list of "
+                f"{{'w', 'b'}} layers) nor a conv generator ({{'proj', "
+                f"'convs'}}): {type(e).__name__}: {e}") from None
+        _check_stack(name, problem, gen_stack)
         self._problems[name] = (problem, gen_stack)
         return step
 
@@ -210,7 +250,7 @@ class SolveService:
         problem, gen_stack = self._problems[problem_name]
 
         def builder():
-            R = gen_stack[0]["w"].shape[0]
+            R = next(gan.leaves(gen_stack)).shape[0]
             fn = make_solver(problem, self.cfg.solve,
                              solve_draws(self.cfg.solve, R, problem,
                                          self.device))

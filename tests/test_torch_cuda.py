@@ -7,9 +7,11 @@ on the card's machine, which has none:
     PYTHONPATH=src python -m pytest -q -m sm90 tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors (fp32 rtol 1e-4 / atol 1e-5, bf16 2e-2), its wrapper is shown to
-raise on what the kernel does not take, and the solve service on the card
-is shown to launch the kernel and to agree with the CPU on the same draws.
+tensors (the sampler at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, the
+mask bitwise, the blur at rtol/atol 1e-6) across its tile sizes, its
+wrapper is shown to raise on what the kernel does not take, and the solve
+service on the card is shown to launch the kernels and to agree with the
+CPU on the same draws.
 """
 import numpy as np
 import pytest
@@ -18,9 +20,11 @@ import torch
 from repro_torch.configs.serving import REDUCED
 from repro_torch.core import gan
 from repro_torch.core.workflow import make_solver, solve_draws
+from repro_torch.kernels.imaging import (blur2d, blur_counts, mask_apply,
+                                         mask_counts)
 from repro_torch.kernels.inverse_cdf import (counts, inverse_cdf,
                                              inverse_cdf_channels)
-from repro_torch.kernels.ref import inverse_cdf_ref
+from repro_torch.kernels.ref import blur2d_ref, inverse_cdf_ref, mask_apply_ref
 from repro_torch.problems import get_problem
 from repro_torch.serving import SolveService
 
@@ -132,3 +136,112 @@ def test_solver_draws_are_device_independent(sm90_card):
         ys.to(sm90_card), mask.to(sm90_card))
     for key, v in out_cpu.items():
         torch.testing.assert_close(out_card[key].cpu(), v, **FP32)
+
+
+# ----------------------------------------------------------------------------
+# the imaging kernels
+
+
+@pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,P", [(2048, 1024), (1, 32), (7, 100), (300, 128),
+                                 (257, 130)])
+def test_mask_kernel_matches_plain_bitwise(sm90_card, K, P, dtype, mdtype):
+    g = torch.Generator().manual_seed(K + P)
+    x = torch.randn((K, P), generator=g).to(sm90_card, dtype)
+    m = (torch.rand(P, generator=g) > 0.4).to(sm90_card, mdtype)
+    want = mask_apply_ref(x, m)
+    for threads in (32, 96, 256, 1024):       # ragged against every size
+        before = mask_counts.launches
+        y = mask_apply(x, m, threads=threads)
+        torch.cuda.synchronize()
+        assert mask_counts.launches == before + 1
+        assert y.dtype == dtype and y.shape == (K, P) and y.is_cuda
+        assert torch.equal(y, want), threads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,H,W", [(2048, 32, 32), (1, 8, 8), (5, 32, 32),
+                                   (20, 16, 24), (3, 1, 5), (33, 64, 48),
+                                   (2, 128, 128)])
+def test_blur_kernel_matches_plain(sm90_card, K, H, W, dtype):
+    """Every tile size gives the same result (bitwise), ragged tiles
+    included; (2, 128, 128) needs more than 48 KB of shared memory."""
+    g = torch.Generator().manual_seed(K + H * W)
+    x = torch.randn((K, H, W), generator=g).to(sm90_card, dtype)
+    want = blur2d_ref(x)
+    outs = []
+    for images in (1, 3, 4, 8, 64):
+        if images * H * W * 4 > 200 * 1024:
+            continue
+        before = blur_counts.launches
+        outs.append(blur2d(x, images=images))
+        torch.cuda.synchronize()
+        assert blur_counts.launches == before + 1
+    for y in outs:
+        assert y.dtype == dtype and y.shape == (K, H, W) and y.is_cuda
+        assert torch.equal(y, outs[0])
+    torch.testing.assert_close(outs[0].float(), want.float(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_imaging_wrappers_raise_on_the_card(sm90_card):
+    x = torch.randn(16, 64, device=sm90_card)
+    m = torch.ones(64, device=sm90_card)
+    img = torch.randn(4, 32, 32, device=sm90_card)
+    before = (mask_counts.launches, mask_counts.plain_calls,
+              blur_counts.launches, blur_counts.plain_calls)
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_apply(x[:, ::2], m[:32])
+    with pytest.raises(ValueError, match="contiguous"):
+        blur2d(img.transpose(1, 2))
+    with pytest.raises(TypeError):
+        mask_apply(x.half(), m)
+    with pytest.raises(TypeError):
+        blur2d(img.double())
+    with pytest.raises(ValueError, match="cpu"):
+        mask_apply(x, m.cpu())
+    with pytest.raises(RuntimeError, match="blur2d kernel launch failed"):
+        blur2d(torch.randn(1, 256, 256, device=sm90_card))  # > 227 KB tile
+    assert (mask_counts.launches, mask_counts.plain_calls,
+            blur_counts.launches, blur_counts.plain_calls) == before
+    u = torch.rand(8, 16, 2, device=sm90_card)
+    with pytest.raises(ValueError, match="contiguous"):
+        inverse_cdf(u[..., 1], torch.zeros(8, device=sm90_card),
+                    torch.full((8,), 0.05, device=sm90_card),
+                    torch.zeros(8, device=sm90_card))
+
+
+@pytest.mark.parametrize("name", ["imaging", "imaging_blur"])
+def test_imaging_service_on_the_card_launches_the_kernels(sm90_card, name):
+    """One sampler launch and one mask (or blur) launch per solver call, no
+    plain call, cuDNN's TF32 flag as it was; the results agree with the
+    CPU's on the same stack and draws."""
+    prob = get_problem(name)
+    stack = gan.init_generator(torch.Generator().manual_seed(0), ranks=2,
+                               device="cpu", param_shape=prob.param_shape)
+    ys = [prob.make_reference_data(torch.Generator().manual_seed(i), n,
+                                   device="cpu").numpy()
+          for i, n in enumerate((5, 16, 40, 64))]
+    tf32 = torch.backends.cudnn.allow_tf32
+    svc = SolveService(REDUCED, device=sm90_card)
+    svc.register_problem(name, gen_stack=stack)
+    for c in (counts, mask_counts, blur_counts):
+        c.reset()
+    tickets = [svc.submit(name, y) for y in ys]
+    svc.run_until_empty()
+    calls = svc.cache.stats["compiles"] + 2                # 2 batches
+    forward, other = (mask_counts, blur_counts) if name == "imaging" \
+        else (blur_counts, mask_counts)
+    assert (counts.launches, forward.launches, other.launches) == \
+        (calls, calls, 0)
+    assert counts.plain_calls == forward.plain_calls == 0
+    assert torch.backends.cudnn.allow_tf32 == tf32
+    cpu = SolveService(REDUCED, device="cpu")
+    cpu.register_problem(name, gen_stack=stack)
+    cpu_tickets = [cpu.submit(name, y) for y in ys]
+    cpu.run_until_empty()
+    for t, c in zip(tickets, cpu_tickets):
+        for key in ("params", "sigma", "score"):
+            np.testing.assert_allclose(t.result()[key], c.result()[key],
+                                       **FP32)

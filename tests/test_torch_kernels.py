@@ -257,6 +257,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     assert len(_port_modules()) >= 20
+    assert {"repro_torch.models.convgen", "repro_torch.kernels.imaging",
+            "repro_torch.problems.imaging"} <= set(_port_modules())
 
 
 def _run_smoke(cwd):
