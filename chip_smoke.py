@@ -36,7 +36,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
      solver call must launch the sampler once and the mask (imaging) or the
      blur (imaging_blur) once, and nothing must take a plain version;
   9. one DEFAULT batch per imaging problem on the card and on the CPU;
- 10. profile 8 served requests per imaging problem.
+ 10. profile 8 served requests per imaging problem;
+ 11. hold flash attention (B4) against its plain version on the card: at
+     tinyllama-1.1b's prefill shape (q [8, 32, 1024, 64], k/v [8, 4, 1024,
+     64]) in bf16 and fp32, and over a sweep of GQA groups (1, 4, 8), head
+     dims (32, 64, 128), masks (causal, full, window 64 and 256), ragged
+     lengths (1, 100, 1000) and tiles (block_q, block_k in 32, 64, 128),
+     at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; every pair of tiles
+     within rtol 1e-5 / atol 1e-6 of the first;
+ 12. time B4 at the prefill shape in bf16 as in phase 4: the kernel, its
+     plain version, `scaled_dot_product_attention` (causal, GQA; timed,
+     never used by the port) and the bound (the causal half's FLOPs at
+     the bf16 tensor-core peak, or its bytes);
+ 13. serve tinyllama-1.1b at full size (22 layers, d_model 2048, bf16,
+     random weights from a seed) through `serving.engine.generate`: batch
+     8, prompt 1024, 64 greedy tokens, then again with a sliding window of
+     256 (the window mask and the ring buffer's wrap), each after an
+     uncounted warm-up run at the same shapes; 22 B4 launches per prefill
+     and no plain call; prefill ms, decode ms a step, tok/s;
+ 14. the same model at full width, depth 2, fp32 (TF32 off), batch 1,
+     prompt 256, 8 greedy tokens, on the card and on the CPU with the same
+     weights, with and without a window of 64: logits within 1e-3, token
+     ids equal unless the CPU's top-2 gap is below 1e-4;
+ 15. profile one tinyllama prefill, then 8 decode steps: the card's busy
+     share and its time by kernel (B4, the cuBLAS GEMMs, the rest).
 
 Each served path runs with every kernel count set to 0 just before it and
 read just after it.  The last lines are the `kernels` JSON line, the card's
@@ -62,12 +85,22 @@ BLUR = dict(rtol=1e-6, atol=1e-6)
 TIE_GAP = 1e-5                  # kept sets may differ only within this
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores
 MAIN_SHAPE = (2048, 64, 2)      # sampler u at DEFAULT with 16 ranks
 MASK_SHAPE = (2048, 1024)       # mask x at DEFAULT: 16 ranks x 128 cands
 BLUR_SHAPE = (2048, 32, 32)     # blur x at DEFAULT
 L2_ROTATION = 8                 # B2/B3 input sets cycled: 67 MB > the 50 MB L2
 SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
 RANKS = 16
+LLM_ARCH = "tinyllama-1.1b"
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 8, 1024, 64
+LLM_WINDOW = 256
+FLASH_Q = (8, 32, 1024, 64)     # B4 q at the prefill shape; k/v have 4 heads
+FLASH_KV_HEADS = 4
+TILES = [(bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128)]
+TILE_TOL = dict(rtol=1e-5, atol=1e-6)
+LOGIT_ATOL = 1e-3               # phase 14, card against CPU (fp32)
+TOP2_GAP = 1e-4                 # below this a greedy pick may differ
 
 
 def fail(msg):
@@ -117,11 +150,12 @@ def rotating(call, arg_sets):
     return lambda: call(*next(it))
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the card's memory
-    rate and fp32 operations over its fp32 rate."""
+    rate and operations over the card's peak rate for their type (fp32
+    outside the tensor cores unless `ops_per_s` says otherwise)."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -161,6 +195,302 @@ def conv_stack_arrays(leaf_shapes, ranks):
     return arrays
 
 
+def flash_phases(dev):
+    """Phases 11 and 12: B4 against its plain version, then its times.
+    Returns (max |kernel - plain| at the prefill shape in bf16, timing)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+
+    def qkv(B, H, KV, S, hd, dtype):
+        return tuple(torch.randn(shape, generator=g).to(dev, dtype)
+                     for shape in ((B, H, S, hd), (B, KV, S, hd),
+                                   (B, KV, S, hd)))
+
+    def check(tag, q, k, v, causal, window, bq=fa.BLOCK_Q, bk=fa.BLOCK_K):
+        o = fa.flash_attention(q, k, v, causal, window, bq, bk)
+        torch.cuda.synchronize()
+        tol = FP32 if q.dtype == torch.float32 else BF16
+        ok, err = close(o, flash_attention_ref(q, k, v, causal, window),
+                        **tol)
+        if not ok or o.dtype != q.dtype or o.shape != q.shape:
+            fail(f"flash_attention kernel disagrees with its plain version "
+                 f"at {tag} (max {err:.3e})")
+        return o, err
+
+    B, H, S, hd = FLASH_Q
+    main_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv(B, H, FLASH_KV_HEADS, S, hd, dtype)
+        _, main_err[dtype] = check(f"the prefill shape {dtype}", q, k, v,
+                                   True, None)
+        print(f"[11] flash_attention q{list(q.shape)} k/v{list(k.shape)} "
+              f"{str(dtype)[6:]} causal, tiles {fa.BLOCK_Q}x{fa.BLOCK_K}: "
+              f"max |kernel - plain| = {main_err[dtype]:.3e} ok")
+    del q, k, v
+    masks = {"causal": (True, None), "full": (False, None),
+             "window64": (True, 64), "window256": (True, 256)}
+    worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for G, d, (mname, (causal, window)), L, dtype in itertools.product(
+            (1, 4, 8), (32, 64, 128), masks.items(), (1, 100, 1000),
+            (torch.float32, torch.bfloat16)):
+        bq, bk = TILES[n % len(TILES)]
+        n += 1
+        _, err = check(f"G={G} hd={d} {mname} S={L} {dtype} tiles {bq}x{bk}",
+                       *qkv(2, 2 * G, 2, L, d, dtype), causal, window, bq, bk)
+        worst[dtype] = max(worst[dtype], err)
+    print(f"[11] flash_attention sweep: {n} cases (G 1/4/8, hd 32/64/128, "
+          f"causal/full/window 64/window 256, S 1/100/1000, fp32 and bf16, "
+          f"all 9 tile pairs in turn) within fp32 rtol 1e-4 / atol 1e-5 and "
+          f"bf16 2e-2; max |kernel - plain| fp32 {worst[torch.float32]:.3e}, "
+          f"bf16 {worst[torch.bfloat16]:.3e}")
+    for L, window in ((1000, 64), (1024, None), (300, 8)):
+        q, k, v = qkv(1, 8, 2, L, 64, torch.float32)
+        outs = [check(f"S={L} window {window} tiles {bq}x{bk}", q, k, v,
+                      True, window, bq, bk)[0] for bq, bk in TILES]
+        spread = max(float((o - outs[0]).abs().max()) for o in outs)
+        for (bq, bk), o in zip(TILES, outs):
+            ok, err = close(o, outs[0], **TILE_TOL)
+            if not ok:
+                fail(f"flash_attention tiles {bq}x{bk} differ from "
+                     f"{TILES[0]} by {err:.3e} at S={L}, window {window}")
+        print(f"[11] flash_attention S={L} window {window} fp32: all 9 tile "
+              f"pairs within rtol 1e-5 / atol 1e-6 of 32x32 (max spread "
+              f"{spread:.3e})")
+
+    # -- 12. time at the prefill shape, bf16 ---------------------------------
+    q, k, v = qkv(B, H, FLASH_KV_HEADS, S, hd, torch.bfloat16)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    try:
+        library(q[:1, :, :8], k[:1, :, :8], v[:1, :, :8])
+        lib_args, lib_note = (q, k, v), "enable_gqa=True"
+    except TypeError:          # no enable_gqa: repeat the KV heads first
+        G = H // FLASH_KV_HEADS
+        lib_args = (q, k.repeat_interleave(G, 1).contiguous(),
+                    v.repeat_interleave(G, 1).contiguous())
+        lib_note = "KV heads repeated before the call"
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    ok, err = close(library(*lib_args),
+                    flash_attention_ref(q, k, v, True, None), **BF16)
+    if not ok:
+        fail(f"scaled_dot_product_attention computes another function than "
+             f"the plain version (max err {err:.3e})")
+    t = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v), True),
+             plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), True),
+             library_ms=cuda_ms(lambda: library(*lib_args), True))
+    n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    n_ops = 4 * B * H * hd * (S * (S + 1) // 2)      # QK^T and PV, causal
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    print(f"[12] flash_attention q{list(q.shape)} bf16 causal, card time: "
+          f"kernel {t['ms']:.5f} ms (tiles {fa.BLOCK_Q}x{fa.BLOCK_K}), plain "
+          f"{t['plain_ms']:.5f} ms, scaled_dot_product_attention "
+          f"{t['library_ms']:.5f} ms ({lib_note}; max err against the plain "
+          f"version {err:.3e}); bound {t['bound_ms']:.6f} ms by "
+          f"{t['bound_by']} ({n_bytes} B, {n_ops} FLOP at the bf16 "
+          f"tensor-core peak; at the fp32 peak "
+          f"{n_ops / FP32_OPS_PER_S * 1e3:.5f} ms); kernel at "
+          f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s")
+    tiles = {}
+    for bq, bk in TILES:
+        tiles[(bq, bk)] = cuda_ms(
+            lambda: fa.flash_attention(q, k, v, True, None, bq, bk), True,
+            inner=3, samples=5, warmup=2)
+    print("[12] flash_attention bf16 card ms by tiles (block_q x block_k): "
+          + ", ".join(f"{bq}x{bk} {ms:.4f}" for (bq, bk), ms in
+                      tiles.items()))
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    ms32 = cuda_ms(lambda: fa.flash_attention(q32, k32, v32), True)
+    print(f"[12] flash_attention fp32 at the same shape: kernel {ms32:.5f} "
+          f"ms")
+    return main_err[torch.bfloat16], t
+
+
+def llm_phases(dev, all_counts):
+    """Phases 13-15: tinyllama-1.1b served at full size, the card against
+    the CPU at full width and depth 2, and a profile.  Returns B4's
+    launches over the counted runs of phase 13."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import generate
+
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    want = cfg.param_counts()["total"] + (2 * cfg.num_layers + 1) \
+        * cfg.d_model
+    if n_params != want or cfg.num_layers != 22 or cfg.d_model != 2048:
+        fail(f"{LLM_ARCH}: {n_params} parameters, {cfg.num_layers} layers, "
+             f"d_model {cfg.d_model}; expected {want}, 22, 2048")
+    print(f"[13] {LLM_ARCH}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads over {cfg.num_kv_heads} KV heads, attn_impl "
+          f"{cfg.attn_impl}) made on the card from seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    launches = 0
+    for window in (None, LLM_WINDOW):
+        c = cfg.replace(sliding_window=window)
+        # warm-up at the same shapes, not counted: the first call at a
+        # shape grows the allocator's pool and picks the GEMMs' kernels
+        generate(params, c, prompts, LLM_NEW)
+        events, finite = [], []
+
+        def on_logits(i, lg):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            finite.append(torch.isfinite(lg).all())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        t0 = time.perf_counter()
+        start.record()
+        out = generate(params, c, prompts, LLM_NEW, on_logits=on_logits)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: (cnt.launches, cnt.plain_calls)
+               for k, cnt in all_counts.items()}
+        # ------------------------------------------------------------------
+        expect = {k: ((c.num_layers if k == "flash_attention" else 0), 0)
+                  for k in all_counts}
+        if got != expect:
+            fail(f"{LLM_ARCH} window {window}: (kernel launches, plain "
+                 f"calls) {got}; expected {expect} (one B4 launch per layer "
+                 f"of the prefill)")
+        launches += got["flash_attention"][0]
+        new = out[:, LLM_PROMPT:]
+        if out.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) \
+                or not torch.equal(out[:, :LLM_PROMPT], prompts) \
+                or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+            fail(f"{LLM_ARCH}: generated ids of shape {tuple(out.shape)} "
+                 f"outside [0, {cfg.vocab_size})")
+        if not bool(torch.stack(finite).all()):
+            fail(f"{LLM_ARCH} window {window}: non-finite logits")
+        prefill_ms = start.elapsed_time(events[0])
+        steps = np.array([a.elapsed_time(b)
+                          for a, b in zip(events[:-1], events[1:])])
+        total_ms = start.elapsed_time(end)
+        print(f"[13] {LLM_ARCH} window {window}: batch {LLM_BATCH}, prompt "
+              f"{LLM_PROMPT}, {LLM_NEW} greedy tokens; B4 launches "
+              f"{got['flash_attention'][0]}, plain calls "
+              f"{got['flash_attention'][1]}; no other kernel; logits finite")
+        print(f"[13] {LLM_ARCH} window {window}: prefill {prefill_ms:.3f} ms "
+              f"({LLM_BATCH * LLM_PROMPT / prefill_ms * 1e3:.0f} prompt "
+              f"tok/s), decode step p50 {np.percentile(steps, 50):.3f} ms, "
+              f"p99 {np.percentile(steps, 99):.3f} ms over {len(steps)} "
+              f"steps of {LLM_BATCH} tokens, "
+              f"{LLM_BATCH * LLM_NEW / total_ms * 1e3:.1f} "
+              f"tok/s generated including prefill ({total_ms:.1f} ms on the "
+              f"card's clock, {wall * 1e3:.1f} ms on the host's); peak "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        print(f"[13]   request 0, first 12 new ids: {new[0, :12].tolist()}")
+
+    # -- 14. the card against the CPU, full width, depth 2, fp32 -------------
+    for window in (None, 64):
+        c = cfg.replace(num_layers=2, dtype="float32", sliding_window=window)
+        small = M.init(torch.Generator().manual_seed(SEED + 4), c, "cpu")
+        tok = torch.randint(0, c.vocab_size, (1, 256),
+                            generator=torch.Generator().manual_seed(SEED + 5))
+        runs = {}
+        for d in ("cpu", dev):
+            logits = []
+            p = M.map_params(lambda x: x.to(d), small)
+            out = generate(p, c, tok.to(d), 8,
+                           on_logits=lambda i, lg: logits.append(lg.cpu()))
+            runs[str(d)] = (out.cpu(), torch.cat(logits, 1))
+        (out_c, lg_c), (out_g, lg_g) = runs["cpu"], runs[str(dev)]
+        err = float((lg_g - lg_c).abs().max())
+        if err > LOGIT_ATOL:
+            fail(f"phase 14 window {window}: card logits differ from the "
+                 f"CPU's by {err:.3e} (> {LOGIT_ATOL})")
+        top2 = torch.topk(lg_c, 2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1])[0]
+        for i in range(8):
+            if out_c[0, 256 + i] != out_g[0, 256 + i]:
+                if float(gaps[i]) >= TOP2_GAP:
+                    fail(f"phase 14 window {window}: token {i} differs "
+                         f"(CPU top-2 gap {float(gaps[i]):.3e})")
+                break                       # the sequences part here
+        same = bool(torch.equal(out_c, out_g))
+        print(f"[14] {LLM_ARCH} full width, depth 2, fp32, window {window}: "
+              f"batch 1, prompt 256, 8 greedy tokens; logits card vs CPU max "
+              f"|diff| {err:.3e} (<= {LOGIT_ATOL}); token ids "
+              f"{'identical' if same else 'differ only after a near-tie'}; "
+              f"smallest CPU top-2 gap {float(gaps.min()):.3e}")
+    # -- 15. profile one prefill, then 8 decode steps -------------------------
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.serving import make_prefill_fn, make_serve_step
+
+    def profiled(what, fn):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not on_card:
+            print(f"[15] {what}: the profiler recorded no device events: the "
+                  f"card's busy share is not measured")
+            return out
+        busy, groups = {}, {}
+        for e in on_card:
+            us = e.time_range.elapsed_us()
+            busy[e.name] = busy.get(e.name, 0.0) + us
+            low = e.name.lower()
+            grp = ("B4 flash_kernel" if "flash_kernel" in low else
+                   "GEMM (cuBLAS/CUTLASS)" if any(
+                       w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                          "sm90_")) else
+                   "other (elementwise, norms, copies, softmax, argmax)")
+            groups[grp] = groups.get(grp, 0.0) + us
+        total = sum(busy.values())
+        print(f"[15] {what}: {wall_us / 1e3:.2f} ms on the host clock under "
+              f"the profiler, card busy {total / 1e3:.2f} ms "
+              f"({100 * total / wall_us:.1f}%), {len(on_card)} device ops")
+        for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[15]   {us / 1e3:9.3f} ms ({100 * us / total:5.1f}%)  "
+                  f"{grp}")
+        for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[15]   {us / 1e3:9.3f} ms ({100 * us / total:5.1f}%)  "
+                  f"{name[:90]}")
+        return out
+
+    _, cache = profiled(
+        f"{LLM_ARCH} prefill (batch {LLM_BATCH}, prompt {LLM_PROMPT})",
+        lambda: make_prefill_fn(cfg)(params, {"tokens": prompts},
+                                     LLM_PROMPT + LLM_NEW,
+                                     last_logits_only=True))
+    step = make_serve_step(cfg)
+
+    def eight_steps():
+        tok = prompts[:, -1:]
+        for _ in range(8):
+            lg, _ = step(params, tok, cache)
+            tok = torch.argmax(lg, dim=-1)
+    profiled(f"{LLM_ARCH} 8 decode steps (batch {LLM_BATCH}, from "
+             f"{LLM_PROMPT} cached tokens)", eight_steps)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -194,8 +524,10 @@ def main():
     # that the flag is unchanged afterwards.
     torch.backends.cuda.matmul.allow_tf32 = False
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    from repro_torch.kernels import flash_attention as kflash
     all_counts = {"inverse_cdf": counts, "mask_apply": kimaging.mask_counts,
-                  "blur2d": kimaging.blur_counts}
+                  "blur2d": kimaging.blur_counts,
+                  "flash_attention": kflash.counts}
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -573,13 +905,20 @@ def main():
         card_vs_cpu("9", name, stack, requests)
         profile("10", svc, name, requests, lat)
 
+    # -- 11-15. flash attention and the LLM engine ---------------------------
+    max_err["flash_attention"], timing["flash_attention"] = flash_phases(dev)
+    launches["flash_attention"] = llm_phases(dev, all_counts)
+
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),
                "mask_apply": ("src/repro_torch/kernels/csrc/imaging.cu",
                               "src/repro/kernels/imaging.py:45"),
                "blur2d": ("src/repro_torch/kernels/csrc/imaging.cu",
-                          "src/repro/kernels/imaging.py:87")}
+                          "src/repro/kernels/imaging.py:87"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:34")}
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

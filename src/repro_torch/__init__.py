@@ -9,7 +9,10 @@ Ported so far: the solve service (`serving.SolveService`,
 `python -m repro_torch.launch.serve`) for `proxy1d` and the imaging
 problems `imaging` and `imaging_blur`, with the inverse-CDF event sampler,
 the inpainting mask and the 3-tap blur as CUDA kernels, and the conv
-generator of the imaging problems (`models.convgen`).
+generator of the imaging problems (`models.convgen`); and LLM serving of
+the dense decoders (`serving.generate`, `python -m
+repro_torch.launch.serve_llm`, tinyllama-1.1b by default) with flash
+attention as a CUDA kernel in prefill.
 
 Device policy: entry points take `device=`; with none they run on CUDA and
 raise when CUDA is absent (`resolve_device`).  They never fall back to the

@@ -10,6 +10,9 @@ bf16 leaves are stored as their uint16 bit pattern, with "bfloat16" in
 `dtypes`; they are widened here to fp32 by a 16-bit shift, which is exact
 (no `ml_dtypes` needed).  Only numpy and json are used to read.
 
+`lm_params_from_numpy` carries an LLM's parameter pytree (the JAX
+`models.model.init` layout, as numpy arrays) into the port.
+
 `load_generator_stack` restores the MLP generator only, as the JAX
 service's checkpoint route does (it restores into an MLP template).  The
 conv generator's path-flattened arrays ("proj/w", "convs/0/w", ...) cross
@@ -137,6 +140,46 @@ def conv_generator_from_numpy(flat: Dict[str, np.ndarray], device=None
     return {"proj": {leaf: out[f"proj{_SEP}{leaf}"] for leaf in "wb"},
             "convs": [{leaf: out[f"convs{_SEP}{i}{_SEP}{leaf}"]
                        for leaf in "wb"} for i in range(n_convs)]}
+
+
+def _to_tensor(a, dtype, dev):
+    """A numpy leaf (fp32, or bf16 as ml_dtypes) -> a tensor of `dtype`
+    (None: the leaf's own) on `dev`."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes, read as its bits
+        return torch.from_numpy(widen_bf16(a.view(np.uint16))).to(
+            dev, dtype or torch.bfloat16)
+    t = torch.from_numpy(np.array(a))     # a writable copy
+    return t.to(dev, dtype or t.dtype)
+
+
+def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
+    """An LLM's parameters in the JAX `models.model.init` layout, as a
+    nested dict of numpy arrays ({"periods": {"sub0": {"attn": {"wq":
+    ...}}}, "final_norm", "embed", ["lm_head"]}, the blocks stacked with a
+    leading n_periods axis) -> the port's params on `device`, same keys.
+
+    `dtype` ("float32", "bfloat16" or a torch dtype) casts every leaf;
+    None keeps each leaf's (bf16 stays bf16).  Raises ValueError on a
+    tree that is not such a model."""
+    from ..models.layers import torch_dtype
+    from ..models.model import leaves, map_params
+    dev = resolve_device(device)
+    dt = None if dtype is None else torch_dtype(dtype)
+    keys = set(tree)
+    if not {"periods", "final_norm", "embed"} <= keys \
+            or not isinstance(tree["periods"], dict):
+        raise ValueError(f"not an LLM parameter tree: expected 'periods', "
+                         f"'final_norm' and 'embed', got {sorted(keys)}")
+    extra = keys - {"periods", "final_norm", "embed", "lm_head"}
+    if extra:
+        raise ValueError(f"unexpected leaves {sorted(extra)} (the port runs "
+                         f"text-only decoders)")
+    depth = {np.shape(a)[0] for a in leaves(tree["periods"])}
+    if len(depth) != 1:
+        raise ValueError(f"the stacked blocks disagree on n_periods: "
+                         f"{sorted(depth)}")
+    return map_params(lambda a: _to_tensor(a, dt, dev), tree)
 
 
 def load_generator_stack(directory: str, device=None

@@ -2,7 +2,8 @@
 (`ref`) and the builder that compiles `csrc/` at first use (`build`).
 
 Ported: `inverse_cdf` (the Pallas `_icdf_kernel` of
-`repro.kernels.inverse_cdf`) and `imaging` (`_mask_kernel` and
-`_blur_kernel` of `repro.kernels.imaging`).  Still to port: flash
-attention and the SSD scan (ROADMAP.md queue B).
+`repro.kernels.inverse_cdf`), `imaging` (`_mask_kernel` and
+`_blur_kernel` of `repro.kernels.imaging`) and `flash_attention`
+(`_flash_kernel` of `repro.kernels.flash_attention`, forward).  Still to
+port: the SSD scan (ROADMAP.md queue B).
 """

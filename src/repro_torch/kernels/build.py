@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("inverse_cdf", "imaging")   # every kernel source under csrc/
+# every kernel source under csrc/
+SOURCES = ("inverse_cdf", "imaging", "flash_attention")
 
 # No --use_fast_math: the kernels hold fp32 tolerances (see the sources).
 # -Xptxas -v prints registers and spills into the build log.

@@ -7,6 +7,9 @@ each kernel against them on the card.  Counterpart of `repro.kernels.ref`.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -51,3 +54,28 @@ def blur2d_ref(x):
     left = F.pad(v[:, :, 1:], (0, 1))              # v[c + 1]
     right = F.pad(v[:, :, :-1], (1, 0))            # v[c - 1]
     return (BLUR_W0 * v + BLUR_W1 * (left + right)).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        window: Optional[int] = None):
+    """q [B, H, Sq, hd], k/v [B, KV, Sk, hd] (GQA: H = KV·G, query head h
+    reads KV head h // G) -> [B, H, Sq, hd] in q's dtype, fp32 math.
+
+    Positions count from 0 in both q and k; key k is visible to query i
+    when k <= i (causal) and k > i - window (window).  Masked scores are
+    -inf, so a row with no visible key is NaN, as in the JAX oracle."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)

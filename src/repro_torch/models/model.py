@@ -1,0 +1,220 @@
+"""Unified decoder LM: embed, the layer stack, final norm, LM head; with
+prefill and one-token decode for serving.  Counterpart of
+`repro.models.model` for text-only decoders of the dense family.
+
+Parameters keep the JAX package's layout, so checkpoint and parameter
+keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
+stacked with a leading `n_periods` axis (one period of one layer for a
+homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head".
+Where JAX scans over that axis, the port loops over it in Python.
+
+The decode cache is {"pos": int, "blocks": {"sub{j}": {"k", "v"}}} with
+k/v [n_periods, B, W, KV, hd]; `pos` is a Python int (tokens already
+processed), so the loop needs no device read.  `decode_step` writes the
+cache in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import resolve_device
+from . import blocks, layers
+from .config import ModelConfig
+
+
+def period_structure(cfg: ModelConfig):
+    plen = cfg.attn_period if cfg.family == "hybrid" else 1
+    if cfg.num_layers % plen:
+        raise ValueError(f"{cfg.num_layers} layers are not whole periods of "
+                         f"{plen}")
+    kinds = tuple(cfg.layer_kind(j) for j in range(plen))
+    mlp_kinds = tuple(cfg.mlp_kind(j) for j in range(plen))
+    return cfg.num_layers // plen, plen, kinds, mlp_kinds
+
+
+def _check_text_decoder(cfg: ModelConfig):
+    if cfg.family in ("audio", "vlm") or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} frontend is not ported; the port "
+            f"runs text-only decoders (ROADMAP.md queue A item 9)")
+
+
+def map_params(fn, tree):
+    """The same nested-dict structure with `fn` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def leaves(tree):
+    """Every leaf of a nested dict, depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def period_params(params, i: int):
+    """The blocks of period i: views into the stacked params."""
+    return map_params(lambda t: t[i], params["periods"])
+
+
+# ----------------------------------------------------------------------------
+# init
+
+
+def init(gen, cfg: ModelConfig, device=None):
+    """Random parameters in the JAX layout (Kaiming-normal matrices, unit
+    norms, zero biases) in `cfg.dtype`, drawn from the torch.Generator
+    `gen` on its own device and placed on `device` (CUDA by default, see
+    `resolve_device`; a generator on that device draws in place).  On
+    device="meta" the shapes are made and nothing is drawn."""
+    _check_text_decoder(cfg)
+    dtype = layers.torch_dtype(cfg.dtype)
+    device = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
+    periods = [{f"sub{j}": blocks.init_block(gen, cfg, kinds[j], mlp_kinds[j],
+                                             dtype, device)
+                for j in range(plen)} for _ in range(n_periods)]
+    p = {"periods": _stack(periods)}
+    del periods                  # free the per-layer copies before embed
+    p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    p["embed"] = layers.kaiming(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                                fan_in=cfg.d_model, device=device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.kaiming(gen, (cfg.d_model, cfg.vocab_size),
+                                      dtype, device=device)
+    return p
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in leaves(params))
+
+
+# ----------------------------------------------------------------------------
+# embedding
+
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """Text batch {"tokens": [B, S]} -> (x [B,S,D], labels, loss_mask)."""
+    _check_text_decoder(cfg)
+    tok = batch["tokens"]
+    x = params["embed"][tok]
+    return x, tok, torch.ones(tok.shape, dtype=torch.float32,
+                              device=tok.device)
+
+
+def unembed(params, x, cfg: ModelConfig):
+    if "lm_head" in params:
+        return torch.matmul(x, params["lm_head"])
+    return torch.matmul(x, params["embed"].t())
+
+
+# ----------------------------------------------------------------------------
+# forward
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Returns (logits [B,S,V], aux_loss scalar)."""
+    n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
+    x, _, _ = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_periods):
+        pp = period_params(params, i)
+        for j in range(plen):
+            x, a = blocks.run_block(pp[f"sub{j}"], x, cfg, kinds[j],
+                                    mlp_kinds[j], positions)
+            aux = aux + a
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, x, cfg), aux
+
+
+# ----------------------------------------------------------------------------
+# serving: prefill + decode
+
+
+def decode_window(cfg: ModelConfig, context_len: int) -> int:
+    return min(context_len, cfg.sliding_window or context_len)
+
+
+def init_cache(cfg: ModelConfig, batch: int, context_len: int, device=None):
+    """Zero cache for `context_len` tokens (a ring of sliding_window slots
+    when that is smaller); `pos` counts tokens already processed."""
+    dtype = layers.torch_dtype(cfg.dtype)
+    n_periods, plen, kinds, _ = period_structure(cfg)
+    W = decode_window(cfg, context_len)
+    return {"pos": 0, "blocks": {
+        f"sub{j}": map_params(
+            lambda t: t.expand((n_periods,) + t.shape).clone(),
+            blocks.init_block_cache(batch, cfg, kinds[j], W, dtype, device))
+        for j in range(plen)}}
+
+
+def decode_step(params, tokens, cache, cfg: ModelConfig):
+    """One decode step. tokens [B,1] (text-only decode).
+
+    Returns (logits [B,1,V], cache), the cache updated in place with
+    pos + 1."""
+    n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
+    x = params["embed"][tokens]
+    pos = cache["pos"]
+    for i in range(n_periods):
+        pp = period_params(params, i)
+        for j in range(plen):
+            c = {k: t[i] for k, t in cache["blocks"][f"sub{j}"].items()}
+            x, _ = blocks.run_block_decode(pp[f"sub{j}"], x, c, pos, cfg,
+                                           kinds[j], mlp_kinds[j])
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return unembed(params, x, cfg), cache
+
+
+def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
+            last_logits_only: bool = False):
+    """Run the full prompt, building the decode cache.
+
+    Returns (logits [B,S,V], or [B,1,V] with last_logits_only, the serving
+    path that never makes the full-sequence logits; and the cache).  The
+    last min(W, S) keys and values go to ring slots pos % W: a cold cache
+    (S < W) is padded, a full one rolled by S % W."""
+    n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
+    x, _, _ = embed_inputs(params, batch, cfg)
+    B, S, _ = x.shape
+    W = decode_window(cfg, context_len or S)
+    cache = init_cache(cfg, B, context_len or S, device=x.device)
+    positions = torch.arange(S, device=x.device)
+    take = min(W, S)
+    for i in range(n_periods):
+        pp = period_params(params, i)
+        for j in range(plen):
+            blocks.check_kinds(kinds[j], mlp_kinds[j])
+            p_blk = pp[f"sub{j}"]
+            h = layers.rms_norm(x, p_blk["ln1"], cfg.norm_eps)
+            h, k, v = layers.run_attention_with_kv(p_blk["attn"], h, cfg,
+                                                   positions)
+            for name, t in (("k", k), ("v", v)):
+                ring = cache["blocks"][f"sub{j}"][name][i]
+                if take < W:         # cold cache: slots S..W-1 stay empty
+                    ring[:, :take] = t[:, -take:]
+                else:                # rotate so that slot = pos % W
+                    ring.copy_(torch.roll(t[:, -take:], S % W, dims=1))
+            x = x + h
+            h = layers.rms_norm(x, p_blk["ln2"], cfg.norm_eps)
+            x = x + layers.run_mlp(p_blk["mlp"], h)
+    if last_logits_only:
+        x = x[:, -1:]
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache["pos"] = S
+    return unembed(params, x, cfg), cache

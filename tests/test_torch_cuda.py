@@ -7,11 +7,11 @@ on the card's machine, which has none:
     PYTHONPATH=src python -m pytest -q -m sm90 tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors (the sampler at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, the
-mask bitwise, the blur at rtol/atol 1e-6) across its tile sizes, its
-wrapper is shown to raise on what the kernel does not take, and the solve
-service on the card is shown to launch the kernels and to agree with the
-CPU on the same draws.
+tensors (the sampler and flash attention at fp32 rtol 1e-4 / atol 1e-5
+and bf16 2e-2, the mask bitwise, the blur at rtol/atol 1e-6) across its
+tile sizes, its wrapper is shown to raise on what the kernel does not
+take, and the solve service and the LLM engine on the card are shown to
+launch the kernels and to agree with the CPU on the same inputs.
 """
 import numpy as np
 import pytest
@@ -20,13 +20,17 @@ import torch
 from repro_torch.configs.serving import REDUCED
 from repro_torch.core import gan
 from repro_torch.core.workflow import make_solver, solve_draws
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.imaging import (blur2d, blur_counts, mask_apply,
                                          mask_counts)
 from repro_torch.kernels.inverse_cdf import (counts, inverse_cdf,
                                              inverse_cdf_channels)
-from repro_torch.kernels.ref import blur2d_ref, inverse_cdf_ref, mask_apply_ref
+from repro_torch.kernels.ref import (blur2d_ref, flash_attention_ref,
+                                     inverse_cdf_ref, mask_apply_ref)
+from repro_torch.models import model as M
 from repro_torch.problems import get_problem
-from repro_torch.serving import SolveService
+from repro_torch.serving import SolveService, generate
 
 pytestmark = pytest.mark.sm90
 FP32 = dict(rtol=1e-4, atol=1e-5)
@@ -245,3 +249,104 @@ def test_imaging_service_on_the_card_launches_the_kernels(sm90_card, name):
         for key in ("params", "sigma", "score"):
             np.testing.assert_allclose(t.result()[key], c.result()[key],
                                        **FP32)
+
+
+# ----------------------------------------------------------------------------
+# flash attention (B4) and the LLM engine
+
+TILES = [(bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128)]
+MASKS = {"causal": (True, None), "full": (False, None),
+         "window64": (True, 64), "window256": (True, 256)}
+
+
+def _qkv(B, H, KV, S, hd, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(dev, dtype)
+                 for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_kernel_matches_plain(sm90_card, G, hd, mask, dtype):
+    """Ragged lengths 1, 100 and 1000, each at another pair of tiles."""
+    causal, window = MASKS[mask]
+    for n, S in enumerate((1, 100, 1000)):
+        bq, bk = TILES[(G + hd + 3 * n + len(mask)) % len(TILES)]
+        q, k, v = _qkv(2, 2 * G, 2, S, hd, dtype, sm90_card, seed=S)
+        before = fa.counts.launches
+        o = fa.flash_attention(q, k, v, causal, window, block_q=bq,
+                               block_k=bk)
+        torch.cuda.synchronize()
+        assert fa.counts.launches == before + 1
+        assert o.dtype == dtype and o.shape == q.shape and o.is_cuda
+        torch.testing.assert_close(
+            o.float(), flash_attention_ref(q, k, v, causal, window).float(),
+            **(FP32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("S,window", [(256, None), (1000, 64), (300, 8)])
+def test_flash_kernel_tile_invariance(sm90_card, S, window):
+    """Every pair of tiles gives the result of the first within rtol 1e-5
+    / atol 1e-6 (tests/test_kernels.py::test_flash_attention_block_shapes);
+    a window of 8 is narrower than every tile."""
+    q, k, v = _qkv(1, 4, 2, S, 64, torch.float32, sm90_card, seed=1)
+    outs = [fa.flash_attention(q, k, v, True, window, block_q=bq,
+                               block_k=bk) for bq, bk in TILES]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(outs[0], flash_attention_ref(q, k, v, True,
+                                                            window), **FP32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_prefill_shape(sm90_card, dtype):
+    """tinyllama-1.1b's prefill at batch 8, prompt 1024."""
+    q, k, v = _qkv(8, 32, 4, 1024, 64, dtype, sm90_card, seed=2)
+    o = fa.flash_attention(q, k, v, True, None)
+    torch.testing.assert_close(
+        o.float(), flash_attention_ref(q, k, v, True, None).float(),
+        **(FP32 if dtype == torch.float32 else BF16))
+
+
+def test_flash_wrapper_raises_on_the_card(sm90_card):
+    q, k, v = _qkv(1, 4, 2, 16, 64, torch.float32, sm90_card)
+    before = (fa.counts.launches, fa.counts.plain_calls)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="cpu"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t[..., :48].contiguous() for t in (q, k, v)))
+    assert (fa.counts.launches, fa.counts.plain_calls) == before
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_llm_engine_on_the_card_launches_flash(sm90_card, window):
+    """The tinyllama smoke config in fp32: one B4 launch per layer and
+    prefill, no plain call, and the card's logits and greedy tokens are
+    the CPU's on the same weights."""
+    cfg = get_config("tinyllama-1.1b", smoke=True).replace(
+        dtype="float32", sliding_window=window)
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", sm90_card):
+        logits = []
+        fa.counts.reset()
+        out = generate(M.map_params(lambda t: t.to(dev), params), cfg,
+                       tok.to(dev), 6,
+                       on_logits=lambda i, lg: logits.append(lg.cpu()))
+        runs[str(dev)] = (out.cpu(), logits, fa.counts.launches,
+                          fa.counts.plain_calls)
+    (out_c, lg_c, l_c, p_c), (out_g, lg_g, l_g, p_g) = runs.values()
+    assert (l_c, p_c) == (0, cfg.num_layers)
+    assert (l_g, p_g) == (cfg.num_layers, 0)
+    assert torch.equal(out_c, out_g)
+    for a, b in zip(lg_g, lg_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
