@@ -59,7 +59,43 @@ Phases, each reported on its own lines; any failure exits non-zero:
      weights, with and without a window of 64: logits within 1e-3, token
      ids equal unless the CPU's top-2 gap is below 1e-4;
  15. profile one tinyllama prefill, then 8 decode steps: the card's busy
-     share and its time by kernel (B4, the cuBLAS GEMMs, the rest).
+     share and its time by kernel (B4, the cuBLAS GEMMs, the rest);
+ 16. hold the SSD scan (B5) against its plain version on the card: at
+     mamba2-130m's training shape (x [8, 256, 24, 64], N 128, chunk 512)
+     and a multi-chunk shape (S 2048, four chunks of 512), in bf16 and
+     fp32, at every tile (32, 64, 128), and over a sweep of ragged S (1,
+     100, 1000), chunks (16, 64, 128, 512), N (16, 128) and P (32, 64), at
+     fp32 rtol/atol 1e-3 and bf16 2e-2; every chunk and tile within 1e-4
+     of the first; once against the sequential recurrence;
+ 17. time B5 at both shapes in bf16 as in phase 4: the kernel, its plain
+     version and the bound (no single PyTorch call computes it);
+ 18. the gradients of every kernel wrapper (B1-B5) on the card against
+     the CPU's at small fp32 shapes; the blur's backward is one launch of
+     the blur kernel;
+ 19. train mamba2-130m at full size (24 layers, d_model 768, bf16,
+     128,983,488 parameters, random weights from a seed) through
+     `training.Trainer` at the `launch/train` defaults: batch 8, seq 256,
+     lr 3e-4, warmup 11, 50 steps; 48 B5 launches a step (24 layers,
+     forward and remat recompute) and no plain call; every loss finite,
+     and the loss of 4 held-out batches lower after training than before
+     (each step's batch is new random tokens, and the spread between
+     batches is larger than what 50 steps at lr 3e-4 take off, so a
+     step's loss against another's is not the test); step time p50/p99,
+     tokens/s, peak memory; then profile 3 steps: the card's busy share
+     and B5's share of its time;
+ 20. one training step on the card and on the CPU from the same weights
+     and batch, at full width, depth 2, fp32, TF32 off: mamba2-130m at
+     batch 1, seq 1024 (two chunks, so the state carries across chunks)
+     and tinyllama-1.1b at batch 1, seq 256 (B4 and its backward): the
+     loss at rtol 1e-5, every gradient leaf within 1e-3 in relative norm,
+     and the card's new parameters against the CPU's optimizer applied to
+     the card's gradients at rtol 1e-6 / atol 1e-9, every entry; the new
+     parameters against the CPU's own step are reported (where |g| is
+     near Adam's eps, the gradients' last bits move an entry by up to
+     lr_t);
+ 21. serve mamba2-130m (batch 8, prompt 1024, 64 greedy tokens) through
+     `serving.engine.generate`: SSM prefill and decode are plain PyTorch,
+     so no kernel launches; prefill ms, decode ms a step.
 
 Each served path runs with every kernel count set to 0 just before it and
 read just after it.  The last lines are the `kernels` JSON line, the card's
@@ -101,6 +137,18 @@ TILES = [(bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128)]
 TILE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOGIT_ATOL = 1e-3               # phase 14, card against CPU (fp32)
 TOP2_GAP = 1e-4                 # below this a greedy pick may differ
+SSD_TRAIN = (8, 256, 24, 64, 128)    # B5 x [B, S, H, P] and N, training
+SSD_MULTI = (8, 2048, 24, 64, 128)   # four chunks of 512
+SSD_FP32 = dict(rtol=1e-3, atol=1e-3)          # tests/test_kernels.py
+SSD_INVARIANCE = dict(rtol=1e-4, atol=1e-4)
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 50
+MAMBA_PARAMS = 128_983_488
+CARD_VS_CPU_STEPS = (("mamba2-130m", 1, 1024), ("tinyllama-1.1b", 1, 256))
+HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phase 19's loss check
+STEP_LOSS_RTOL = 1e-5           # phase 20, card against CPU (fp32)
+STEP_GRAD_REL = 1e-3            # each gradient leaf, in relative norm
+UPDATE_TOL = dict(rtol=1e-6, atol=1e-9)   # the optimizer, card vs CPU
 
 
 def fail(msg):
@@ -491,6 +539,431 @@ def llm_phases(dev, all_counts):
     return launches
 
 
+def ssd_phases(dev):
+    """Phases 16 and 17: the SSD scan (B5) against its plain version, then
+    its times.  Returns (max |kernel - plain| at the training shape in
+    bf16, timing at the training shape)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_ref
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+
+    def inputs(B, S, H, P, N, dtype):
+        x = torch.randn((B, S, H, P), generator=g)
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+        A = -torch.exp(torch.randn((H,), generator=g))
+        Bc, Cc = (torch.randn((B, S, N), generator=g) for _ in range(2))
+        return [x.to(dev, dtype), dt.to(dev), A.to(dev), Bc.to(dev, dtype),
+                Cc.to(dev, dtype)]
+
+    def check(tag, xs, chunk, tile, want=None):
+        y = ssd.ssd_scan(*xs, chunk=chunk, tile=tile)
+        torch.cuda.synchronize()
+        if want is None:
+            want = ssd_chunked_ref(*xs, chunk)[0]
+        tol = SSD_FP32 if xs[0].dtype == torch.float32 else BF16
+        ok, err = close(y, want, **tol)
+        if not ok or y.dtype != xs[0].dtype or y.shape != xs[0].shape:
+            fail(f"ssd_scan kernel disagrees with its plain version at {tag} "
+                 f"(max {err:.3e})")
+        return y, err
+
+    # -- 16. against the plain version ---------------------------------------
+    main_err = {}
+    for tag, (B, S, H, P, N), chunk in (("training", SSD_TRAIN, 512),
+                                        ("multi-chunk", SSD_MULTI, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            xs = inputs(B, S, H, P, N, dtype)
+            want = ssd_chunked_ref(*xs, chunk)[0]
+            errs = [check(f"the {tag} shape {dtype} tile {t}", xs, chunk, t,
+                          want)[1] for t in ssd.TILES]
+            main_err[(tag, dtype)] = errs[ssd.TILES.index(ssd.TILE)]
+            print(f"[16] ssd_scan {tag} x{[B, S, H, P]} N {N} chunk {chunk} "
+                  f"{str(dtype)[6:]}: max |kernel - plain| by tile "
+                  + ", ".join(f"{t} {e:.3e}" for t, e in zip(ssd.TILES, errs))
+                  + " ok")
+            del xs, want
+    worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for S, chunk, N, P in itertools.product((1, 100, 1000), (16, 64, 128, 512),
+                                            (16, 128), (32, 64)):
+        dtype = (torch.float32, torch.bfloat16)[n % 2]
+        xs = inputs(2, S, 2, P, N, dtype)
+        want = ssd_chunked_ref(*xs, chunk)[0]
+        for t in ssd.TILES:
+            worst[dtype] = max(worst[dtype], check(
+                f"S={S} chunk {chunk} N {N} P {P} {dtype} tile {t}", xs,
+                chunk, t, want)[1])
+        n += 1
+    print(f"[16] ssd_scan sweep: {n} cases (S 1/100/1000, chunk "
+          f"16/64/128/512, N 16/128, P 32/64, fp32 and bf16 in turn, every "
+          f"tile {list(ssd.TILES)}) within fp32 rtol/atol 1e-3 and bf16 2e-2; "
+          f"max |kernel - plain| fp32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}")
+    xs = inputs(1, 100, 2, 16, 8, torch.float32)
+    _, err = check("the sequential recurrence", xs, 32, ssd.TILE,
+                   ssd_scan_ref(*xs))
+    print(f"[16] ssd_scan x[1, 100, 2, 16] N 8 fp32 against the sequential "
+          f"recurrence ssd_scan_ref: max {err:.3e} ok")
+    # the shape of tests/test_kernels.py::test_ssd_chunk_invariance (P 16,
+    # N 8), at a ragged S
+    xs = inputs(1, 300, 2, 16, 8, torch.float32)
+    outs = [ssd.ssd_scan(*xs, chunk=c, tile=t)
+            for c in (16, 64, 128, 512) for t in ssd.TILES]
+    torch.cuda.synchronize()
+    spread = max(float((o - outs[0]).abs().max()) for o in outs)
+    for o in outs:
+        ok, err = close(o, outs[0], **SSD_INVARIANCE)
+        if not ok:
+            fail(f"ssd_scan: a chunk or tile differs from chunk 16, tile "
+                 f"{ssd.TILES[0]} by {err:.3e}")
+    print(f"[16] ssd_scan x[1, 300, 2, 16] N 8 fp32: chunks 16/64/128/512 x "
+          f"tiles "
+          f"{list(ssd.TILES)} all within 1e-4 of chunk 16, tile "
+          f"{ssd.TILES[0]} (max spread {spread:.3e})")
+
+    # -- 17. time at the training and multi-chunk shapes ---------------------
+    timing = {}
+    for tag, (B, S, H, P, N) in (("training", SSD_TRAIN),
+                                 ("multi-chunk", SSD_MULTI)):
+        xs = inputs(B, S, H, P, N, torch.bfloat16)
+        Q = min(512, S)
+        L = [min(Q, S - c0) for c0 in range(0, S, Q)]
+        # per (b, h) and chunk of length l: C B^T and (.)x over the causal
+        # half, the state's read-out and its update
+        n_ops = B * H * sum(2 * (N + P) * l * (l + 1) // 2 + 4 * l * N * P
+                            for l in L)
+        n_bytes = sum(t.numel() * t.element_size() for t in xs) \
+            + xs[0].numel() * xs[0].element_size()
+        t = dict(ms=cuda_ms(lambda: ssd.ssd_scan(*xs, chunk=512), True,
+                            inner=5, samples=20, warmup=3),
+                 plain_ms=cuda_ms(lambda: ssd_chunked_ref(*xs, 512), True,
+                                  inner=2, samples=10, warmup=2),
+                 library_ms=None)
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops,
+                                             BF16_TC_OPS_PER_S)
+        tiles = {tl: cuda_ms(lambda: ssd.ssd_scan(*xs, chunk=512, tile=tl),
+                             True, inner=3, samples=5, warmup=2)
+                 for tl in ssd.TILES}
+        timing[tag] = t
+        print(f"[17] ssd_scan {tag} x{[B, S, H, P]} N {N} chunk 512 bf16, "
+              f"card time: kernel {t['ms']:.5f} ms (tile {ssd.TILE}), plain "
+              f"{t['plain_ms']:.5f} ms, no single PyTorch call computes it "
+              f"(library_ms null); bound {t['bound_ms']:.6f} ms by "
+              f"{t['bound_by']} ({n_bytes} B, {n_ops} FLOP at the bf16 "
+              f"tensor-core peak; at the fp32 peak "
+              f"{n_ops / FP32_OPS_PER_S * 1e3:.5f} ms); kernel at "
+              f"{n_ops / t['ms'] / 1e9:.3f} TFLOP/s; by tile: "
+              + ", ".join(f"{tl} {ms:.4f}" for tl, ms in tiles.items()))
+        del xs
+    return main_err[("training", torch.bfloat16)], timing
+
+
+def grad_phase(dev, all_counts):
+    """Phase 18: every wrapper's gradients on the card against the CPU's,
+    at small shapes in fp32; the blur's backward is the blur kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import imaging as kimaging
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.inverse_cdf import inverse_cdf_channels
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    u = torch.rand((6, 9, 2), generator=g)
+    prm = [torch.rand((6, 2), generator=g) for _ in range(3)]
+    dt = torch.nn.functional.softplus(torch.randn((2, 40, 2), generator=g))
+    cases = {
+        "inverse_cdf": (inverse_cdf_channels,
+                        [u, prm[0], prm[1] + 0.1, prm[2] - 0.5]),
+        "mask_apply": (kimaging.mask_apply,
+                       [torch.randn((8, 40), generator=g),
+                        (torch.rand(40, generator=g) > 0.4).float()]),
+        "blur2d": (kimaging.blur2d, [torch.randn((3, 8, 12), generator=g)]),
+        "flash_attention": (
+            lambda *a: fa.flash_attention_model(*a, window=16),
+            [torch.randn((2, 40, 2, 2, 32), generator=g),
+             torch.randn((2, 40, 2, 32), generator=g),
+             torch.randn((2, 40, 2, 32), generator=g)]),
+        "ssd_scan": (lambda *a: ssd.ssd_scan(*a, chunk=16),
+                     [torch.randn((2, 40, 2, 16), generator=g), dt,
+                      -torch.exp(torch.randn((2,), generator=g)),
+                      torch.randn((2, 40, 8), generator=g),
+                      torch.randn((2, 40, 8), generator=g)]),
+    }
+    for name, (fn, inputs) in cases.items():
+        w = torch.randn(fn(*inputs).shape, generator=g)
+        grads, got = {}, None
+        for d in ("cpu", dev):
+            xs = [t.detach().to(d).requires_grad_() for t in inputs]
+            cnt = all_counts[name]
+            cnt.reset()
+            y = fn(*xs)
+            if y.grad_fn is None:
+                fail(f"{name}: the output on {d} has no grad_fn")
+            (y * w.to(d)).sum().backward()
+            torch.cuda.synchronize()
+            grads[str(d)] = [x.grad.cpu() for x in xs]
+            got = (cnt.launches, cnt.plain_calls, cnt.backward_launches,
+                   cnt.backward_plain)
+        want = (1, 0, 1, 0) if name == "blur2d" else (1, 0, 0, 1)
+        if got != want:
+            fail(f"{name} on the card: (launches, plain calls, backward "
+                 f"launches, backward plain) {got}; expected {want}")
+        tol = SSD_INVARIANCE if name == "ssd_scan" else FP32
+        worst = 0.0
+        for a, b in zip(grads[str(dev)], grads["cpu"]):
+            ok, err = close(a, b, **tol)
+            worst = max(worst, err)
+            if not ok:
+                fail(f"{name}: a gradient on the card differs from the CPU's "
+                     f"by {err:.3e}")
+        print(f"[18] {name}: gradients of {len(inputs)} inputs, card vs CPU "
+              f"max |diff| {worst:.3e} (rtol {tol['rtol']}, atol "
+              f"{tol['atol']}); on the card (launches, plain calls, "
+              f"backward launches, backward plain) {got}")
+
+
+def train_phases(dev, all_counts):
+    """Phases 19-21: mamba2-130m trained at full size, one step on the
+    card against the CPU (mamba2-130m and tinyllama-1.1b at full width,
+    depth 2), and mamba2-130m served.  Returns B5's launches over the
+    counted training run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.serving import generate
+    from repro_torch.training import trainer as T
+
+    # -- 19. train mamba2-130m at full size ----------------------------------
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = T.TrainConfig(lr=3e-4, warmup=min(20, TRAIN_STEPS // 5 + 1),
+                         total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    trainer = T.Trainer(cfg, tcfg, SEED, device=dev)
+    n_params = M.param_count(trainer.state["params"])
+    if n_params != MAMBA_PARAMS or cfg.num_layers != 24 \
+            or cfg.d_model != 768:
+        fail(f"{TRAIN_ARCH}: {n_params} parameters, {cfg.num_layers} layers, "
+             f"d_model {cfg.d_model}; expected {MAMBA_PARAMS}, 24, 768")
+    print(f"[19] {TRAIN_ARCH}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.ssm_d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+          f"N {cfg.ssm_state}, ssm_chunk {cfg.ssm_chunk}, vocab "
+          f"{cfg.vocab_size}, tied, remat {cfg.remat}) made on the card from "
+          f"seed {SEED} in {time.perf_counter() - t0:.2f}s; batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, lr {tcfg.lr}, warmup "
+          f"{tcfg.warmup}, {TRAIN_STEPS} steps")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=dev)
+    held_out = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=HELD_OUT_SEED + i,
+                           device=dev) for i in range(HELD_OUT_BATCHES)]
+
+    def held_out_loss():
+        """The mean loss of the held-out batches under the current
+        parameters (not counted: run outside the counted window)."""
+        with torch.no_grad():
+            return float(torch.stack([M.loss_fn(trainer.state["params"], b,
+                                                cfg)[0]
+                                      for b in held_out]).mean())
+    before = held_out_loss()
+    # one warm-up step, not counted, its new state dropped: the first call
+    # at these shapes compiles PyTorch's runtime kernels and grows the
+    # allocator's pool
+    trainer.step_fn(trainer.state, next(TokenStream(cfg, TRAIN_BATCH,
+                                                    TRAIN_SEQ, seed=SEED + 11,
+                                                    device=dev)))
+    torch.cuda.synchronize()
+    events, losses = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    start.record()
+    trainer.run(stream, TRAIN_STEPS, log_every=TRAIN_STEPS,
+                log=lambda s: print(f"[19]   {s}"), on_step=on_step)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    backward = all_counts["ssd_scan"].backward_plain
+    # ----------------------------------------------------------------------
+    expect = {k: ((2 * cfg.num_layers * TRAIN_STEPS if k == "ssd_scan"
+                   else 0), 0) for k in all_counts}
+    if got != expect:
+        fail(f"{TRAIN_ARCH} training: (kernel launches, plain calls) {got}; "
+             f"expected {expect} (B5 twice a layer a step: the forward and "
+             f"the remat recompute)")
+    loss = torch.stack(losses).float().cpu().numpy()
+    after = held_out_loss()
+    if not np.isfinite(loss).all() or not np.isfinite([before, after]).all():
+        fail(f"{TRAIN_ARCH}: non-finite loss {loss}, held out {before} -> "
+             f"{after}")
+    if not after < before:
+        fail(f"{TRAIN_ARCH}: the loss did not fall: held-out loss "
+             f"{before:.4f} before training, {after:.4f} after")
+    steps = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(steps, 50))
+    print(f"[19] {TRAIN_ARCH} training: B5 launches {got['ssd_scan'][0]} "
+          f"({got['ssd_scan'][0] // TRAIN_STEPS} a step), plain calls "
+          f"{got['ssd_scan'][1]}, B5 backward passes (the VJP of the plain "
+          f"version) {backward}; no other kernel")
+    print(f"[19] {TRAIN_ARCH} loss on the {HELD_OUT_BATCHES} held-out batches: "
+          f"{before:.4f} before training, {after:.4f} after (fell by "
+          f"{before - after:.4f}); every step's loss finite")
+    print(f"[19] {TRAIN_ARCH} training loss by step (each a new random "
+          f"batch): " + " ".join(f"{v:.4f}" for v in loss))
+    print(f"[19] {TRAIN_ARCH} first step {loss[0]:.4f}, mean of the last 5 "
+          f"{loss[-5:].mean():.4f}: batch against batch, so the batches' "
+          f"spread (std {loss.std():.4f} over the run) is in it")
+    print(f"[19] {TRAIN_ARCH} step time p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms, first "
+          f"{steps[0]:.3f} ms (on the card's clock, from one step's end to "
+          f"the next); {TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} tokens/s at "
+          f"p50; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(stream, 3, log_every=3, log=lambda s: None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        print(f"[19] {TRAIN_ARCH} 3 profiled steps: the profiler recorded no "
+              f"device events: the card's busy share is not measured")
+    else:
+        busy, groups = {}, {}
+        for e in on_card:
+            us = e.time_range.elapsed_us()
+            busy[e.name] = busy.get(e.name, 0.0) + us
+            low = e.name.lower()
+            grp = ("B5 ssd_kernel" if "ssd_kernel" in low else
+                   "GEMM (cuBLAS/CUTLASS)" if any(
+                       w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                          "sm90_")) else
+                   "other (elementwise, reductions, copies, the plain "
+                   "backward of B5)")
+            groups[grp] = groups.get(grp, 0.0) + us
+        total = sum(busy.values())
+        print(f"[19] {TRAIN_ARCH} 3 profiled steps: {wall_us / 3e3:.2f} ms "
+              f"a step on the host clock under the profiler, card busy "
+              f"{total / 3e3:.2f} ms a step ({100 * total / wall_us:.1f}%), "
+              f"{len(on_card) // 3} device ops a step")
+        for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
+                  f"%)  {grp}")
+        for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
+                  f"%)  {name[:90]}")
+    launches = got["ssd_scan"][0]
+    del trainer, stream, events, losses, prof
+    torch.cuda.empty_cache()
+
+    # -- 20. one step on the card against the CPU, full width, depth 2 -------
+    for arch, batch, seq in CARD_VS_CPU_STEPS:
+        c = get_config(arch).replace(num_layers=2, dtype="float32")
+        tc = T.TrainConfig(lr=3e-4, warmup=11, total_steps=TRAIN_STEPS)
+        small = M.init(torch.Generator().manual_seed(SEED + 8), c, "cpu")
+        data = make_batch(c, batch, seq, seed=SEED + 9, device="cpu")
+        out = {}
+        for d in ("cpu", dev):
+            state = T.train_state_from_params(
+                M.map_params(lambda t: t.to(d), small), tc)
+            loss, _, grads = T._compute_grads(
+                state["params"], {"tokens": data["tokens"].to(d)}, c, tc)
+            new, gnorm = T._apply(state, grads, tc)
+            out[str(d)] = (float(loss), M.map_params(
+                lambda t: t.float().cpu(), grads), M.map_params(
+                lambda t: t.float().cpu(), new["params"]), float(gnorm))
+            del state, grads, new
+        (lc, gc, pc, nc), (lg, gg, pg, ng) = out["cpu"], out[str(dev)]
+        grad_rel = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
+                       for a, b in zip(M.leaves(gg), M.leaves(gc)))
+        # the card's update against the CPU's optimizer arithmetic on the
+        # card's own gradients: every entry, no exceptions
+        want, _ = T._apply(T.train_state_from_params(small, tc), gg, tc)
+        update_err = max(float((a - b).abs().max()) for a, b in
+                         zip(M.leaves(pg), M.leaves(want["params"])))
+        update_ok = all(torch.allclose(a, b, **UPDATE_TOL) for a, b in
+                        zip(M.leaves(pg), M.leaves(want["params"])))
+        # card against CPU end to end: Adam's first step moves an entry by
+        # lr_t g/(|g| + eps), so where |g| is near eps (1e-8) the gradients'
+        # last bits move it by up to lr_t; reported, not held
+        lr_t = tc.lr / tc.warmup
+        diffs = [(a - b).abs() for a, b in zip(M.leaves(pg), M.leaves(pc))]
+        end_err = max(float(d.max()) for d in diffs)
+        n_far = sum(int((d > 0.01 * lr_t).sum()) for d in diffs)
+        n_all = sum(d.numel() for d in diffs)
+        if abs(lg - lc) > STEP_LOSS_RTOL * abs(lc) \
+                or grad_rel > STEP_GRAD_REL or not update_ok:
+            fail(f"phase 20 {arch}: loss card {lg} CPU {lc}, worst gradient "
+                 f"leaf off by {grad_rel:.3e} in relative norm, the card's "
+                 f"update off the CPU's arithmetic by {update_err:.3e} (bars "
+                 f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL})")
+        print(f"[20] {arch} full width, depth 2, fp32, TF32 off, batch "
+              f"{batch}, seq {seq}: one step card vs CPU from the same "
+              f"weights and batch: loss {lg:.6f} vs {lc:.6f} (rel "
+              f"{abs(lg - lc) / abs(lc):.2e} <= {STEP_LOSS_RTOL}), grad norm "
+              f"{ng:.6f} vs {nc:.6f}, worst gradient leaf {grad_rel:.3e} in "
+              f"relative norm (<= {STEP_GRAD_REL}) over {len(diffs)} leaves; "
+              f"the card's new parameters against the CPU's optimizer on the "
+              f"card's gradients: max |diff| {update_err:.3e} (rtol "
+              f"{UPDATE_TOL['rtol']}, atol {UPDATE_TOL['atol']}, every "
+              f"entry); against the CPU's own step: max |diff| "
+              f"{end_err:.3e}, {n_far} of {n_all} entries above 0.01 lr_t "
+              f"({0.01 * lr_t:.2e})")
+        del small, out
+
+    # -- 21. serve mamba2-130m -----------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT),
+                            generator=gen, device=dev)
+    generate(params, cfg, prompts, LLM_NEW)        # warm-up, not counted
+    events, finite = [], []
+
+    def on_logits(i, lg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        finite.append(torch.isfinite(lg).all())
+    start = torch.cuda.Event(enable_timing=True)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted serving run ---
+    start.record()
+    out = generate(params, cfg, prompts, LLM_NEW, on_logits=on_logits)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    # ----------------------------------------------------------------------
+    if any(v != (0, 0) for v in got.values()):
+        fail(f"{TRAIN_ARCH} serving: (kernel launches, plain calls) {got}; "
+             f"expected none: SSM prefill and decode are plain PyTorch")
+    new = out[:, LLM_PROMPT:]
+    if out.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) \
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size \
+            or not bool(torch.stack(finite).all()):
+        fail(f"{TRAIN_ARCH} serving: ids of shape {tuple(out.shape)} or "
+             f"non-finite logits")
+    steps = np.array([a.elapsed_time(b)
+                      for a, b in zip(events[:-1], events[1:])])
+    print(f"[21] {TRAIN_ARCH} served: batch {LLM_BATCH}, prompt {LLM_PROMPT}, "
+          f"{LLM_NEW} greedy tokens; prefill {start.elapsed_time(events[0]):.3f}"
+          f" ms, decode step p50 {np.percentile(steps, 50):.3f} ms, p99 "
+          f"{np.percentile(steps, 99):.3f} ms; no kernel launch and no "
+          f"wrapper call (SSM prefill and decode are plain PyTorch, as "
+          f"jnp in the JAX package); first ids {new[0, :8].tolist()}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -525,9 +998,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
     all_counts = {"inverse_cdf": counts, "mask_apply": kimaging.mask_counts,
                   "blur2d": kimaging.blur_counts,
-                  "flash_attention": kflash.counts}
+                  "flash_attention": kflash.counts, "ssd_scan": kssd.counts}
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -909,6 +1383,12 @@ def main():
     max_err["flash_attention"], timing["flash_attention"] = flash_phases(dev)
     launches["flash_attention"] = llm_phases(dev, all_counts)
 
+    # -- 16-21. the SSD scan, gradients, and LLM training --------------------
+    max_err["ssd_scan"], ssd_timing = ssd_phases(dev)
+    timing["ssd_scan"] = ssd_timing["training"]
+    grad_phase(dev, all_counts)
+    launches["ssd_scan"] = train_phases(dev, all_counts)
+
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),
@@ -918,7 +1398,9 @@ def main():
                           "src/repro/kernels/imaging.py:87"),
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:34")}
+                   "src/repro/kernels/flash_attention.py:34"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:25")}
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

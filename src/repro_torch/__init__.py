@@ -12,7 +12,11 @@ the inpainting mask and the 3-tap blur as CUDA kernels, and the conv
 generator of the imaging problems (`models.convgen`); and LLM serving of
 the dense decoders (`serving.generate`, `python -m
 repro_torch.launch.serve_llm`, tinyllama-1.1b by default) with flash
-attention as a CUDA kernel in prefill.
+attention as a CUDA kernel in prefill, and of mamba2-130m; and LLM
+training on one device (`training.Trainer`, `python -m
+repro_torch.launch.train`, mamba2-130m with the SSD chunked scan as a
+CUDA kernel).  Every kernel wrapper is a `torch.autograd.Function` with
+the JAX package's backward.
 
 Device policy: entry points take `device=`; with none they run on CUDA and
 raise when CUDA is absent (`resolve_device`).  They never fall back to the

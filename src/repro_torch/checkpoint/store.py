@@ -159,9 +159,12 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
     ...}}}, "final_norm", "embed", ["lm_head"]}, the blocks stacked with a
     leading n_periods axis) -> the port's params on `device`, same keys.
 
-    `dtype` ("float32", "bfloat16" or a torch dtype) casts every leaf;
-    None keeps each leaf's (bf16 stays bf16).  Raises ValueError on a
-    tree that is not such a model."""
+    The blocks may be attention blocks ("attn", "mlp", "ln1", "ln2") or
+    Mamba-2 blocks ("ssm", "ln1"), whose `A_log`, `D` and `dt_bias` are
+    fp32 in a bf16 model.  `dtype` ("float32", "bfloat16" or a torch
+    dtype) casts every leaf; None keeps each leaf's own (bf16 stays bf16,
+    fp32 stays fp32).  Raises ValueError on a tree that is not such a
+    model."""
     from ..models.layers import torch_dtype
     from ..models.model import leaves, map_params
     dev = resolve_device(device)

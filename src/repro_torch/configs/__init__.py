@@ -1,35 +1,36 @@
 """Presets of the port: the solve service's `DEFAULT` and `REDUCED`
 (`serving`), as in `repro.configs.serving`, and the architecture registry
-of the LLM serving path: `--arch <id>` resolves here, as in
-`repro.configs`.
+of the LLM paths (serving and training): `--arch <id>` resolves here, as
+in `repro.configs`.
 
-Only the dense decoders are registered: their layers are all ported
-(`models.layers`, `models.blocks`).  The other archs of the JAX package
-raise `NotImplementedError` naming the ROADMAP item that ports them.
+Registered: the dense decoders and mamba2-130m (the ssm family), whose
+layers are all ported (`models.layers`, `models.ssm`, `models.blocks`).
+The other archs of the JAX package raise `NotImplementedError` naming the
+ROADMAP item that ports them.
 """
-from . import deepseek_67b, qwen2_5_3b, qwen3_32b, tinyllama_1_1b
+from . import (deepseek_67b, mamba2_130m, qwen2_5_3b, qwen3_32b,
+               tinyllama_1_1b)
 
 ARCHS = {
     "qwen3-32b": qwen3_32b,
     "qwen2.5-3b": qwen2_5_3b,
     "deepseek-67b": deepseek_67b,
     "tinyllama-1.1b": tinyllama_1_1b,
+    "mamba2-130m": mamba2_130m,
 }
 
 # archs of the JAX package not ported yet -> what ports them
 LATER = {
-    "mamba2-130m": "the SSM family with LLM training (models/ssm.py, "
-                   "kernel B5), ROADMAP.md queue A item 9, the next slice",
     "qwen2-moe-a2.7b": "the MoE family (models/moe.py), ROADMAP.md queue A "
-                       "item 9",
+                       "item 10",
     "granite-moe-3b-a800m": "the MoE family (models/moe.py), ROADMAP.md "
-                            "queue A item 9",
+                            "queue A item 10",
     "jamba-1.5-large-398b": "the hybrid family (SSM + MoE layers), "
-                            "ROADMAP.md queue A item 9",
+                            "ROADMAP.md queue A item 10",
     "hubert-xlarge": "the audio family (encoder-only), ROADMAP.md queue A "
-                     "item 9",
+                     "item 10",
     "internvl2-1b": "the VLM family (vision frontend), ROADMAP.md queue A "
-                    "item 9",
+                    "item 10",
 }
 
 

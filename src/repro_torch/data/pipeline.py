@@ -1,0 +1,54 @@
+"""Synthetic token batches, counterpart of `repro.data.pipeline`.
+
+Both draw with numpy's `RandomState(seed).randint`, as the JAX package
+does, and the stream uses its seed formula, so the port's batches are
+bitwise the JAX package's.  Only the text family is ported: the audio
+and VLM frontends raise.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.config import ModelConfig
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+               device=None):
+    """{"tokens": [batch, seq] int32} on `device` (CUDA by default)."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} batches come with their frontends "
+            f"(ROADMAP.md queue A item 10)")
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+
+
+class TokenStream:
+    """Infinite deterministic synthetic token stream with a fixed vocab.
+
+    `shard_index / num_shards` partition the stream as per-host data
+    loading would (each host reads a disjoint slice)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int,
+                 seed: int = 0, shard_index: int = 0, num_shards: int = 1,
+                 device=None):
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.seed, self.shard_index, self.num_shards = \
+            seed, shard_index, num_shards
+        self.device = resolve_device(device)
+        self._step = 0
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        seed = (self.seed + self._step * self.num_shards
+                + self.shard_index) % (2 ** 31)
+        self._step += 1
+        return make_batch(self.cfg, self.batch, self.seq, seed=seed,
+                          device=self.device)

@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # every kernel source under csrc/
-SOURCES = ("inverse_cdf", "imaging", "flash_attention")
+SOURCES = ("inverse_cdf", "imaging", "flash_attention", "ssd_scan")
 
 # No --use_fast_math: the kernels hold fp32 tolerances (see the sources).
 # -Xptxas -v prints registers and spills into the build log.

@@ -20,6 +20,12 @@ Dispatch is by the tensor's device and nothing else, as for the other
 kernels: the inputs are checked first, then CPU tensors go to the plain
 version (`ref.flash_attention_ref`) and CUDA tensors to the kernel, which
 either launches or raises.  `counts` records both routes.
+
+Autograd: `flash_attention` is a `torch.autograd.Function` on both
+devices.  Its backward is the JAX package's `_flash_bwd`
+(`repro.kernels.ops`): the VJP of the plain version, recomputed with
+autograd on the same device (`counts.backward_plain`).  The model-layout
+adapter is differentiable reshapes around it.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 
 from . import build
 from .inverse_cdf import Counts
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, vjp_of_plain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -90,9 +96,30 @@ def flash_attention(q, k, v, causal: bool = True,
         raise ValueError(f"Sq and Sk must be >= 1, got {Sq} and {Sk}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if q.device.type == "cpu":
-        counts.plain_calls += 1
-        return flash_attention_ref(q, k, v, causal, window)
+    return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        if q.device.type == "cpu":
+            counts.plain_calls += 1
+            return flash_attention_ref(q, k, v, causal, window)
+        return _launch(q, k, v, causal, window, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        counts.backward_plain += 1
+        return vjp_of_plain(flash_attention_ref, ctx.saved_tensors, g,
+                            *ctx.mask) + (None,) * 4
+
+
+def _launch(q, k, v, causal, window, block_q, block_k):
+    """One launch of the CUDA kernel on the current stream."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernels().repro_flash_attention(

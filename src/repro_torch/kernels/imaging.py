@@ -18,6 +18,13 @@ Dispatch is by the tensor's device and nothing else, as for
 goes to the plain version (`ref.mask_apply_ref`, `ref.blur2d_ref`) and a
 CUDA tensor to the kernel, which either launches or raises.  Each kernel
 has its `Counts`.
+
+Autograd: each wrapper is a `torch.autograd.Function` on both devices,
+with the JAX package's backward (`repro.kernels.ops`): the mask's
+`_mask_bwd` in PyTorch (dx = g·m, dm = Σ_k g·x, fp32 math), and the
+blur's `_blur_bwd`, which is the blur itself (the operator is symmetric):
+on the card the blur's backward launches the blur kernel, counted in
+`blur_counts.backward_launches`.
 """
 from __future__ import annotations
 
@@ -69,9 +76,29 @@ def mask_apply(x, m, threads: int = 256):
     if not (32 <= threads <= 1024 and threads % 32 == 0):
         raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
                          f"got {threads}")
-    if x.device.type == "cpu":
-        mask_counts.plain_calls += 1
-        return mask_apply_ref(x, m)
+    return _MaskApply.apply(x, m, threads)
+
+
+class _MaskApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, threads):
+        ctx.save_for_backward(x, m)
+        if x.device.type == "cpu":
+            mask_counts.plain_calls += 1
+            return mask_apply_ref(x, m)
+        return _mask_launch(x, m, threads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        mask_counts.backward_plain += 1
+        gf = g.float()
+        dx = gf * m.float()[None, :]
+        dm = (gf * x.float()).sum(dim=0)
+        return dx.to(x.dtype), dm.to(m.dtype), None
+
+
+def _mask_launch(x, m, threads):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -96,9 +123,34 @@ def blur2d(x, images: int = 4):
     _check("x", x, 3)
     if images < 1:
         raise ValueError(f"images must be >= 1, got {images}")
-    if x.device.type == "cpu":
-        blur_counts.plain_calls += 1
-        return blur2d_ref(x)
+    return _Blur2d.apply(x, images)
+
+
+class _Blur2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, images):
+        ctx.images = images
+        if x.device.type == "cpu":
+            blur_counts.plain_calls += 1
+            return blur2d_ref(x)
+        y = _blur_launch(x, images)
+        blur_counts.launches += bool(y.numel())
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # the blur matrix is symmetric: its adjoint is the blur itself
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            blur_counts.backward_plain += 1
+            return blur2d_ref(g), None
+        dx = _blur_launch(g, ctx.images)
+        blur_counts.backward_launches += bool(dx.numel())
+        return dx, None
+
+
+def _blur_launch(x, images):
+    """One launch of the blur kernel on the current stream."""
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -108,7 +160,6 @@ def blur2d(x, images: int = 4):
             x.data_ptr(), y.data_ptr(), K, H, W, _DTYPE_CODES[x.dtype],
             images, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "blur2d", x)
-    blur_counts.launches += 1
     return y
 
 

@@ -12,6 +12,12 @@ which either launches or raises.  u is checked before dispatch, so the
 CPU refuses a u the kernel would refuse (a strided view among them).
 `counts` records both routes, so a run can show that its path went
 through the kernel.
+
+Autograd: the wrapper is a `torch.autograd.Function` on both devices.
+Its backward is the JAX package's closed form (`repro.kernels.ops`
+`_icdf_bwd`), in PyTorch on either device:
+du = g·(s/(u(1−u)) + k), dmu = Σg, ds = Σg·logit(u), dk = Σg·(u−0.5),
+with u clipped, fp32 math, cast to u's dtype.
 """
 from __future__ import annotations
 
@@ -22,20 +28,26 @@ import functools
 import torch
 
 from . import build
-from .ref import inverse_cdf_ref
+from .ref import U_EPS, inverse_cdf_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @dataclasses.dataclass
 class Counts:
-    """Calls of the sampler by route: `launches` of the CUDA kernel and
-    `plain_calls` of the plain version (CPU tensors)."""
+    """Calls of a kernel wrapper by route, forward and backward apart:
+    `launches` of the CUDA kernel and `plain_calls` of the plain version
+    (CPU tensors) in the forward pass; `backward_launches` of a CUDA
+    kernel and `backward_plain` backward passes computed by PyTorch
+    operations."""
     launches: int = 0
     plain_calls: int = 0
+    backward_launches: int = 0
+    backward_plain: int = 0
 
     def reset(self):
         self.launches = self.plain_calls = 0
+        self.backward_launches = self.backward_plain = 0
 
 
 counts = Counts()
@@ -68,13 +80,43 @@ def inverse_cdf_channels(u, mu, s, k):
                              f"{tuple(u.shape)}, got {tuple(p.shape)}")
         if p.device != u.device:
             raise ValueError(f"{name} is on {p.device}, u on {u.device}")
-    if u.device.type == "cpu":
-        counts.plain_calls += 1
-        return inverse_cdf_ref(u, mu, s, k)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"inverse_cdf runs on cuda or cpu tensors, got "
                          f"{u.device}")
-    return _launch(u, mu, s, k)
+    return _InverseCdf.apply(u, mu, s, k)
+
+
+class _InverseCdf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, mu, s, k):
+        ctx.save_for_backward(u, s, k)
+        ctx.param_dtypes = (mu.dtype, s.dtype, k.dtype)
+        if u.device.type == "cpu":
+            counts.plain_calls += 1
+            return inverse_cdf_ref(u, mu, s, k)
+        return _launch(u, mu, s, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, s, k = ctx.saved_tensors
+        counts.backward_plain += 1
+        du, dmu, ds, dk = inverse_cdf_bwd(g, u, s, k)
+        return (du,) + tuple(d.to(t) for d, t in
+                             zip((dmu, ds, dk), ctx.param_dtypes))
+
+
+def inverse_cdf_bwd(g, u, s, k):
+    """The closed-form partials of `repro.kernels.ops._icdf_bwd` for
+    u [K, E, C] and s/k [K, C]: (du, dmu, ds, dk), fp32 math with u
+    clipped, each cast to u's dtype."""
+    uc = torch.clamp(u.float(), U_EPS, 1.0 - U_EPS)
+    gf = g.float()
+    logit = torch.log(uc / (1 - uc))
+    du = gf * (s.float()[:, None] / (uc * (1 - uc)) + k.float()[:, None])
+    dmu = gf.sum(dim=1)
+    ds = (gf * logit).sum(dim=1)
+    dk = (gf * (uc - 0.5)).sum(dim=1)
+    return tuple(d.to(u.dtype) for d in (du, dmu, ds, dk))
 
 
 def _launch(u, mu, s, k):

@@ -1,7 +1,8 @@
-"""Serve a dense LLM with batched requests: prefill + batched decode.
+"""Serve an LLM with batched requests: prefill + batched decode.
 
 Counterpart of `examples/serve_llm.py`: the engine's mechanics (the
-ring-buffer KV cache, the flash-attention kernel B4 in prefill) with a
+ring-buffer KV cache, the flash-attention kernel B4 in prefill; for
+mamba2-130m the SSM state and conv window, in plain PyTorch) with a
 freshly initialized model (random weights from `--seed`), not its text.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm \\

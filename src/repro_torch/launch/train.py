@@ -1,0 +1,80 @@
+"""Train an LLM on one device.  Counterpart of `repro.launch.train`.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+        --steps 50 --batch 8 --seq 256
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+        --smoke --device cpu --steps 5
+
+The flags are the JAX launcher's plus `--device` (CUDA unless `cpu` is
+asked for) and `--seed` (the random weights; the JAX launcher uses key 0).
+`--mesh` takes only `host`, one device: the multi-device meshes and the
+hierarchical sync modes across them are ROADMAP.md queue A item 6; every
+`--sync` mode runs the all-reduce step on one device, as the JAX package
+does without a mesh.  `--ckpt-dir` raises: the checkpoint writer is
+ROADMAP.md queue A item 2.  Prints the loss as it goes, then the SSD
+scan's (B5) and flash attention's (B4) kernel launches and plain calls.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.data import TokenStream
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.training import SYNC_MODES, TrainConfig, Trainer
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--sync", choices=SYNC_MODES, default="allreduce")
+    ap.add_argument("--sync-h", type=int, default=100)
+    ap.add_argument("--mesh", choices=("host", "single", "multi"),
+                    default="host")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the port trains on one device; the "
+            f"multi-device meshes are ROADMAP.md queue A item 6")
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: the port has no checkpoint writer yet (ROADMAP.md "
+            "queue A item 2)")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    tcfg = TrainConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
+                       total_steps=args.steps,
+                       microbatches=args.microbatches,
+                       sync_mode=args.sync, sync_h=args.sync_h)
+    trainer = Trainer(cfg, tcfg, args.seed, device=args.device)
+    if trainer.device.type == "cuda":      # the kernels' first-use build
+        build.build_all(("ssd_scan", "flash_attention"))
+    stream = TokenStream(cfg, args.batch, args.seq, device=trainer.device)
+    for c in (ssd.counts, fa.counts):
+        c.reset()
+    print(f"[train] {cfg.name} on {trainer.device}: batch {args.batch}, seq "
+          f"{args.seq}, {args.steps} steps, sync {args.sync} (one device)")
+    state = trainer.run(stream, args.steps,
+                        log_every=max(args.steps // 20, 1))
+    for name, c in (("SSD scan (B5)", ssd.counts),
+                    ("flash attention (B4)", fa.counts)):
+        print(f"[train] {name}: {c.launches} kernel launches, "
+              f"{c.plain_calls} plain calls, {c.backward_plain} backward "
+              f"passes (the VJP of the plain version)")
+    return state
+
+
+if __name__ == "__main__":
+    main()

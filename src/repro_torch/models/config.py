@@ -3,10 +3,10 @@
 The port's own copy of `repro.models.config` (plain Python, the same
 fields, defaults and counts).  One dataclass describes every family
 (dense / moe / ssm / hybrid / audio / vlm); family-specific fields are
-zero / None when unused.  The port runs the dense family so far
-(`models.blocks`); `attn_impl` routes prefill attention: "chunked" (the
-default) and "pallas" to the flash-attention kernel B4, "naive" to the
-plain einsum path.
+zero / None when unused.  The port runs the dense and ssm families
+(`models.blocks`); `attn_impl` routes prefill attention and the SSM scan:
+"chunked" (the default) and "pallas" to the flash-attention kernel B4 and
+the SSD kernel B5, "naive" to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -64,8 +64,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "full"        # 'full' | 'dots' (save matmul outputs)
-    # attention implementation: 'chunked' and 'pallas' (the flash-attention
-    # kernel in the port), 'naive' (the plain einsum path, small tests)
+    # attention / SSD implementation: 'chunked' and 'pallas' (the kernels
+    # B4 and B5 in the port), 'naive' (the plain PyTorch paths)
     attn_impl: str = "chunked"
     attn_chunk: int = 512
 

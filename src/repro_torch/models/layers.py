@@ -192,7 +192,7 @@ def run_attention_with_kv(p, x, cfg: ModelConfig, positions):
     elif impl == "seq_parallel":
         raise NotImplementedError(
             "attn_impl='seq_parallel' shards the sequence over a device "
-            "mesh; the port has no mesh yet (ROADMAP.md queue A item 5, the "
+            "mesh; the port has no mesh yet (ROADMAP.md queue A item 6, the "
             "multi-GPU backend)")
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")

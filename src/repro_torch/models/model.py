@@ -1,6 +1,7 @@
-"""Unified decoder LM: embed, the layer stack, final norm, LM head; with
-prefill and one-token decode for serving.  Counterpart of
-`repro.models.model` for text-only decoders of the dense family.
+"""Unified decoder LM: embed, the layer stack, final norm, LM head; the
+training loss; prefill and one-token decode for serving.  Counterpart of
+`repro.models.model` for the text-only decoders of the dense and ssm
+families.
 
 Parameters keep the JAX package's layout, so checkpoint and parameter
 keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
@@ -8,9 +9,11 @@ stacked with a leading `n_periods` axis (one period of one layer for a
 homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head".
 Where JAX scans over that axis, the port loops over it in Python.
 
-The decode cache is {"pos": int, "blocks": {"sub{j}": {"k", "v"}}} with
-k/v [n_periods, B, W, KV, hd]; `pos` is a Python int (tokens already
-processed), so the loop needs no device read.  `decode_step` writes the
+The decode cache is {"pos": int, "blocks": {"sub{j}": ...}} with
+attention's k/v [n_periods, B, W, KV, hd] or the SSM's state
+[n_periods, B, H, P, N] (fp32) and conv window [n_periods, B, K − 1, ch];
+`pos` is a Python int (tokens already processed), so the loop needs no
+device read.  `decode_step` writes the
 cache in place and returns it.
 """
 from __future__ import annotations
@@ -18,9 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from . import blocks, layers
+from . import blocks, layers, ssm as ssm_lib
 from .config import ModelConfig
 
 
@@ -38,7 +42,7 @@ def _check_text_decoder(cfg: ModelConfig):
     if cfg.family in ("audio", "vlm") or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} frontend is not ported; the port "
-            f"runs text-only decoders (ROADMAP.md queue A item 9)")
+            f"runs text-only decoders (ROADMAP.md queue A item 10)")
 
 
 def map_params(fn, tree):
@@ -126,19 +130,53 @@ def unembed(params, x, cfg: ModelConfig):
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Returns (logits [B,S,V], aux_loss scalar)."""
+    """Returns (logits [B,S,V], aux_loss scalar).
+
+    With `cfg.remat` and autograd on, each period runs under
+    `torch.utils.checkpoint` (policy "full": nothing inside a period is
+    kept for the backward, which recomputes it), as the JAX package wraps
+    each period in `jax.checkpoint`."""
     n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} (keep the matmul outputs) is "
+            f"not ported; the port checkpoints whole periods (policy "
+            f"'full'): ROADMAP.md queue A item 12")
     x, _, _ = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_periods):
-        pp = period_params(params, i)
+
+    def period(x, aux, pp):
         for j in range(plen):
             x, a = blocks.run_block(pp[f"sub{j}"], x, cfg, kinds[j],
                                     mlp_kinds[j], positions)
             aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n_periods):
+        pp = period_params(params, i)
+        if remat:
+            x, aux = checkpoint(period, x, aux, pp, use_reentrant=False)
+        else:
+            x, aux = period(x, aux, pp)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Scalar training loss (CE + router aux).  Returns (loss, metrics):
+    the next-token cross entropy when `cfg.causal`, from an fp32
+    log-softmax, as a masked mean, plus router_aux_coef · aux."""
+    logits, aux = forward(params, batch, cfg)
+    _, labels, mask = embed_inputs(params, batch, cfg)
+    if cfg.causal:
+        logits, labels, mask = logits[:, :-1], labels[:, 1:], mask[:, 1:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------------------
@@ -201,18 +239,25 @@ def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
         for j in range(plen):
             blocks.check_kinds(kinds[j], mlp_kinds[j])
             p_blk = pp[f"sub{j}"]
+            c_blk = cache["blocks"][f"sub{j}"]
             h = layers.rms_norm(x, p_blk["ln1"], cfg.norm_eps)
-            h, k, v = layers.run_attention_with_kv(p_blk["attn"], h, cfg,
-                                                   positions)
-            for name, t in (("k", k), ("v", v)):
-                ring = cache["blocks"][f"sub{j}"][name][i]
-                if take < W:         # cold cache: slots S..W-1 stay empty
-                    ring[:, :take] = t[:, -take:]
-                else:                # rotate so that slot = pos % W
-                    ring.copy_(torch.roll(t[:, -take:], S % W, dims=1))
+            if kinds[j] == "ssm":
+                h, c = ssm_lib.ssm_prefill(p_blk["ssm"], h, cfg)
+                for name, t in c.items():
+                    c_blk[name][i].copy_(t)
+            else:
+                h, k, v = layers.run_attention_with_kv(p_blk["attn"], h, cfg,
+                                                       positions)
+                for name, t in (("k", k), ("v", v)):
+                    ring = c_blk[name][i]
+                    if take < W:     # cold cache: slots S..W-1 stay empty
+                        ring[:, :take] = t[:, -take:]
+                    else:            # rotate so that slot = pos % W
+                        ring.copy_(torch.roll(t[:, -take:], S % W, dims=1))
             x = x + h
-            h = layers.rms_norm(x, p_blk["ln2"], cfg.norm_eps)
-            x = x + layers.run_mlp(p_blk["mlp"], h)
+            if mlp_kinds[j] == "dense":
+                h = layers.rms_norm(x, p_blk["ln2"], cfg.norm_eps)
+                x = x + layers.run_mlp(p_blk["mlp"], h)
     if last_logits_only:
         x = x[:, -1:]
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

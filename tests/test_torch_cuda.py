@@ -8,9 +8,11 @@ on the card's machine, which has none:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the sampler and flash attention at fp32 rtol 1e-4 / atol 1e-5
-and bf16 2e-2, the mask bitwise, the blur at rtol/atol 1e-6) across its
-tile sizes, its wrapper is shown to raise on what the kernel does not
-take, and the solve service and the LLM engine on the card are shown to
+and bf16 2e-2, the mask bitwise, the blur at rtol/atol 1e-6, the SSD scan
+at fp32 rtol/atol 1e-3 and bf16 2e-2) across its tile sizes, its wrapper
+is shown to raise on what the kernel does not take, every wrapper's
+gradients on the card are shown to equal the CPU's, and the solve
+service, the LLM engine and the LLM trainer on the card are shown to
 launch the kernels and to agree with the CPU on the same inputs.
 """
 import numpy as np
@@ -22,15 +24,18 @@ from repro_torch.core import gan
 from repro_torch.core.workflow import make_solver, solve_draws
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.imaging import (blur2d, blur_counts, mask_apply,
                                          mask_counts)
 from repro_torch.kernels.inverse_cdf import (counts, inverse_cdf,
                                              inverse_cdf_channels)
 from repro_torch.kernels.ref import (blur2d_ref, flash_attention_ref,
-                                     inverse_cdf_ref, mask_apply_ref)
+                                     inverse_cdf_ref, mask_apply_ref,
+                                     ssd_chunked_ref, ssd_scan_ref)
 from repro_torch.models import model as M
 from repro_torch.problems import get_problem
 from repro_torch.serving import SolveService, generate
+from repro_torch.training import trainer as T
 
 pytestmark = pytest.mark.sm90
 FP32 = dict(rtol=1e-4, atol=1e-5)
@@ -350,3 +355,148 @@ def test_llm_engine_on_the_card_launches_flash(sm90_card, window):
     assert torch.equal(out_c, out_g)
     for a, b in zip(lg_g, lg_c):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ----------------------------------------------------------------------------
+# the SSD scan (B5), the gradients of every wrapper, and the LLM trainer
+
+
+def _ssd(B, S, H, P, N, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g))
+    Bc, Cc = (torch.randn(B, S, N, generator=g) for _ in range(2))
+    return [x.to(dev, dtype), dt.to(dev), A.to(dev), Bc.to(dev, dtype),
+            Cc.to(dev, dtype)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (2, 128, 3, 32, 16, 32, torch.float32),
+    (1, 100, 2, 64, 128, 64, torch.float32),
+    (1, 64, 1, 16, 8, 16, torch.float32),
+    (2, 96, 4, 32, 32, 48, torch.float32),
+    (1, 1, 2, 64, 128, 512, torch.float32),
+    (2, 1000, 2, 64, 16, 128, torch.float32),
+    (2, 1000, 2, 32, 128, 512, torch.bfloat16),
+    (8, 256, 24, 64, 128, 512, torch.float32),
+    (8, 256, 24, 64, 128, 512, torch.bfloat16),
+])
+def test_ssd_kernel_matches_plain(sm90_card, B, S, H, P, N, chunk, dtype):
+    """tests/test_kernels.py's sweep, ragged S, and mamba2-130m's training
+    shape, at every tile."""
+    xs = _ssd(B, S, H, P, N, dtype, sm90_card, seed=S)
+    want = ssd_chunked_ref(*xs, chunk)[0].float()
+    tol = dict(rtol=1e-3, atol=1e-3) if dtype == torch.float32 else BF16
+    for tile in ssd.TILES:
+        before = ssd.counts.launches
+        y = ssd.ssd_scan(*xs, chunk=chunk, tile=tile)
+        torch.cuda.synchronize()
+        assert ssd.counts.launches == before + 1
+        assert y.dtype == dtype and y.shape == xs[0].shape and y.is_cuda
+        torch.testing.assert_close(y.float(), want, **tol)
+    if S <= 128:
+        torch.testing.assert_close(y.float(), ssd_scan_ref(*xs).float(),
+                                   **tol)
+
+
+def test_ssd_kernel_chunk_and_tile_invariance(sm90_card):
+    """Chunks 16-512 and every tile within 1e-4 of chunk 16, tile 32, at
+    tests/test_kernels.py::test_ssd_chunk_invariance's P and N, ragged S."""
+    xs = _ssd(1, 300, 2, 16, 8, torch.float32, sm90_card, seed=1)
+    outs = [ssd.ssd_scan(*xs, chunk=c, tile=t)
+            for c in (16, 64, 128, 512) for t in ssd.TILES]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_wrapper_raises_on_the_card(sm90_card):
+    x, dt, A, Bc, Cc = _ssd(1, 16, 2, 8, 4, torch.float32, sm90_card)
+    before = (ssd.counts.launches, ssd.counts.plain_calls)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     Bc, Cc)
+    with pytest.raises(ValueError, match="cpu"):
+        ssd.ssd_scan(x, dt.cpu(), A, Bc, Cc)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt, A, Bc.bfloat16(), Cc)
+    with pytest.raises(RuntimeError, match="ssd_scan kernel"):
+        big = _ssd(1, 8, 1, 128, 512, torch.float32, sm90_card)
+        ssd.ssd_scan(*big, tile=128)      # state + tiles above 227 KB
+    assert (ssd.counts.launches, ssd.counts.plain_calls) == before
+
+
+def _grad_cases(dev):
+    g = torch.Generator().manual_seed(3)
+    u = torch.rand(6, 9, 2, generator=g)
+    mu, s, k = (torch.rand(6, 2, generator=g) for _ in range(3))
+    q = torch.randn(2, 40, 2, 2, 32, generator=g)
+    kv = [torch.randn(2, 40, 2, 32, generator=g) for _ in range(2)]
+    return {
+        "inverse_cdf": (lambda *a: inverse_cdf_channels(*a),
+                        [u, mu, s + 0.1, k - 0.5], counts),
+        "mask_apply": (mask_apply, [torch.randn(8, 40, generator=g),
+                                    (torch.rand(40, generator=g) > 0.4)
+                                    .float()], mask_counts),
+        "blur2d": (blur2d, [torch.randn(3, 8, 12, generator=g)],
+                   blur_counts),
+        "flash_attention": (lambda *a: fa.flash_attention_model(
+            *a, window=16), [q] + kv, fa.counts),
+        "ssd_scan": (lambda *a: ssd.ssd_scan(*a, chunk=16),
+                     _ssd(2, 40, 2, 16, 8, torch.float32, "cpu"), ssd.counts),
+    }
+
+
+@pytest.mark.parametrize("name", ["inverse_cdf", "mask_apply", "blur2d",
+                                  "flash_attention", "ssd_scan"])
+def test_gradients_on_the_card_equal_the_cpus(sm90_card, name):
+    """The backward on the card against the CPU's for each wrapper; the
+    blur's backward launches the blur kernel once."""
+    fn, inputs, cnt = _grad_cases(sm90_card)[name]
+    w = torch.randn(fn(*inputs).shape, generator=torch.Generator()
+                    .manual_seed(4))
+    grads = {}
+    for dev in ("cpu", sm90_card):
+        xs = [t.detach().to(dev).requires_grad_() for t in inputs]
+        cnt.reset()
+        y = fn(*xs)
+        assert y.grad_fn is not None
+        (y * w.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        grads[str(dev)] = [x.grad.cpu() for x in xs]
+        if dev != "cpu":
+            assert (cnt.launches, cnt.plain_calls) == (1, 0)
+            assert cnt.backward_launches == (1 if name == "blur2d" else 0)
+            assert cnt.backward_plain == (0 if name == "blur2d" else 1)
+    tol = dict(rtol=1e-4, atol=1e-4) if name == "ssd_scan" else FP32
+    for a, b in zip(grads[str(sm90_card)], grads["cpu"]):
+        torch.testing.assert_close(a, b, **tol)
+
+
+def test_trainer_on_the_card_launches_b5_and_matches_the_cpu(sm90_card):
+    """One step of the mamba2 smoke config in fp32: four B5 launches (two
+    layers, forward and the remat recompute), no plain call, and the
+    loss, gradient norm and new parameters of the CPU's step."""
+    cfg = get_config("mamba2-130m", smoke=True).replace(dtype="float32")
+    tcfg = T.TrainConfig(lr=1e-3, warmup=2, total_steps=10)
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    step, _ = T.make_train_step(cfg, tcfg)
+    out = {}
+    for dev in ("cpu", sm90_card):
+        state = T.train_state_from_params(
+            M.map_params(lambda t: t.to(dev), params), tcfg)
+        ssd.counts.reset()
+        new, met = step(state, {"tokens": tok.to(dev)})
+        out[str(dev)] = (new, met)
+    assert (ssd.counts.launches, ssd.counts.plain_calls) == \
+        (2 * cfg.num_layers, 0)
+    (nc, mc), (ng, mg) = out["cpu"], out[str(sm90_card)]
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(mg["gnorm"].cpu(), mc["gnorm"], rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(M.leaves(ng["params"]), M.leaves(nc["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2.5e-4)

@@ -258,7 +258,11 @@ def test_importing_the_port_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
     assert len(_port_modules()) >= 20
     assert {"repro_torch.models.convgen", "repro_torch.kernels.imaging",
-            "repro_torch.problems.imaging"} <= set(_port_modules())
+            "repro_torch.problems.imaging", "repro_torch.kernels.ssd_scan",
+            "repro_torch.models.ssm", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.data.pipeline",
+            "repro_torch.training.trainer", "repro_torch.launch.train",
+            "repro_torch.configs.mamba2_130m"} <= set(_port_modules())
 
 
 def _run_smoke(cwd):
