@@ -37,46 +37,62 @@ Phases, each reported on its own lines; any failure exits non-zero:
      blur (imaging_blur) once, and nothing must take a plain version;
   9. one DEFAULT batch per imaging problem on the card and on the CPU;
  10. profile 8 served requests per imaging problem;
- 11. hold flash attention (B4) against its plain version on the card: at
-     tinyllama-1.1b's prefill shape (q [8, 32, 1024, 64], k/v [8, 4, 1024,
-     64]) in bf16 and fp32, and over a sweep of GQA groups (1, 4, 8), head
-     dims (32, 64, 128), masks (causal, full, window 64 and 256), ragged
-     lengths (1, 100, 1000) and tiles (block_q, block_k in 32, 64, 128),
-     at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; every pair of tiles
-     within rtol 1e-5 / atol 1e-6 of the first;
- 12. time B4 at the prefill shape in bf16 as in phase 4: the kernel, its
-     plain version, `scaled_dot_product_attention` (causal, GQA; timed,
-     never used by the port) and the bound (the causal half's FLOPs at
-     the bf16 tensor-core peak, or its bytes);
+ 11. hold flash attention (B4) against its plain version on the card,
+     both routes (bf16: the tensor-core kernel `flash_attention_tc.cu`;
+     fp32: the FMA kernel `flash_attention.cu`): at tinyllama-1.1b's
+     prefill shape (q [8, 32, 1024, 64], k/v [8, 4, 1024, 64]) in bf16
+     and fp32 at each route's model-path tiles, the prefill's own call
+     (`flash_attention_model` on the model layout [8, 1024, 4, 8, 64],
+     bf16, whose error the kernels line reports), and over a sweep of GQA groups (1, 4, 8), head dims (32,
+     64, 128), masks (causal, full, window 64 and 256), ragged lengths (1,
+     100, 1000) and tiles (block_q, block_k in 32, 64, 128), at fp32 rtol
+     1e-4 / atol 1e-5 and bf16 2e-2; in fp32 every pair of tiles within
+     rtol 1e-5 / atol 1e-6 of the first, in bf16 within 2e-2; each dtype
+     counted under its route; the bf16 route's strided model layout (q,
+     k, v as views of one fused projection) against the plain version;
+ 12. time B4 at the prefill shape in bf16 as in phase 4: the prefill's
+     call checked in phase 11 (the kernels line's time), the same kernel
+     in the [B, H, S, hd] layout, its plain version, `scaled_dot_product_attention` (causal, GQA;
+     timed, never used by the port) and the bound (the causal half's
+     FLOPs at the bf16 tensor-core peak, or its bytes); the model-layout
+     call without copies against the transposing copies it replaced; the
+     fp32 route at the same shape;
  13. serve tinyllama-1.1b at full size (22 layers, d_model 2048, bf16,
      random weights from a seed) through `serving.engine.generate`: batch
      8, prompt 1024, 64 greedy tokens, then again with a sliding window of
      256 (the window mask and the ring buffer's wrap), each after an
-     uncounted warm-up run at the same shapes; 22 B4 launches per prefill
-     and no plain call; prefill ms, decode ms a step, tok/s;
+     uncounted warm-up run at the same shapes; 22 B4 launches per prefill,
+     all on the bf16 route, and no plain call; prefill ms, decode ms a
+     step, tok/s;
  14. the same model at full width, depth 2, fp32 (TF32 off), batch 1,
      prompt 256, 8 greedy tokens, on the card and on the CPU with the same
      weights, with and without a window of 64: logits within 1e-3, token
      ids equal unless the CPU's top-2 gap is below 1e-4;
  15. profile one tinyllama prefill, then 8 decode steps: the card's busy
-     share and its time by kernel (B4, the cuBLAS GEMMs, the rest);
- 16. hold the SSD scan (B5) against its plain version on the card: at
-     mamba2-130m's training shape (x [8, 256, 24, 64], N 128, chunk 512)
-     and a multi-chunk shape (S 2048, four chunks of 512), in bf16 and
-     fp32, at every tile (32, 64, 128), and over a sweep of ragged S (1,
-     100, 1000), chunks (16, 64, 128, 512), N (16, 128) and P (32, 64), at
-     fp32 rtol/atol 1e-3 and bf16 2e-2; every chunk and tile within 1e-4
-     of the first; once against the sequential recurrence;
- 17. time B5 at both shapes in bf16 as in phase 4: the kernel, its plain
-     version and the bound (no single PyTorch call computes it);
+     share and its time by kernel (B4, the cuBLAS GEMMs, the rest), and
+     B4's share of the card's time;
+ 16. hold the SSD scan (B5) against its plain version on the card, both
+     routes (bf16: the tensor-core kernels `ssd_scan_tc.cu`; fp32: the
+     FMA kernel `ssd_scan.cu`): at mamba2-130m's training shape (x [8,
+     256, 24, 64], N 128, chunk 512) and a multi-chunk shape (S 2048,
+     four chunks of 512), in bf16 and fp32, at every tile (32, 64, 128),
+     and over a sweep of ragged S (1, 100, 1000), chunks (16, 64, 128,
+     512), N (16, 128) and P (32, 64), each case in both dtypes, at
+     fp32 rtol/atol 1e-3 and bf16 2e-2; in fp32 every chunk and tile within 1e-4 of the first; once
+     against the sequential recurrence; each dtype counted under its
+     route;
+ 17. time B5 at both shapes in bf16 as in phase 4: the bf16 route, its
+     plain version and the bound (no single PyTorch call computes it);
+     the fp32 route at the training shape;
  18. the gradients of every kernel wrapper (B1-B5) on the card against
      the CPU's at small fp32 shapes; the blur's backward is one launch of
      the blur kernel;
  19. train mamba2-130m at full size (24 layers, d_model 768, bf16,
      128,983,488 parameters, random weights from a seed) through
      `training.Trainer` at the `launch/train` defaults: batch 8, seq 256,
-     lr 3e-4, warmup 11, 50 steps; 48 B5 launches a step (24 layers,
-     forward and remat recompute) and no plain call; every loss finite,
+     lr 3e-4, warmup 11, 50 steps; 48 B5 calls a step (24 layers,
+     forward and remat recompute), all on the bf16 route, and no plain
+     call; every loss finite,
      and the loss of 4 held-out batches lower after training than before
      (each step's batch is new random tokens, and the spread between
      batches is larger than what 50 steps at lr 3e-4 take off, so a
@@ -245,7 +261,8 @@ def conv_stack_arrays(leaf_shapes, ranks):
 
 def flash_phases(dev):
     """Phases 11 and 12: B4 against its plain version, then its times.
-    Returns (max |kernel - plain| at the prefill shape in bf16, timing)."""
+    Returns (max |kernel - plain| of the prefill's call, the model layout
+    in bf16, and its timing)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -270,15 +287,33 @@ def flash_phases(dev):
         return o, err
 
     B, H, S, hd = FLASH_Q
-    main_err = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = qkv(B, H, FLASH_KV_HEADS, S, hd, dtype)
-        _, main_err[dtype] = check(f"the prefill shape {dtype}", q, k, v,
-                                   True, None)
-        print(f"[11] flash_attention q{list(q.shape)} k/v{list(k.shape)} "
-              f"{str(dtype)[6:]} causal, tiles {fa.BLOCK_Q}x{fa.BLOCK_K}: "
-              f"max |kernel - plain| = {main_err[dtype]:.3e} ok")
-    del q, k, v
+    KVh, G = FLASH_KV_HEADS, H // FLASH_KV_HEADS
+    # the tiles each route runs on the model path
+    main_tiles = {torch.bfloat16: (fa.TC_BLOCK_Q, fa.TC_BLOCK_K),
+                  torch.float32: (fa.BLOCK_Q, fa.BLOCK_K)}
+    prefill = {}
+    for dtype, (bq, bk) in main_tiles.items():
+        prefill[dtype] = qkv(B, H, KVh, S, hd, dtype)
+        _, err = check(f"the prefill shape {dtype}", *prefill[dtype], True,
+                       None, bq, bk)
+        print(f"[11] flash_attention q[{B}, {H}, {S}, {hd}] k/v[{B}, {KVh}, "
+              f"{S}, {hd}] {str(dtype)[6:]} causal, tiles {bq}x{bk}: "
+              f"max |kernel - plain| = {err:.3e} ok")
+    del prefill[torch.float32]
+    # the prefill's own call: the model layout at the bf16 route's tiles
+    q, k, v = prefill[torch.bfloat16]
+    qm = q.transpose(1, 2).reshape(B, S, KVh, G, hd).contiguous()
+    km, vm = (x.transpose(1, 2).contiguous() for x in (k, v))
+    om = fa.flash_attention_model(qm, km, vm, True, None)
+    torch.cuda.synchronize()
+    ok, main_err = close(om, fa._plain_model(qm, km, vm, True, None), **BF16)
+    if not ok or om.dtype != qm.dtype or om.shape != qm.shape:
+        fail(f"flash_attention_model disagrees with its plain version at the "
+             f"prefill's call q{list(qm.shape)} bf16 (max {main_err:.3e})")
+    print(f"[11] flash_attention_model q{list(qm.shape)} k/v{list(km.shape)} "
+          f"bf16 causal (the prefill's call, tiles {fa.TC_BLOCK_Q}x"
+          f"{fa.TC_BLOCK_K}): max |kernel - plain| = {main_err:.3e} ok")
+    del q, k, v, om
     masks = {"causal": (True, None), "full": (False, None),
              "window64": (True, 64), "window256": (True, 256)}
     worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
@@ -308,9 +343,45 @@ def flash_phases(dev):
         print(f"[11] flash_attention S={L} window {window} fp32: all 9 tile "
               f"pairs within rtol 1e-5 / atol 1e-6 of 32x32 (max spread "
               f"{spread:.3e})")
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        outs = [check(f"S={L} window {window} bf16 tiles {bq}x{bk}", q, k, v,
+                      True, window, bq, bk)[0] for bq, bk in TILES]
+        spread = max(float((o.float() - outs[0].float()).abs().max())
+                     for o in outs)
+        for (bq, bk), o in zip(TILES, outs):
+            ok, err = close(o, outs[0], **BF16)
+            if not ok:
+                fail(f"flash_attention bf16 tiles {bq}x{bk} differ from "
+                     f"{TILES[0]} by {err:.3e} at S={L}, window {window}")
+        print(f"[11] flash_attention S={L} window {window} bf16: all 9 tile "
+              f"pairs (kernel tiles {sorted(set(map(fa.tc_tiles, *zip(*TILES))))}"
+              f") within 2e-2 of 32x32 (max spread {spread:.3e})")
+    for dtype, rt in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        fa.counts.reset()
+        check(f"the {rt} route", *qkv(1, 4, 2, 64, 64, dtype), True, None)
+        if fa.counts.launches != 1 or fa.counts.routes[rt] != 1:
+            fail(f"flash_attention {dtype}: routes {fa.counts.routes}, "
+                 f"expected one launch on the {rt} route")
+    # the strided model layout: q, k, v as views of one fused projection
+    fused = torch.randn((2, 1024, 4, 10, 64), generator=g).to(
+        dev, torch.bfloat16)
+    fq, fk, fv = fused[:, :, :, :8], fused[:, :, :, 8], fused[:, :, :, 9]
+    fa.counts.reset()
+    fo = fa.flash_attention_model(fq, fk, fv, True, None)
+    torch.cuda.synchronize()
+    ok, err = close(fo, fa._plain_model(fq, fk, fv, True, None), **BF16)
+    if not ok or fa.counts.routes != {"fma": 0, "wgmma": 1}:
+        fail(f"flash_attention_model on strided bf16 views: max err "
+             f"{err:.3e}, routes {fa.counts.routes}")
+    print(f"[11] flash_attention routes: fp32 -> fma (flash_attention.cu), "
+          f"bf16 -> wgmma (flash_attention_tc.cu), one launch each; "
+          f"flash_attention_model on non-contiguous bf16 views of a fused "
+          f"[2, 1024, 4, 10, 64] projection: max |kernel - plain| "
+          f"{err:.3e}, no copies")
+    del fused, fq, fk, fv, fo
 
     # -- 12. time at the prefill shape, bf16 ---------------------------------
-    q, k, v = qkv(B, H, FLASH_KV_HEADS, S, hd, torch.bfloat16)
+    q, k, v = prefill.pop(torch.bfloat16)
 
     def library(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -319,7 +390,6 @@ def flash_phases(dev):
         library(q[:1, :, :8], k[:1, :, :8], v[:1, :, :8])
         lib_args, lib_note = (q, k, v), "enable_gqa=True"
     except TypeError:          # no enable_gqa: repeat the KV heads first
-        G = H // FLASH_KV_HEADS
         lib_args = (q, k.repeat_interleave(G, 1).contiguous(),
                     v.repeat_interleave(G, 1).contiguous())
         lib_note = "KV heads repeated before the call"
@@ -331,21 +401,28 @@ def flash_phases(dev):
     if not ok:
         fail(f"scaled_dot_product_attention computes another function than "
              f"the plain version (max err {err:.3e})")
-    t = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v), True),
+    tq, tk = fa.TC_BLOCK_Q, fa.TC_BLOCK_K       # the prefill's bf16 tiles
+    # the prefill's call, checked in phase 11: the model layout by strides
+    t = dict(ms=cuda_ms(lambda: fa.flash_attention_model(qm, km, vm), True),
              plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), True),
              library_ms=cuda_ms(lambda: library(*lib_args), True))
+    public_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True, None, tq,
+                                                   tk), True)
     n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     n_ops = 4 * B * H * hd * (S * (S + 1) // 2)      # QK^T and PV, causal
     t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    print(f"[12] flash_attention q{list(q.shape)} bf16 causal, card time: "
-          f"kernel {t['ms']:.5f} ms (tiles {fa.BLOCK_Q}x{fa.BLOCK_K}), plain "
-          f"{t['plain_ms']:.5f} ms, scaled_dot_product_attention "
-          f"{t['library_ms']:.5f} ms ({lib_note}; max err against the plain "
+    print(f"[12] flash_attention_model q{list(qm.shape)} bf16 causal (the "
+          f"prefill's call), card time: kernel (bf16 route, wgmma, tiles "
+          f"{tq}x{tk}) {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+          f"scaled_dot_product_attention {t['library_ms']:.5f} ms "
+          f"({lib_note}, on [B, H, S, hd]; max err against the plain "
           f"version {err:.3e}); bound {t['bound_ms']:.6f} ms by "
           f"{t['bound_by']} ({n_bytes} B, {n_ops} FLOP at the bf16 "
           f"tensor-core peak; at the fp32 peak "
           f"{n_ops / FP32_OPS_PER_S * 1e3:.5f} ms); kernel at "
-          f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s")
+          f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s; flash_attention on "
+          f"q{list(q.shape)} (the same kernel on strided views) "
+          f"{public_ms:.5f} ms")
     tiles = {}
     for bq, bk in TILES:
         tiles[(bq, bk)] = cuda_ms(
@@ -354,11 +431,23 @@ def flash_phases(dev):
     print("[12] flash_attention bf16 card ms by tiles (block_q x block_k): "
           + ", ".join(f"{bq}x{bk} {ms:.4f}" for (bq, bk), ms in
                       tiles.items()))
+
+    def with_copies():
+        o = fa.flash_attention(
+            qm.reshape(B, S, H, hd).transpose(1, 2).contiguous(),
+            km.transpose(1, 2).contiguous(), vm.transpose(1, 2).contiguous(),
+            True, None, tq, tk)
+        return o.transpose(1, 2).reshape(qm.shape).contiguous()
+    copies_ms = cuda_ms(with_copies, True)
+    print(f"[12] flash_attention_model q{list(qm.shape)} bf16: "
+          f"{t['ms']:.5f} ms reading the model layout by strides, against "
+          f"{copies_ms:.5f} ms for three transposing copies, the kernel and "
+          f"the output's copy")
     q32, k32, v32 = (x.float() for x in (q, k, v))
     ms32 = cuda_ms(lambda: fa.flash_attention(q32, k32, v32), True)
-    print(f"[12] flash_attention fp32 at the same shape: kernel {ms32:.5f} "
-          f"ms")
-    return main_err[torch.bfloat16], t
+    print(f"[12] flash_attention fp32 at the same shape: fp32 route "
+          f"(flash_attention.cu) {ms32:.5f} ms")
+    return main_err, t
 
 
 def llm_phases(dev, all_counts):
@@ -421,6 +510,10 @@ def llm_phases(dev, all_counts):
             fail(f"{LLM_ARCH} window {window}: (kernel launches, plain "
                  f"calls) {got}; expected {expect} (one B4 launch per layer "
                  f"of the prefill)")
+        routes = dict(all_counts["flash_attention"].routes)
+        if routes != {"fma": 0, "wgmma": c.num_layers}:
+            fail(f"{LLM_ARCH} window {window}: B4 routes {routes}; expected "
+                 f"every launch on the bf16 (wgmma) route")
         launches += got["flash_attention"][0]
         new = out[:, LLM_PROMPT:]
         if out.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) \
@@ -437,7 +530,8 @@ def llm_phases(dev, all_counts):
         print(f"[13] {LLM_ARCH} window {window}: batch {LLM_BATCH}, prompt "
               f"{LLM_PROMPT}, {LLM_NEW} greedy tokens; B4 launches "
               f"{got['flash_attention'][0]}, plain calls "
-              f"{got['flash_attention'][1]}; no other kernel; logits finite")
+              f"{got['flash_attention'][1]}, by route {routes}; no other "
+              f"kernel; logits finite")
         print(f"[13] {LLM_ARCH} window {window}: prefill {prefill_ms:.3f} ms "
               f"({LLM_BATCH * LLM_PROMPT / prefill_ms * 1e3:.0f} prompt "
               f"tok/s), decode step p50 {np.percentile(steps, 50):.3f} ms, "
@@ -517,6 +611,9 @@ def llm_phases(dev, all_counts):
         for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"[15]   {us / 1e3:9.3f} ms ({100 * us / total:5.1f}%)  "
                   f"{grp}")
+        b4 = groups.get("B4 flash_kernel", 0.0)
+        print(f"[15] {what}: B4's share of the card's time "
+              f"{100 * b4 / total:.1f}% ({b4 / 1e3:.3f} ms)")
         for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
             print(f"[15]   {us / 1e3:9.3f} ms ({100 * us / total:5.1f}%)  "
                   f"{name[:90]}")
@@ -585,9 +682,9 @@ def ssd_phases(dev):
                   + " ok")
             del xs, want
     worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
-    for S, chunk, N, P in itertools.product((1, 100, 1000), (16, 64, 128, 512),
-                                            (16, 128), (32, 64)):
-        dtype = (torch.float32, torch.bfloat16)[n % 2]
+    for S, chunk, N, P, dtype in itertools.product(
+            (1, 100, 1000), (16, 64, 128, 512), (16, 128), (32, 64),
+            (torch.float32, torch.bfloat16)):
         xs = inputs(2, S, 2, P, N, dtype)
         want = ssd_chunked_ref(*xs, chunk)[0]
         for t in ssd.TILES:
@@ -596,7 +693,7 @@ def ssd_phases(dev):
                 chunk, t, want)[1])
         n += 1
     print(f"[16] ssd_scan sweep: {n} cases (S 1/100/1000, chunk "
-          f"16/64/128/512, N 16/128, P 32/64, fp32 and bf16 in turn, every "
+          f"16/64/128/512, N 16/128, P 32/64, each in fp32 and bf16, every "
           f"tile {list(ssd.TILES)}) within fp32 rtol/atol 1e-3 and bf16 2e-2; "
           f"max |kernel - plain| fp32 {worst[torch.float32]:.3e}, bf16 "
           f"{worst[torch.bfloat16]:.3e}")
@@ -605,6 +702,16 @@ def ssd_phases(dev):
                    ssd_scan_ref(*xs))
     print(f"[16] ssd_scan x[1, 100, 2, 16] N 8 fp32 against the sequential "
           f"recurrence ssd_scan_ref: max {err:.3e} ok")
+    for dtype, rt in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        ssd.counts.reset()
+        check(f"the {rt} route", inputs(1, 200, 2, 64, 128, dtype), 64,
+              ssd.TILE)
+        if ssd.counts.launches != 1 or ssd.counts.routes[rt] != 1:
+            fail(f"ssd_scan {dtype}: routes {ssd.counts.routes}, expected "
+                 f"one call on the {rt} route")
+    print("[16] ssd_scan routes: fp32 -> fma (ssd_scan.cu), bf16 -> wgmma "
+          "(ssd_scan_tc.cu: seg, then y for one chunk; seg, chunk states, "
+          "the pass and y for more), one call each")
     # the shape of tests/test_kernels.py::test_ssd_chunk_invariance (P 16,
     # N 8), at a ragged S
     xs = inputs(1, 300, 2, 16, 8, torch.float32)
@@ -646,15 +753,24 @@ def ssd_phases(dev):
                              True, inner=3, samples=5, warmup=2)
                  for tl in ssd.TILES}
         timing[tag] = t
+        if tag == "training":
+            x32 = [t_.float() for t_ in xs]
+            t["fp32_ms"] = cuda_ms(lambda: ssd.ssd_scan(*x32, chunk=512), True,
+                                   inner=5, samples=10, warmup=2)
+            del x32
         print(f"[17] ssd_scan {tag} x{[B, S, H, P]} N {N} chunk 512 bf16, "
-              f"card time: kernel {t['ms']:.5f} ms (tile {ssd.TILE}), plain "
+              f"card time: kernel (bf16 route, wgmma) {t['ms']:.5f} ms, plain "
               f"{t['plain_ms']:.5f} ms, no single PyTorch call computes it "
               f"(library_ms null); bound {t['bound_ms']:.6f} ms by "
               f"{t['bound_by']} ({n_bytes} B, {n_ops} FLOP at the bf16 "
               f"tensor-core peak; at the fp32 peak "
               f"{n_ops / FP32_OPS_PER_S * 1e3:.5f} ms); kernel at "
               f"{n_ops / t['ms'] / 1e9:.3f} TFLOP/s; by tile: "
-              + ", ".join(f"{tl} {ms:.4f}" for tl, ms in tiles.items()))
+              + ", ".join(f"{tl} {ms:.4f}" for tl, ms in tiles.items())
+              + " (every tile runs as 64 rows)")
+        if "fp32_ms" in t:
+            print(f"[17] ssd_scan {tag} fp32 at the same shape: fp32 route "
+                  f"(ssd_scan.cu, tile {ssd.TILE}) {t['fp32_ms']:.5f} ms")
         del xs
     return main_err[("training", torch.bfloat16)], timing
 
@@ -790,6 +906,7 @@ def train_phases(dev, all_counts):
                 log=lambda s: print(f"[19]   {s}"), on_step=on_step)
     events[-1].synchronize()
     got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    routes = dict(all_counts["ssd_scan"].routes)
     backward = all_counts["ssd_scan"].backward_plain
     # ----------------------------------------------------------------------
     expect = {k: ((2 * cfg.num_layers * TRAIN_STEPS if k == "ssd_scan"
@@ -798,6 +915,9 @@ def train_phases(dev, all_counts):
         fail(f"{TRAIN_ARCH} training: (kernel launches, plain calls) {got}; "
              f"expected {expect} (B5 twice a layer a step: the forward and "
              f"the remat recompute)")
+    if routes != {"fma": 0, "wgmma": got["ssd_scan"][0]}:
+        fail(f"{TRAIN_ARCH} training: B5 routes {routes}; expected every "
+             f"call on the bf16 (wgmma) route")
     loss = torch.stack(losses).float().cpu().numpy()
     after = held_out_loss()
     if not np.isfinite(loss).all() or not np.isfinite([before, after]).all():
@@ -809,8 +929,9 @@ def train_phases(dev, all_counts):
     steps = np.array([a.elapsed_time(b) for a, b in
                       zip([start] + events[:-1], events)])
     p50 = float(np.percentile(steps, 50))
-    print(f"[19] {TRAIN_ARCH} training: B5 launches {got['ssd_scan'][0]} "
-          f"({got['ssd_scan'][0] // TRAIN_STEPS} a step), plain calls "
+    print(f"[19] {TRAIN_ARCH} training: B5 calls {got['ssd_scan'][0]} "
+          f"({got['ssd_scan'][0] // TRAIN_STEPS} a step; by route {routes}), "
+          f"plain calls "
           f"{got['ssd_scan'][1]}, B5 backward passes (the VJP of the plain "
           f"version) {backward}; no other kernel")
     print(f"[19] {TRAIN_ARCH} loss on the {HELD_OUT_BATCHES} held-out batches: "
@@ -861,6 +982,9 @@ def train_phases(dev, all_counts):
         for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
                   f"%)  {grp}")
+        b5 = groups.get("B5 ssd_kernel", 0.0)
+        print(f"[19] {TRAIN_ARCH}: B5's share of the card's time "
+              f"{100 * b5 / total:.1f}% ({b5 / 3e3:.3f} ms a step)")
         for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
             print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
                   f"%)  {name[:90]}")
@@ -1397,9 +1521,9 @@ def main():
                "blur2d": ("src/repro_torch/kernels/csrc/imaging.cu",
                           "src/repro/kernels/imaging.py:87"),
                "flash_attention": (
-                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                    "src/repro/kernels/flash_attention.py:34"),
-               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
                             "src/repro/kernels/ssd_scan.py:25")}
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -6,5 +6,8 @@ Ported, every Pallas kernel of `repro.kernels`: `inverse_cdf`
 and `_blur_kernel` of `repro.kernels.imaging`), `flash_attention`
 (`_flash_kernel` of `repro.kernels.flash_attention`) and `ssd_scan`
 (`_ssd_kernel` of `repro.kernels.ssd_scan`).  Each wrapper is a
-`torch.autograd.Function` with the JAX package's backward.
+`torch.autograd.Function` with the JAX package's backward.  Flash
+attention and the SSD scan take bf16 through tensor-core kernels
+(`csrc/*_tc.cu`, bf16 wgmma fed by TMA, with `csrc/hopper.cuh`) and fp32
+through FMA kernels; the dtype picks the route.
 """

@@ -4,8 +4,11 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes` — seconds to
 build, no PyTorch headers and no `ninja`.  Builds happen at first use,
 never at import, into `build/repro_torch/` at the root of the checkout
-(listed in `.gitignore`); a library is named by a hash of its source and
-flags, so an edited source builds anew and an unchanged one is reused.
+(listed in `.gitignore`); a library is named by a hash of its source, of
+every shared header `csrc/*.cuh` and of the flags, so an edited source or
+header builds anew and an unchanged one is reused.  The tensor-core
+sources reach the driver's `cuTensorMapEncodeTiled` through the runtime's
+driver entry point, so no library links `libcuda` itself.
 
 There is no fallback: without `nvcc`, or when it fails, `load` raises.
 """
@@ -24,7 +27,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # every kernel source under csrc/
-SOURCES = ("inverse_cdf", "imaging", "flash_attention", "ssd_scan")
+SOURCES = ("inverse_cdf", "imaging", "flash_attention", "ssd_scan",
+           "flash_attention_tc", "ssd_scan_tc")
 
 # No --use_fast_math: the kernels hold fp32 tolerances (see the sources).
 # -Xptxas -v prints registers and spills into the build log.
@@ -51,8 +55,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to: keyed by its source and flags."""
+    """Where `csrc/<name>.cu` builds to: keyed by its source, the shared
+    headers and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Dict
 
 import torch
 
@@ -39,15 +40,20 @@ class Counts:
     `launches` of the CUDA kernel and `plain_calls` of the plain version
     (CPU tensors) in the forward pass; `backward_launches` of a CUDA
     kernel and `backward_plain` backward passes computed by PyTorch
-    operations."""
+    operations.  A wrapper with more than one kernel route also counts its
+    launches by route in `routes` (route -> launches, summing to
+    `launches`)."""
     launches: int = 0
     plain_calls: int = 0
     backward_launches: int = 0
     backward_plain: int = 0
+    routes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def reset(self):
         self.launches = self.plain_calls = 0
         self.backward_launches = self.backward_plain = 0
+        for route in self.routes:
+            self.routes[route] = 0
 
 
 counts = Counts()

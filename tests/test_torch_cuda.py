@@ -9,7 +9,10 @@ on the card's machine, which has none:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the sampler and flash attention at fp32 rtol 1e-4 / atol 1e-5
 and bf16 2e-2, the mask bitwise, the blur at rtol/atol 1e-6, the SSD scan
-at fp32 rtol/atol 1e-3 and bf16 2e-2) across its tile sizes, its wrapper
+at fp32 rtol/atol 1e-3 and bf16 2e-2) across its tile sizes; flash
+attention and the SSD scan take bf16 through their tensor-core kernels
+(`csrc/*_tc.cu`) and fp32 through the FMA kernels, and both routes are
+held here, with the bf16 flash route's strided model layout; its wrapper
 is shown to raise on what the kernel does not take, every wrapper's
 gradients on the card are shown to equal the CPU's, and the solve
 service, the LLM engine and the LLM trainer on the card are shown to
@@ -330,6 +333,82 @@ def test_flash_wrapper_raises_on_the_card(sm90_card):
     assert (fa.counts.launches, fa.counts.plain_calls) == before
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "fma"),
+                                         (torch.bfloat16, "wgmma")])
+def test_flash_route_follows_the_dtype(sm90_card, dtype, route):
+    """fp32 takes flash_attention.cu, bf16 flash_attention_tc.cu: one
+    launch each, counted under its route."""
+    q, k, v = _qkv(1, 4, 2, 100, 64, dtype, sm90_card)
+    fa.counts.reset()
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.counts.launches == 1 and fa.counts.routes[route] == 1
+    assert sum(fa.counts.routes.values()) == 1
+
+
+@pytest.mark.parametrize("S,window", [(256, None), (1000, 64), (300, 8)])
+def test_flash_tc_tile_invariance(sm90_card, S, window):
+    """The bf16 route rounds P after each tile's rescaling: every pair of
+    tiles within the bf16 bar of the first, and of the plain version."""
+    q, k, v = _qkv(1, 4, 2, S, 64, torch.bfloat16, sm90_card, seed=1)
+    outs = [fa.flash_attention(q, k, v, True, window, block_q=bq,
+                               block_k=bk).float() for bq, bk in TILES]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], **BF16)
+    torch.testing.assert_close(outs[0], flash_attention_ref(
+        q, k, v, True, window).float(), **BF16)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S,window", [(1024, None), (100, None), (300, 8)])
+def test_flash_tc_model_layout_reads_strides(sm90_card, hd, S, window):
+    """The bf16 route reads q/k/v as views of one fused projection [B, S,
+    KV, G + 2, hd] (no copies) and writes o in the model layout."""
+    B, KV, G = 2, 2, 4
+    g = torch.Generator().manual_seed(hd + S)
+    fused = torch.randn(B, S, KV, G + 2, hd, generator=g).to(
+        sm90_card, torch.bfloat16)
+    q, k, v = fused[:, :, :, :G], fused[:, :, :, G], fused[:, :, :, G + 1]
+    fa.counts.reset()
+    o = fa.flash_attention_model(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert fa.counts.routes == {"fma": 0, "wgmma": 1}
+    assert o.shape == (B, S, KV, G, hd) and o.is_contiguous()
+    torch.testing.assert_close(o.float(), fa._plain_model(
+        q, k, v, True, window).float(), **BF16)
+
+
+def test_flash_tc_model_layout_backward(sm90_card):
+    """The bf16 model-layout route's backward is the VJP of the plain
+    version in that layout, on the card."""
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randn(2, 100, 2, 4, 64, generator=g),
+          torch.randn(2, 100, 2, 64, generator=g),
+          torch.randn(2, 100, 2, 64, generator=g)]
+    w = torch.randn(2, 100, 2, 4, 64, generator=g).to(sm90_card)
+    grads, seen = [], []
+    for fn in (fa.flash_attention_model, fa._plain_model):
+        ts = [x.to(sm90_card, torch.bfloat16).requires_grad_() for x in xs]
+        fa.counts.reset()
+        (fn(*ts, True, 16).float() * w).sum().backward()
+        grads.append([t.grad.float() for t in ts])
+        seen.append((dict(fa.counts.routes), fa.counts.backward_plain))
+    assert seen == [({"fma": 0, "wgmma": 1}, 1), ({"fma": 0, "wgmma": 0}, 0)]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **BF16)
+
+
+def test_flash_tc_refuses_what_tma_cannot_read(sm90_card):
+    q = torch.zeros(1, 16, 1, 2, 36, device=sm90_card,
+                    dtype=torch.bfloat16)[..., :32]     # rows 72 B apart
+    k = torch.zeros(1, 16, 1, 32, device=sm90_card, dtype=torch.bfloat16)
+    fa.counts.reset()
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_model(q, k, k)
+    assert fa.counts.launches == 0
+
+
 @pytest.mark.parametrize("window", [None, 8])
 def test_llm_engine_on_the_card_launches_flash(sm90_card, window):
     """The tinyllama smoke config in fp32: one B4 launch per layer and
@@ -398,6 +477,48 @@ def test_ssd_kernel_matches_plain(sm90_card, B, S, H, P, N, chunk, dtype):
     if S <= 128:
         torch.testing.assert_close(y.float(), ssd_scan_ref(*xs).float(),
                                    **tol)
+
+
+@pytest.mark.parametrize("S,chunk,N,P", [
+    (S, chunk, N, P) for S in (1, 100, 1000) for chunk in (16, 64, 128, 512)
+    for N, P in ((16, 32), (128, 64))] + [(2048, 512, 128, 64),
+                                          (300, 64, 64, 32),
+                                          (200, 48, 32, 64)])
+def test_ssd_tc_matches_plain(sm90_card, S, chunk, N, P):
+    """The bf16 route over phase 16's sweep and the multi-chunk shape: one
+    call, counted once under its route, within the bf16 bar."""
+    xs = _ssd(2, S, 3, P, N, torch.bfloat16, sm90_card, seed=S + chunk)
+    ssd.counts.reset()
+    y = ssd.ssd_scan(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.counts.launches == 1
+    assert ssd.counts.routes == {"fma": 0, "wgmma": 1}
+    assert y.dtype == torch.bfloat16 and y.shape == xs[0].shape
+    torch.testing.assert_close(y.float(),
+                               ssd_chunked_ref(*xs, chunk)[0].float(), **BF16)
+
+
+def test_ssd_tc_tile_and_chunk_agree(sm90_card):
+    """Every `tile` runs as 64 rows (bitwise equal); chunks agree within
+    the bf16 bar."""
+    xs = _ssd(1, 300, 2, 64, 128, torch.bfloat16, sm90_card, seed=2)
+    by_tile = [ssd.ssd_scan(*xs, chunk=64, tile=t) for t in ssd.TILES]
+    by_chunk = [ssd.ssd_scan(*xs, chunk=c) for c in (16, 64, 128, 512)]
+    torch.cuda.synchronize()
+    for y in by_tile[1:]:
+        assert torch.equal(y, by_tile[0])
+    for y in by_chunk[1:]:
+        torch.testing.assert_close(y.float(), by_chunk[0].float(), **BF16)
+
+
+def test_ssd_tc_refuses_shapes_it_does_not_take(sm90_card):
+    xs = _ssd(1, 16, 2, 16, 8, torch.bfloat16, sm90_card)
+    ssd.counts.reset()
+    with pytest.raises(ValueError, match="bf16 SSD kernel"):
+        ssd.ssd_scan(*xs)
+    with pytest.raises(ValueError, match="bf16 SSD kernel"):
+        ssd.ssd_scan(*_ssd(1, 16, 2, 64, 256, torch.bfloat16, sm90_card))
+    assert ssd.counts.launches == 0
 
 
 def test_ssd_kernel_chunk_and_tile_invariance(sm90_card):
