@@ -10,15 +10,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card, at the
      solve service's main-path shapes and at ragged, tiny and bf16 shapes:
-     the sampler (B1) at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, the mask
-     (B2) bitwise over a sweep of threads per block, the blur (B3) at
-     rtol/atol 1e-6 over a sweep of images per block;
+     the sampler (B1) at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, also at
+     the GAN trainer's shape u [8192, 100, 2], at C 1, 3 and 5 and on views
+     that start 1 or 3 elements into their buffer; the mask (B2) bitwise
+     over a sweep of threads per block; the blur (B3) at rtol/atol 1e-6
+     over a sweep of band heights (bitwise the same at each), also at
+     [16, 256, 256] and [3, 130, 77] and on views 1 element into their
+     buffer (the scalar path);
   4. time each kernel, its plain version and, where one exists, the one
      PyTorch call that computes the same function, at the main-path shape
      (CUDA events, median of 50 samples of 20 calls each after warm-up; the
      card's time with the stream held while the host enqueues, and the time
      per call back to back with host launch included), beside the least
-     time the card could take (its byte or operation bound);
+     time the card could take (its byte or operation bound); B1 also at
+     u [8192, 100, 2] and B3 at [16, 256, 256], and the launch floor: an
+     empty kernel on B1's grid at the main-path shape;
   5. serve proxy1d: `SolveService(DEFAULT)` on the card, with a 16-rank
      generator stack at the paper's widths (random weights from a seed)
      written in the JAX package's checkpoint layout and loaded through
@@ -113,12 +119,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
      `serving.engine.generate`: SSM prefill and decode are plain PyTorch,
      so no kernel launches; prefill ms, decode ms a step.
 
+`python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
+two checkouts on one card: copy this script into the root of the other
+(a `git archive` of an earlier commit, say) and run it there too, in
+turns.  An earlier checkout's kernel that has no launch-floor entry or
+refuses [16, 256, 256] is reported there, not failed.
+
 Each served path runs with every kernel count set to 0 just before it and
 read just after it.  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
+import ctypes
 import itertools
 import json
 import os
@@ -141,6 +154,10 @@ BF16_TC_OPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores
 MAIN_SHAPE = (2048, 64, 2)      # sampler u at DEFAULT with 16 ranks
 MASK_SHAPE = (2048, 1024)       # mask x at DEFAULT: 16 ranks x 128 cands
 BLUR_SHAPE = (2048, 32, 32)     # blur x at DEFAULT
+BLUR_BIG_SHAPE = (16, 256, 256)   # large images: 8.4 MB, half BLUR_SHAPE's
+BLUR_ROWS = (None, 1, 3, 4, 32, 64, 1000)   # band heights (None: the plan)
+TRAIN_ICDF_SHAPE = (8192, 100, 2)   # u of the GAN trainer's PAPER preset:
+                                    # 8 ranks x 1024 samples, 100 events
 L2_ROTATION = 8                 # B2/B3 input sets cycled: 67 MB > the 50 MB L2
 SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
 RANKS = 16
@@ -1088,8 +1105,157 @@ def train_phases(dev, all_counts):
     return launches
 
 
+def time_phase(dev, strict):
+    """Phase 4: each kernel, its plain version and the library call timed
+    at the main-path shapes, B1 also at the trainer's and B3 at large
+    images, and the launch floor.  Returns name -> times.  strict=False
+    (`--times` in an earlier checkout) reports a kernel that lacks the
+    launch-floor entry or refuses BLUR_BIG_SHAPE instead of failing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import imaging as kimaging
+    from repro_torch.kernels.inverse_cdf import inverse_cdf_channels
+    from repro_torch.kernels.ref import (BLUR_W0, BLUR_W1, blur2d_ref,
+                                         inverse_cdf_ref, mask_apply_ref)
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+
+    def sampler_inputs(K, E, C):
+        u = torch.rand((K, E, C), generator=g).to(dev)
+        mu = (torch.rand((K, C), generator=g) * 4 - 2).to(dev)
+        s = (torch.rand((K, C), generator=g) * 0.95 + 0.05).to(dev)
+        k = (torch.rand((K, C), generator=g) * 2 - 1).to(dev)
+        return u, mu, s, k
+
+    def timed(kernel, plain, library, arg_sets, n_bytes, n_ops):
+        """Card and back-to-back times of the kernel, its plain version and
+        the library call (None: there is none), cycling `arg_sets`."""
+        k, p = rotating(kernel, arg_sets), rotating(plain, arg_sets)
+        t = dict(ms=cuda_ms(k, device_only=True),
+                 plain_ms=cuda_ms(p, device_only=True),
+                 library_ms=None if library is None else cuda_ms(
+                     rotating(library, arg_sets), device_only=True),
+                 call_ms=cuda_ms(k, device_only=False),
+                 plain_call_ms=cuda_ms(p, device_only=False),
+                 bytes=n_bytes, ops=n_ops)
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops)
+        return t
+
+    def sampler_bytes_ops(u, mu):
+        # u in, y out, mu/s/k in; clamp 2, 1-u, divide, log, s*, +, u-0.5,
+        # k*, + per element
+        return 4 * u.numel() * 2 + 3 * 4 * mu.numel(), 10 * u.numel()
+
+    timing = {}
+    u, mu, s, k = sampler_inputs(*MAIN_SHAPE)
+    timing["inverse_cdf"] = timed(
+        inverse_cdf_channels, inverse_cdf_ref, None, [(u, mu, s, k)],
+        *sampler_bytes_ops(u, mu))
+    # the launch floor: an empty kernel of csrc/inverse_cdf.cu on the grid
+    # the sampler takes at the main-path shape, timed as the kernels are
+    try:
+        floor_fn = build.load("inverse_cdf").repro_inverse_cdf_floor
+    except AttributeError:
+        if strict:
+            raise
+        floor_fn = None
+    floor_ms = None
+    if floor_fn is not None:
+        floor_fn.restype = ctypes.c_int
+        floor_fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+
+        def empty_kernel():
+            if floor_fn(MAIN_SHAPE[0],
+                        torch.cuda.current_stream().cuda_stream):
+                fail("the empty kernel did not launch")
+
+        floor_ms = cuda_ms(empty_kernel, device_only=True)
+    sets = [sampler_inputs(*TRAIN_ICDF_SHAPE) for _ in range(L2_ROTATION)]
+    timing["inverse_cdf_train"] = timed(
+        inverse_cdf_channels, inverse_cdf_ref, None, sets,
+        *sampler_bytes_ops(sets[0][0], sets[0][1]))
+    del sets
+
+    m = (torch.rand(MASK_SHAPE[1], generator=g) > 0.4).to(dev, torch.float32)
+    sets = [(torch.randn(MASK_SHAPE, generator=g).to(dev), m)
+            for _ in range(L2_ROTATION)]
+    # x in, y out, m in; one product per element
+    timing["mask_apply"] = timed(
+        kimaging.mask_apply, mask_apply_ref, lambda x, m: x * m[None], sets,
+        2 * 4 * sets[0][0].numel() + 4 * m.numel(), sets[0][0].numel())
+
+    x = torch.randn(BLUR_SHAPE, generator=g).to(dev)
+    taps = torch.tensor([BLUR_W1, BLUR_W0, BLUR_W1], device=dev)
+    stencil = torch.outer(taps, taps)[None, None]
+    cudnn = torch.backends.cudnn
+
+    def library_blur(x):
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            return F.conv2d(x[:, None], stencil, padding=1)[:, 0]
+
+    ok, err = close(library_blur(x), blur2d_ref(x), **FP32)
+    if not ok:
+        fail(f"the library blur computes another function than the plain "
+             f"version (max err {err:.3e})")
+    print(f"[4] the library blur (cuDNN conv2d, TF32 off) against the plain "
+          f"version: max err {err:.3e} (rtol 1e-4, atol 1e-5; it is timed "
+          f"only, never called by the port)")
+    # x in, y out; per pixel 2 adds and 2 products in each pass
+    for key, shape in (("blur2d", BLUR_SHAPE), ("blur2d_big", BLUR_BIG_SHAPE)):
+        sets = [(torch.randn(shape, generator=g).to(dev),)
+                for _ in range(L2_ROTATION)]
+        try:
+            timing[key] = timed(
+                kimaging.blur2d, blur2d_ref, library_blur, sets,
+                2 * 4 * sets[0][0].numel(), 8 * sets[0][0].numel())
+        except RuntimeError as e:
+            if strict:
+                raise
+            print(f"[4] blur2d x{list(shape)}: this checkout's kernel "
+                  f"refuses it ({e})")
+        del sets
+
+    shapes = {"inverse_cdf": f"inverse_cdf u{list(MAIN_SHAPE)}",
+              "inverse_cdf_train": f"inverse_cdf u{list(TRAIN_ICDF_SHAPE)}",
+              "mask_apply": f"mask_apply x{list(MASK_SHAPE)}",
+              "blur2d": f"blur2d x{list(BLUR_SHAPE)}",
+              "blur2d_big": f"blur2d x{list(BLUR_BIG_SHAPE)}"}
+    for name, t in timing.items():
+        lib = (f"one PyTorch call {t['library_ms']:.5f} ms"
+               if t["library_ms"] is not None
+               else "no single PyTorch call computes it (library_ms null)")
+        print(f"[4] {shapes[name]} fp32, card time: kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, {lib}; bound "
+              f"{t['bound_ms']:.6f} ms by {t['bound_by']} ({t['bytes']} B, "
+              f"{t['ops']} fp32 ops); {t['bound_ms'] / t['ms']:.1%} of the "
+              f"bound reached")
+        print(f"[4] {shapes[name]} per call back to back, host launch "
+              f"included: kernel wrapper {t['call_ms']:.5f} ms, plain "
+              f"{t['plain_call_ms']:.5f} ms")
+    if floor_ms is None:
+        print("[4] launch floor: this checkout has no empty kernel")
+    else:
+        print(f"[4] launch floor: an empty kernel of csrc/inverse_cdf.cu on "
+              f"the sampler's grid at u{list(MAIN_SHAPE)}: {floor_ms:.5f} ms;"
+              f" the sampler there is "
+              f"{timing['inverse_cdf']['ms'] - floor_ms:.5f} ms above it")
+    print(f"[4] u{list(TRAIN_ICDF_SHAPE)}, mask_apply and blur2d cycle "
+          f"{L2_ROTATION} input sets (a working set above the 50 MB L2); "
+          f"inverse_cdf at u{list(MAIN_SHAPE)} reuses one, as the service "
+          f"does")
+
+    return timing
+
+
 def main():
     import torch
+    times_only = sys.argv[1:] == ["--times"]
+    if sys.argv[1:] and not times_only:
+        print(f"usage: {sys.argv[0]} [--times]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -1099,7 +1265,6 @@ def main():
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    import torch.nn.functional as F
     from repro_torch.checkpoint.store import (conv_generator_from_numpy,
                                               load_generator_stack)
     from repro_torch.configs.serving import DEFAULT
@@ -1108,8 +1273,8 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels import imaging as kimaging
     from repro_torch.kernels.inverse_cdf import counts, inverse_cdf_channels
-    from repro_torch.kernels.ref import (BLUR_W0, BLUR_W1, blur2d_ref,
-                                         inverse_cdf_ref, mask_apply_ref)
+    from repro_torch.kernels.ref import (blur2d_ref, inverse_cdf_ref,
+                                         mask_apply_ref)
     from repro_torch.models import convgen
     from repro_torch.problems import get_problem
     from repro_torch.serving import SolveService
@@ -1149,6 +1314,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[2]   {name}: {line.strip()}")
 
+    if times_only:
+        time_phase(dev, strict=False)
+        print(smi_line)
+        return 0
+
     # -- 3. kernels against their plain versions -----------------------------
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -1159,30 +1329,49 @@ def main():
         k = (torch.rand((K, C), generator=g) * 2 - 1).to(dev, pdtype)
         return u, mu, s, k
 
-    cases = [(MAIN_SHAPE, torch.float32, torch.float32),
-             (MAIN_SHAPE, torch.bfloat16, torch.float32),
-             ((2048, 64, 1), torch.float32, torch.float32),
-             ((1000, 77, 1), torch.float32, torch.float32),
-             ((1000, 77, 1), torch.bfloat16, torch.float32),
-             ((3, 5, 2), torch.float32, torch.float32),
-             ((3, 5, 2), torch.bfloat16, torch.bfloat16)]
+    def unaligned(t, offset):
+        """t's values in a contiguous view `offset` elements into a new
+        buffer: its rows are not 16-byte aligned."""
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        buf[offset:] = t.flatten()
+        return buf[offset:].view(t.shape)
+
+    # (shape, u dtype, param dtype, elements u lies into its buffer)
+    cases = [(MAIN_SHAPE, torch.float32, torch.float32, 0),
+             (MAIN_SHAPE, torch.bfloat16, torch.float32, 0),
+             ((2048, 64, 1), torch.float32, torch.float32, 0),
+             (TRAIN_ICDF_SHAPE, torch.float32, torch.float32, 0),
+             (TRAIN_ICDF_SHAPE, torch.bfloat16, torch.bfloat16, 0),
+             (TRAIN_ICDF_SHAPE, torch.float32, torch.float32, 1),
+             (TRAIN_ICDF_SHAPE, torch.bfloat16, torch.float32, 3),
+             ((8192, 100, 1), torch.float32, torch.float32, 0),
+             ((300, 7, 3), torch.float32, torch.float32, 0),
+             ((300, 7, 3), torch.bfloat16, torch.float32, 1),
+             ((64, 100, 5), torch.float32, torch.bfloat16, 0),
+             ((1000, 77, 1), torch.float32, torch.float32, 0),
+             ((1000, 77, 1), torch.bfloat16, torch.float32, 0),
+             ((3, 5, 2), torch.float32, torch.float32, 0),
+             ((3, 5, 2), torch.bfloat16, torch.bfloat16, 0)]
     max_err = {}
-    for shape, udtype, pdtype in cases:
+    for shape, udtype, pdtype, offset in cases:
         u, mu, s, k = sampler_inputs(*shape, udtype, pdtype)
         if shape == (3, 5, 2):      # the clamp's edges and NaN
             u[0, :, 0] = torch.tensor([0.0, 1.0, -1.0, 2.0, float("nan")])
+        if offset:
+            u = unaligned(u, offset)
         y = inverse_cdf_channels(u, mu, s, k)
         torch.cuda.synchronize()
         ref = inverse_cdf_ref(u, mu, s, k)
         tol = FP32 if udtype == torch.float32 else BF16
         ok, err = close(y, ref, **tol)
+        at = f", {offset} elements into its buffer" if offset else ""
         print(f"[3] inverse_cdf u{list(shape)} {str(udtype)[6:]} (params "
-              f"{str(pdtype)[6:]}): max |kernel - plain| = {err:.3e} "
+              f"{str(pdtype)[6:]}{at}): max |kernel - plain| = {err:.3e} "
               f"(rtol {tol['rtol']}, atol {tol['atol']}) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok or y.dtype != udtype or y.shape != u.shape:
             fail(f"inverse_cdf kernel disagrees with its plain version at "
-                 f"{shape} {udtype}")
+                 f"{shape} {udtype}{at}")
         if shape == MAIN_SHAPE and udtype == torch.float32:
             max_err["inverse_cdf"] = err
 
@@ -1206,101 +1395,42 @@ def main():
         if shape == MASK_SHAPE and dtype == torch.float32:
             max_err["mask_apply"] = float((y - want).abs().max())
 
-    for shape, dtype in [(BLUR_SHAPE, torch.float32),
-                         (BLUR_SHAPE, torch.bfloat16),
-                         ((33, 64, 48), torch.float32),
-                         ((20, 16, 24), torch.bfloat16),
-                         ((1, 8, 8), torch.float32)]:
+    # (shape, dtype, elements x lies into its buffer)
+    for shape, dtype, offset in [(BLUR_SHAPE, torch.float32, 0),
+                                 (BLUR_SHAPE, torch.bfloat16, 0),
+                                 (BLUR_BIG_SHAPE, torch.float32, 0),
+                                 (BLUR_BIG_SHAPE, torch.bfloat16, 0),
+                                 (BLUR_BIG_SHAPE, torch.float32, 1),
+                                 ((3, 130, 77), torch.float32, 0),
+                                 ((3, 130, 77), torch.bfloat16, 0),
+                                 (BLUR_SHAPE, torch.float32, 1),
+                                 ((33, 64, 48), torch.float32, 0),
+                                 ((20, 16, 24), torch.bfloat16, 0),
+                                 ((1, 8, 8), torch.float32, 0)]:
         x = torch.randn(shape, generator=g).to(dev, dtype)
+        if offset:
+            x = unaligned(x, offset)
         want = blur2d_ref(x)
-        worst = 0.0
-        for images in (1, 3, 4, 8):
-            y = kimaging.blur2d(x, images=images)
+        worst, first = 0.0, None
+        for rows in BLUR_ROWS:
+            y = kimaging.blur2d(x, rows=rows)
             torch.cuda.synchronize()
             ok, err = close(y, want, **BLUR)
             worst = max(worst, err)
-            if not ok or y.dtype != dtype:
-                fail(f"blur2d kernel disagrees with its plain version at "
-                     f"{shape} {dtype}, {images} images per block (max "
-                     f"{err:.3e})")
-        print(f"[3] blur2d x{list(shape)} {str(dtype)[6:]}: max |kernel - "
-              f"plain| = {worst:.3e} over 1, 3, 4 and 8 images per block "
-              f"(rtol/atol 1e-6) ok")
-        if shape == BLUR_SHAPE and dtype == torch.float32:
+            first = y if first is None else first
+            if not ok or y.dtype != dtype or not torch.equal(y, first):
+                fail(f"blur2d kernel disagrees with its plain version, or "
+                     f"with itself at another band height, at {shape} "
+                     f"{dtype}, {rows} rows per band (max {err:.3e})")
+        at = f", {offset} element into its buffer" if offset else ""
+        print(f"[3] blur2d x{list(shape)} {str(dtype)[6:]}{at}: max |kernel "
+              f"- plain| = {worst:.3e} over band heights {BLUR_ROWS} "
+              f"(rtol/atol 1e-6; bitwise the same at each) ok")
+        if shape == BLUR_SHAPE and dtype == torch.float32 and not offset:
             max_err["blur2d"] = worst
 
     # -- 4. time at the main-path shapes -------------------------------------
-    def timed(kernel, plain, library, arg_sets, n_bytes, n_ops):
-        """Card and back-to-back times of the kernel, its plain version and
-        the library call (None: there is none), cycling `arg_sets`."""
-        k, p = rotating(kernel, arg_sets), rotating(plain, arg_sets)
-        t = dict(ms=cuda_ms(k, device_only=True),
-                 plain_ms=cuda_ms(p, device_only=True),
-                 library_ms=None if library is None else cuda_ms(
-                     rotating(library, arg_sets), device_only=True),
-                 call_ms=cuda_ms(k, device_only=False),
-                 plain_call_ms=cuda_ms(p, device_only=False),
-                 bytes=n_bytes, ops=n_ops)
-        t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops)
-        return t
-
-    timing = {}
-    u, mu, s, k = sampler_inputs(*MAIN_SHAPE, torch.float32)
-    # u in, y out, mu/s/k in; clamp 2, 1-u, divide, log, s*, +, u-0.5, k*, +
-    # per element
-    timing["inverse_cdf"] = timed(
-        inverse_cdf_channels, inverse_cdf_ref, None, [(u, mu, s, k)],
-        4 * u.numel() * 2 + 3 * 4 * mu.numel(), 10 * u.numel())
-
-    m = (torch.rand(MASK_SHAPE[1], generator=g) > 0.4).to(dev, torch.float32)
-    sets = [(torch.randn(MASK_SHAPE, generator=g).to(dev), m)
-            for _ in range(L2_ROTATION)]
-    # x in, y out, m in; one product per element
-    timing["mask_apply"] = timed(
-        kimaging.mask_apply, mask_apply_ref, lambda x, m: x * m[None], sets,
-        2 * 4 * sets[0][0].numel() + 4 * m.numel(), sets[0][0].numel())
-
-    sets = [(torch.randn(BLUR_SHAPE, generator=g).to(dev),)
-            for _ in range(L2_ROTATION)]
-    taps = torch.tensor([BLUR_W1, BLUR_W0, BLUR_W1], device=dev)
-    stencil = torch.outer(taps, taps)[None, None]
-    cudnn = torch.backends.cudnn
-
-    def library_blur(x):
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            return F.conv2d(x[:, None], stencil, padding=1)[:, 0]
-
-    ok, err = close(library_blur(*sets[0]), blur2d_ref(*sets[0]), **FP32)
-    if not ok:
-        fail(f"the library blur computes another function than the plain "
-             f"version (max err {err:.3e})")
-    print(f"[4] the library blur (cuDNN conv2d, TF32 off) against the plain "
-          f"version: max err {err:.3e} (rtol 1e-4, atol 1e-5; it is timed "
-          f"only, never called by the port)")
-    # x in, y out; per pixel 2 adds and 2 products in each pass
-    timing["blur2d"] = timed(
-        kimaging.blur2d, blur2d_ref, library_blur, sets,
-        2 * 4 * sets[0][0].numel(), 8 * sets[0][0].numel())
-    del sets
-
-    shapes = {"inverse_cdf": f"u{list(MAIN_SHAPE)}",
-              "mask_apply": f"x{list(MASK_SHAPE)}",
-              "blur2d": f"x{list(BLUR_SHAPE)}"}
-    for name, t in timing.items():
-        lib = (f"one PyTorch call {t['library_ms']:.5f} ms"
-               if t["library_ms"] is not None
-               else "no single PyTorch call computes it (library_ms null)")
-        print(f"[4] {name} {shapes[name]} fp32, card time: kernel "
-              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, {lib}; bound "
-              f"{t['bound_ms']:.6f} ms by {t['bound_by']} ({t['bytes']} B, "
-              f"{t['ops']} fp32 ops)")
-        print(f"[4] {name} per call back to back, host launch included: "
-              f"kernel wrapper {t['call_ms']:.5f} ms, plain "
-              f"{t['plain_call_ms']:.5f} ms")
-    print(f"[4] mask_apply and blur2d cycle {L2_ROTATION} input sets (a "
-          f"working set above the 50 MB L2); inverse_cdf reuses one")
+    timing = time_phase(dev, strict=True)
 
     # -- the served paths ----------------------------------------------------
     def make_requests(problem):

@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the tensor-core kernels of the port
-// (flash_attention_tc.cu, ssd_scan_tc.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the wgmma instructions themselves,
-// and the host-side encoding of a TMA tensor map.  Needs sm_90a.
+// Hopper building blocks shared by the port's kernels: fp32/bf16 values one
+// at a time or 16 bytes at a time, mbarriers, TMA tile loads and 1-D bulk
+// copies, wgmma shared-memory descriptors and the wgmma instructions
+// themselves (flash_attention_tc.cu, ssd_scan_tc.cu), the host-side
+// encoding of a TMA tensor map, and the card's SM count and shared-memory
+// limit.  Needs sm_90a.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"): four
 // warps issue D[64, N] += A[64, 16] B[16, N] in bf16 with an fp32
@@ -34,6 +36,68 @@
 #include <cuda_runtime.h>
 
 namespace hopper {
+
+// ---- fp32 and bf16 values, one at a time or 16 bytes at a time -------------
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+// 16 bytes of T as fp32: 4 fp32 or 8 bf16, the lower address first
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+  static __device__ __forceinline__ void unpack(const Raw &v, float (&f)[4]) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  static __device__ __forceinline__ Raw pack(const float (&f)[4]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+  static __device__ __forceinline__ void load(const void *p, float (&f)[4]) {
+    unpack(*static_cast<const Raw *>(p), f);
+  }
+  static __device__ __forceinline__ void store(void *p, const float (&f)[4]) {
+    *static_cast<Raw *>(p) = pack(f);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw &v, float (&f)[8]) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162 *>(&w[i]));
+      f[2 * i] = t.x;       // the lower address is the low half
+      f[2 * i + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ Raw pack(const float (&f)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t *>(&t);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ void load(const void *p, float (&f)[8]) {
+    unpack(*static_cast<const Raw *>(p), f);
+  }
+  static __device__ __forceinline__ void store(void *p, const float (&f)[8]) {
+    *static_cast<Raw *>(p) = pack(f);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void *p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,6 +161,19 @@ __device__ __forceinline__ void tma_load_5d(void *dst, const CUtensorMap *map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
+}
+
+// ---- 1-D bulk copy into shared memory, completing on an mbarrier ----------
+// `bytes` contiguous bytes from global `src` to shared `dst`: both addresses
+// and `bytes` multiples of 16.  Issued by one thread, after it armed `bar`
+// for the bytes with mbar_expect_tx.
+__device__ __forceinline__ void bulk_load(void *dst, const void *src,
+                                          uint32_t bytes, uint64_t *bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 // order this thread's generic-proxy shared-memory writes before later
@@ -415,6 +492,25 @@ inline int make_map(CUtensorMap *map, const void *base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// the current device's SM count and the shared memory a block may opt into,
+// read once per device
+struct DeviceLimits {
+  int sms = 0;
+  int smem_optin = 0;
+};
+inline const DeviceLimits &device_limits() {
+  static DeviceLimits limits[64];
+  int device = 0;
+  cudaGetDevice(&device);
+  DeviceLimits &l = limits[device & 63];
+  if (l.sms == 0) {
+    cudaDeviceGetAttribute(&l.smem_optin,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return l;
 }
 
 // opt a kernel into `bytes` of dynamic shared memory (once per size)

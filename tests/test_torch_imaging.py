@@ -235,7 +235,7 @@ def test_imaging_wrappers_cpu_route_and_checks():
     for c in (kimaging.mask_counts, kimaging.blur_counts):
         c.reset()
     kimaging.mask_apply(x, m, threads=64)
-    kimaging.blur2d(img, images=3)
+    kimaging.blur2d(img, rows=3)
     assert (kimaging.mask_counts.plain_calls, kimaging.mask_counts.launches,
             kimaging.blur_counts.plain_calls,
             kimaging.blur_counts.launches) == (1, 0, 1, 0)
@@ -256,8 +256,8 @@ def test_imaging_wrappers_cpu_route_and_checks():
     for bad in (0, 16, 48 + 1, 2048):
         with pytest.raises(ValueError, match="threads"):
             kimaging.mask_apply(x, m, threads=bad)
-    with pytest.raises(ValueError, match="images"):
-        kimaging.blur2d(img, images=0)
+    with pytest.raises(ValueError, match="rows"):
+        kimaging.blur2d(img, rows=0)
     meta = torch.empty((4, 8, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         kimaging.blur2d(meta)
