@@ -117,7 +117,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
      lr_t);
  21. serve mamba2-130m (batch 8, prompt 1024, 64 greedy tokens) through
      `serving.engine.generate`: SSM prefill and decode are plain PyTorch,
-     so no kernel launches; prefill ms, decode ms a step.
+     so no kernel launches; prefill ms, decode ms a step;
+ 22. train the paper's GAN at full width through `core.workflow
+     .train_stacked`: the `PAPER` preset (1024 x 100 events a rank, lr
+     1e-5 / 1e-4, h 1000), 8 ranks as 2 x 4, random weights and 50,000
+     reference events from a seed, 200 epochs in `rma_arar_arar` and in
+     `conv_arar`, history every 20, fp32 with TF32 off, after an
+     uncounted 2-epoch warm-up; each mode must meet the bars of
+     tests/test_system.py::test_workflow_end_to_end_healthy (every state
+     leaf finite, the ensemble in (0, 1), the last recorded d_loss below
+     the first and its minimum below 1.42), with B1 launched once an
+     epoch at u [8192, 100, 2], its backward once an epoch and no plain
+     call; epoch p50/p99, generated events/s, peak memory, final mean|r̂|;
+ 23. one epoch on the card and on the CPU from the same state (a non-zero
+     RMA mailbox) and draws, full width, REDUCED batch sizes, 4 ranks as
+     2 x 2, h 1, fp32, TF32 off, in both ring modes: losses at rtol 1e-5,
+     every generator gradient leaf within 1e-3 in relative norm, the
+     CPU's exchange of the card's gradients bitwise the card's, and the
+     card's new generator and Adam state against the CPU's optimizer
+     applied to the card's synced gradients at rtol 1e-6 / atol 1e-9;
+ 24. profile 5 PAPER epochs: the card's busy share, its time by kernel
+     (GEMMs, B1, the exchange's rolls, the rest), B1's share, device ops
+     an epoch.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -182,6 +203,12 @@ HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phase 19's loss check
 STEP_LOSS_RTOL = 1e-5           # phase 20, card against CPU (fp32)
 STEP_GRAD_REL = 1e-3            # each gradient leaf, in relative norm
 UPDATE_TOL = dict(rtol=1e-6, atol=1e-9)   # the optimizer, card vs CPU
+GAN_MODES = ("rma_arar_arar", "conv_arar")   # test_system.py's two modes
+GAN_OUTER, GAN_INNER = 2, 4     # R 8: 2 nodes of 4 GPUs (Tab. I)
+GAN_EPOCHS, GAN_EVERY = 200, 20     # phase 22: epochs, history cadence
+GAN_REF_EVENTS = 50_000         # reference events, as the example CLI
+GAN_D_MIN = 1.42                # the healthy bar on min d_loss
+GAN_PROFILED = 5                # phase 24's epochs
 
 
 def fail(msg):
@@ -1105,6 +1132,223 @@ def train_phases(dev, all_counts):
     return launches
 
 
+def gan_phases(dev, all_counts):
+    """Phases 22-24: the paper's GAN trained at full width (PAPER, R 8),
+    one epoch on the card against the CPU, and a profile of PAPER epochs.
+    Returns B1's launches over the counted training runs."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs.sagips_gan import PAPER, REDUCED
+    from repro_torch.core import gan
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ensemble import ensemble_response
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.problems import get_problem
+
+    prob = get_problem("proxy1d")
+    R = GAN_OUTER * GAN_INNER
+    K, E = PAPER.n_param_samples, PAPER.events_per_sample
+    data = prob.make_reference_data(torch.Generator(device=dev).manual_seed(
+        99), GAN_REF_EVENTS, device=dev)
+    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
+        ).manual_seed(7)).to(dev)
+
+    def paper(mode):
+        return dataclasses.replace(
+            PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode))
+
+    # -- 22. train PAPER at full width in both ring modes --------------------
+    # one uncounted warm-up run: PyTorch's runtime kernels and the
+    # allocator's pool at these shapes
+    W.train_stacked(SEED + 20, paper(GAN_MODES[0]), GAN_OUTER, GAN_INNER, 2,
+                    data, device=dev)
+    torch.cuda.synchronize()
+    launches = 0
+    for mode in GAN_MODES:
+        wcfg = paper(mode)
+        events = []
+
+        def on_epoch(e, metrics):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        state, hist = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                                      GAN_EPOCHS, data,
+                                      checkpoint_every=GAN_EVERY, device=dev,
+                                      on_epoch=on_epoch)
+        events[-1].synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        backward = all_counts["inverse_cdf"].backward_plain
+        # ------------------------------------------------------------------
+        expect = {k: ((GAN_EPOCHS if k == "inverse_cdf" else 0), 0)
+                  for k in all_counts}
+        if got != expect or backward != GAN_EPOCHS:
+            fail(f"GAN training {mode}: (kernel launches, plain calls) {got}, "
+                 f"B1 backward passes {backward}; expected {expect} and "
+                 f"{GAN_EPOCHS}: the fake events are made once an epoch")
+        launches += got["inverse_cdf"][0]
+        bad = [k for k, t in tree_paths(state)
+               if not bool(torch.isfinite(t.float()).all())]
+        p_hat, sigma = ensemble_response(state["gen"], noise)
+        d = hist["d_loss"].mean(1).cpu().numpy()
+        if bad or not (0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
+                or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
+            fail(f"GAN training {mode}: non-finite leaves {bad[:4]}, "
+                 f"ensemble {p_hat.tolist()}, d_loss by recorded epoch "
+                 f"{d.tolist()}: the healthy bars are finite state, the "
+                 f"ensemble in (0, 1), last d_loss below the first and its "
+                 f"minimum below {GAN_D_MIN}")
+        steps = np.array([a.elapsed_time(b)
+                          for a, b in zip(events[:-1], events[1:])])
+        p50 = float(np.percentile(steps, 50))
+        r_ens = float(prob.mean_abs_residual(p_hat))
+        r_last = float(hist["residuals"][-1].abs().mean())
+        print(f"[22] GAN PAPER {mode}: {R} ranks ({GAN_OUTER} x {GAN_INNER}), "
+              f"{K} x {E} events a rank an epoch, h {wcfg.sync.h}, lr gen "
+              f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {GAN_EPOCHS} epochs from "
+              f"seed {SEED}, fp32 (TF32 off); B1 launches "
+              f"{got['inverse_cdf'][0]}, plain calls {got['inverse_cdf'][1]}, "
+              f"backward passes "
+              f"{backward} (one of each an epoch)")
+        print(f"[22] GAN PAPER {mode}: d_loss (mean over ranks) at epochs 0, "
+              f"{GAN_EVERY}, ...: " + " ".join(f"{v:.4f}" for v in d)
+              + f"; last < first and min {d.min():.4f} < {GAN_D_MIN}; every "
+              f"state leaf finite; ensemble in ({float(p_hat.min()):.4f}, "
+              f"{float(p_hat.max()):.4f})")
+        print(f"[22] GAN PAPER {mode}: epoch p50 {p50:.3f} ms, p99 "
+              f"{float(np.percentile(steps, 99)):.3f} ms (CUDA events, epoch "
+              f"end to epoch end, {len(steps)} epochs); "
+              f"{R * K * E / p50 * 1e3:,.0f} generated events/s at p50; peak "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB;"
+              f" final mean|r̂| {r_ens:.4f} (ensemble of the {R} generators), "
+              f"{r_last:.4f} (last epoch's batch, mean over ranks)")
+        del state, hist
+    torch.cuda.empty_cache()
+
+    # -- 23. one epoch on the card against the CPU ---------------------------
+    for mode in GAN_MODES:
+        wcfg = dataclasses.replace(
+            PAPER, n_param_samples=REDUCED.n_param_samples,
+            events_per_sample=REDUCED.events_per_sample,
+            sync=dataclasses.replace(PAPER.sync, mode=mode, h=1))
+        g = torch.Generator().manual_seed(SEED + 23)
+        cpu_data = prob.make_reference_data(g, 5_000, device="cpu")
+        state0, per_rank = W.init_run(g, 4, wcfg, cpu_data, "cpu")
+        state0["sync"]["mailbox"] = tree_map(
+            lambda t: torch.randn(t.shape, generator=g),
+            state0["sync"]["mailbox"])
+        draws0 = W.make_draws(g, wcfg, 4, per_rank.shape[1])
+        sched = W.make_schedule(wcfg)
+        out = {}
+        for d_ in ("cpu", dev):
+            move = lambda tree: tree_map(lambda t: t.to(d_), tree)  # noqa
+            part, grads, met = W.rank_grads(move(state0), per_rank.to(d_),
+                                            move(draws0), wcfg)
+            synced, ns = sched.exchange(VmapComm(2, 2), grads, part["sync"],
+                                        part["epoch"][0])
+            new = W.rank_apply(part, synced, ns, wcfg)
+            out[str(d_)] = tree_map(lambda t: t.cpu(),
+                                    (part, grads, met, synced, new))
+        (pc, gc, mc, sc, nc), (pg, gg, mg, sg, ng) = out["cpu"], out[str(dev)]
+        loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                       for k in ("d_loss", "g_loss")
+                       for a, b in zip(mg[k], mc[k]))
+        grad_rel = max(float((a - b).norm() / b.norm())
+                       for a, b in zip(tree_leaves(gg), tree_leaves(gc)))
+        s2, ns2 = sched.exchange(VmapComm(2, 2), gg, pg["sync"],
+                                 pg["epoch"][0])
+        ring_same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))))
+        want = W.rank_apply(pg, sg, ns2, wcfg)
+        pairs = list(zip(tree_leaves((ng["gen"], ng["gen_opt"])),
+                         tree_leaves((want["gen"], want["gen_opt"]))))
+        update_ok = all(torch.allclose(a.float(), b.float(), **UPDATE_TOL)
+                        for a, b in pairs)
+        update_err = max(float((a.float() - b.float()).abs().max())
+                         for a, b in pairs)
+        disc_err = max(float((a - b).abs().max()) for a, b in
+                       zip(tree_leaves(ng["disc"]), tree_leaves(nc["disc"])))
+        if loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL \
+                or not ring_same or not update_ok:
+            fail(f"phase 23 {mode}: losses off by {loss_rel:.3e} (rel), worst "
+                 f"gradient leaf {grad_rel:.3e} in relative norm, the "
+                 f"exchange bitwise the CPU's: {ring_same}, the generator's "
+                 f"update off the CPU's optimizer by {update_err:.3e} (bars "
+                 f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL})")
+        print(f"[23] GAN {mode} one epoch card vs CPU (full width, K "
+              f"{wcfg.n_param_samples}, E {wcfg.events_per_sample}, R 4 as 2 "
+              f"x 2, h 1, fp32, TF32 off, the same state with a non-zero "
+              f"mailbox and the same draws): d_loss/g_loss within "
+              f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst generator "
+              f"gradient leaf {grad_rel:.3e} in relative norm (<= "
+              f"{STEP_GRAD_REL}); the CPU's exchange of the card's gradients "
+              f"bitwise the card's; the card's new generator and Adam state "
+              f"against the CPU's optimizer on the card's synced gradients: "
+              f"max |diff| {update_err:.3e} ({UPDATE_TOL}); the new "
+              f"discriminator against the CPU's own step: max |diff| "
+              f"{disc_err:.3e} (reported)")
+
+    # -- 24. profile PAPER epochs --------------------------------------------
+    wcfg = paper(GAN_MODES[0])
+    epoch = W.make_epoch_fn(GAN_OUTER, GAN_INNER, wcfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    state, per_rank = W.init_run(g, R, wcfg, data, dev)
+    draws = [W.make_draws(g, wcfg, R, per_rank.shape[1])
+             for _ in range(GAN_PROFILED + 1)]
+    state, _ = epoch(state, per_rank, draws[0])      # warm, not profiled
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for dr in draws[1:]:
+            state, _ = epoch(state, per_rank, dr)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = GAN_PROFILED
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        print(f"[24] GAN PAPER {n} profiled epochs: the profiler recorded no "
+              f"device events: the card's busy share is not measured")
+        return launches
+    busy, groups = {}, {}
+    for e in on_card:
+        us = e.time_range.elapsed_us()
+        busy[e.name] = busy.get(e.name, 0.0) + us
+        low = e.name.lower()
+        grp = ("B1 icdf_kernel" if "icdf_kernel" in low else
+               "GEMM (cuBLAS/CUTLASS)" if any(
+                   w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                      "sm90_")) else
+               "the exchange's rolls" if "roll" in low else
+               "reductions" if "reduce" in low else
+               "other (elementwise: activations, losses, Adam, B1's "
+               "backward; copies, draws)")
+        groups[grp] = groups.get(grp, 0.0) + us
+    total = sum(busy.values())
+    print(f"[24] GAN PAPER {GAN_MODES[0]} {n} profiled epochs: "
+          f"{wall_us / n / 1e3:.2f} ms an epoch on the host clock under the "
+          f"profiler, card busy {total / n / 1e3:.2f} ms an epoch "
+          f"({100 * total / wall_us:.1f}%), {len(on_card) // n} device ops an "
+          f"epoch")
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[24]   {us / n / 1e3:9.3f} ms an epoch ({100 * us / total:5.1f}"
+              f"%)  {grp}")
+    b1 = groups.get("B1 icdf_kernel", 0.0)
+    print(f"[24] GAN PAPER: B1's share of the card's time "
+          f"{100 * b1 / total:.2f}% ({b1 / n / 1e3:.4f} ms an epoch), of the "
+          f"epoch's host-clock time {100 * b1 / wall_us:.2f}%")
+    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[24]   {us / n / 1e3:9.3f} ms an epoch ({100 * us / total:5.1f}"
+              f"%)  {name[:90]}")
+    return launches
+
+
 def time_phase(dev, strict):
     """Phase 4: each kernel, its plain version and the library call timed
     at the main-path shapes, B1 also at the trainer's and B3 at large
@@ -1642,6 +1886,9 @@ def main():
     timing["ssd_scan"] = ssd_timing["training"]
     grad_phase(dev, all_counts)
     launches["ssd_scan"] = train_phases(dev, all_counts)
+
+    # -- 22-24. the paper's GAN training -------------------------------------
+    launches["inverse_cdf"] += gan_phases(dev, all_counts)
 
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",

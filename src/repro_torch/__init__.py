@@ -15,7 +15,9 @@ repro_torch.launch.serve_llm`, tinyllama-1.1b by default) with flash
 attention as a CUDA kernel in prefill, and of mamba2-130m; and LLM
 training on one device (`training.Trainer`, `python -m
 repro_torch.launch.train`, mamba2-130m with the SSD chunked scan as a
-CUDA kernel).  Every kernel wrapper is a `torch.autograd.Function` with
+CUDA kernel); and the paper's GAN training loop (`core.workflow
+.train_stacked`, `python -m repro_torch.launch.train_gan`), R ranks
+stacked on one device with the sampler's kernel on the path.  Every kernel wrapper is a `torch.autograd.Function` with
 the JAX package's backward.
 
 Device policy: entry points take `device=`; with none they run on CUDA and

@@ -1,2 +1,3 @@
-"""Checkpoints of the port: reading the JAX package's store layout
-(`store`), which is how trained weights reach the port."""
+"""Checkpoints of the port in the JAX package's store layout (`store`):
+the reader, which is how JAX-trained weights reach the port, and the
+writer of the GAN trainer's state."""

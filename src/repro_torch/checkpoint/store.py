@@ -1,14 +1,25 @@
-"""Read the JAX package's checkpoint store — how weights cross to the port.
+"""The JAX package's checkpoint store, read and written by the port.
 
-`repro.checkpoint.store` writes a training state as path-flattened numpy
+`repro.checkpoint.store` keeps a training state as path-flattened numpy
 arrays plus JSON metadata:
 
     <dir>/step_<n>/arrays.npz      keys like "gen/0/w", "gen/0/b", ...
     <dir>/step_<n>/meta.json       {"step", "keys", "dtypes", ["user"]}
 
 bf16 leaves are stored as their uint16 bit pattern, with "bfloat16" in
-`dtypes`; they are widened here to fp32 by a 16-bit shift, which is exact
-(no `ml_dtypes` needed).  Only numpy and json are used to read.
+`dtypes`; `read_step` widens them to fp32 by a 16-bit shift, which is
+exact (no `ml_dtypes` needed).  Only numpy and json are used.
+
+The writer (`save_checkpoint`, `latest_step`, `restore_latest`) keeps
+that layout for the port's GAN training state, so the JAX package's
+`restore_latest` reads a port checkpoint into its own state template,
+and its solve service serves the generator in it.  The keys are the JAX
+state's ("gen/0/w", "disc_opt/mu/2/b", "gen_opt/step", "sync/mailbox/0/w",
+"sync/outer_mailbox", "epoch"), with the same shapes.  The one leaf that
+differs is "rng": the port stores its `torch.Generator`'s state there
+(a uint8 vector; the JAX state holds its per-rank keys under that name),
+so a resume continues the run bitwise.  `gan_state_from_numpy` carries
+a JAX training state, as path-flattened numpy arrays, into the port.
 
 `lm_params_from_numpy` carries an LLM's parameter pytree (the JAX
 `models.model.init` layout, as numpy arrays) into the port.
@@ -34,6 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..core.gan import Generator
+from ..core.tree import tree_from_paths, tree_paths, tree_unflatten
 from ..models.convgen import ConvGenerator
 
 _SEP = "/"
@@ -216,3 +228,109 @@ def load_generator_stack(directory: str, device=None
                 f"conv_generator_from_numpy and register it with gen_stack=")
         return generator_from_numpy(gen, device), step
     return None, None
+
+
+# ----------------------------------------------------------------------------
+# the writer
+
+
+def _to_numpy(t) -> Tuple[np.ndarray, str]:
+    """(array as stored, dtype name): bf16 as its uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def save_checkpoint(directory: str, step: int, tree,
+                    metadata: Optional[dict] = None) -> str:
+    """Write `tree` (nested dicts and lists of tensors) as
+    `<directory>/step_<step:08d>/` in the JAX store's layout."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    os.makedirs(path, exist_ok=True)
+    stored, dtypes = {}, {}
+    for key, leaf in tree_paths(tree):
+        stored[key], dtypes[key] = _to_numpy(leaf)
+    np.savez(os.path.join(path, "arrays.npz"), **stored)
+    meta = {"step": step, "keys": sorted(stored), "dtypes": dtypes}
+    if metadata:
+        meta["user"] = metadata
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    return path
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = list_steps(directory)
+    return steps[-1] if steps else None
+
+
+def _restore(directory: str, step: int, like_tree):
+    """One step into `like_tree`'s structure, each leaf with the like
+    leaf's dtype and device.  A missing key or a shape that differs from
+    the like leaf's raises (the caller's tree no longer matches)."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    out = []
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        paths = list(tree_paths(like_tree))
+        missing = sorted({k for k, _ in paths} - set(data.files))
+        if missing:
+            raise KeyError(f"checkpoint missing keys: {missing[:5]} ...")
+        for key, like in paths:
+            raw = data[key]
+            if meta["dtypes"].get(key) == "bfloat16":
+                t = torch.from_numpy(raw.view(np.int16).copy()).view(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(raw))
+            if tuple(t.shape) != tuple(like.shape):
+                raise ValueError(f"checkpoint leaf {key!r} has shape "
+                                 f"{tuple(t.shape)}, the state "
+                                 f"{tuple(like.shape)}")
+            out.append(t.to(like.device, like.dtype))
+    return tree_unflatten(like_tree, out)
+
+
+def restore_latest(directory: str, like_tree):
+    """The newest loadable `step_N` under `directory` restored into
+    `like_tree`'s structure: `(tree, step)`, or `(None, None)` when there
+    is none.  A step that fails to read (a process killed mid-save) is
+    skipped with a warning and the next-newest tried; a structural
+    mismatch raises."""
+    for step in reversed(list_steps(directory)):
+        try:
+            return _restore(directory, step, like_tree), step
+        except _CORRUPT as e:
+            warnings.warn(f"checkpoint step_{step} in {directory} failed to "
+                          f"load ({type(e).__name__}: {e}); falling back to "
+                          "the previous step")
+    return None, None
+
+
+GAN_STATE_KEYS = ("gen", "disc", "gen_opt", "disc_opt", "sync", "epoch")
+
+
+def gan_state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> dict:
+    """A JAX stacked training state (`repro.core.workflow.init_state` /
+    `train_vmap`'s), as path-flattened numpy arrays ("gen/0/w", ...,
+    "sync/outer_mailbox", "epoch"), -> the port's state on `device`, with
+    the same leaves and dtypes.  The JAX state's "rng" (its per-rank
+    keys) has no counterpart in the port and is dropped; any other
+    unknown top-level key raises."""
+    dev = resolve_device(device)
+    tops = {k.split(_SEP)[0] for k in flat} - {"rng"}
+    if tops != set(GAN_STATE_KEYS):
+        raise ValueError(f"a GAN training state has the top-level keys "
+                         f"{sorted(GAN_STATE_KEYS)} (and 'rng'), got "
+                         f"{sorted(tops)}")
+    tree = tree_from_paths({k: v for k, v in flat.items()
+                            if k.split(_SEP)[0] != "rng"})
+    for half in ("gen", "disc"):
+        if not isinstance(tree[half], list):
+            raise ValueError(f"{half!r} must be an MLP (a list of layers); "
+                             f"got keys {sorted(tree[half])}")
+    from ..models.model import map_params
+    return map_params(lambda a: _to_tensor(a, None, dev), tree)

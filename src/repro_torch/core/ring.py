@@ -1,0 +1,97 @@
+"""Communication backend of the gradient exchange — counterpart of
+`repro.core.ring` (`Comm` and `VmapComm`, lines 55–175).
+
+`VmapComm` simulates R = n_outer · n_inner ranks on one device: every
+tree exchanged carries a leading [R] axis ordered (outer, inner) row-major,
+and a ring transfer is a `torch.roll` along it.  Ring direction follows
+Algorithm 1: rank i receives from its predecessor i − 1.
+
+The mesh backend (`ShardComm`, ranks on several cards) is ROADMAP.md
+queue A item 6; the overlap ship (`ship_outer`, `cond_ship`) and the
+deposit tags of the adaptive schedule are item 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .tree import tree_map
+
+
+class Comm:
+    n_outer: int
+    n_inner: int
+
+    @property
+    def n_ranks(self):
+        return self.n_outer * self.n_inner
+
+    def recv_ring_all(self, tree):
+        """Value from the global ring predecessor (flattened outer x inner)."""
+        raise NotImplementedError
+
+    def recv_ring_inner(self, tree):
+        raise NotImplementedError
+
+    def recv_ring_outer(self, tree):
+        raise NotImplementedError
+
+    def pmean_all(self, tree):
+        raise NotImplementedError
+
+    def recv_hypercube(self, tree, stage: int):
+        """Value from XOR partner rank ^ 2^stage (the dbtree mode's
+        recursive-doubling hop)."""
+        raise NotImplementedError
+
+    def inner_index(self, device=None):
+        """Per-rank inner-group index."""
+        raise NotImplementedError
+
+    def mask_where(self, cond, a, b):
+        """Select `a` where `cond` else `b`, leafwise."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class VmapComm(Comm):
+    """Simulated ranks: trees have a leading [n_outer * n_inner] axis."""
+    n_outer: int
+    n_inner: int
+
+    def recv_ring_all(self, tree):
+        # incoming[i] = g[i-1]
+        return tree_map(lambda x: torch.roll(x, 1, 0), tree)
+
+    def _roll_grouped(self, tree, dim):
+        O, I = self.n_outer, self.n_inner
+
+        def f(x):
+            y = torch.roll(x.reshape((O, I) + x.shape[1:]), 1, dim)
+            return y.reshape(x.shape)
+        return tree_map(f, tree)
+
+    def recv_ring_inner(self, tree):
+        return self._roll_grouped(tree, 1)
+
+    def recv_ring_outer(self, tree):
+        return self._roll_grouped(tree, 0)
+
+    def pmean_all(self, tree):
+        return tree_map(lambda x: x.mean(0, keepdim=True).expand_as(x), tree)
+
+    def recv_hypercube(self, tree, stage: int):
+        """Value from partner rank ^ 2^stage."""
+        def f(x):
+            idx = torch.arange(self.n_ranks, device=x.device) ^ (1 << stage)
+            return x[idx]
+        return tree_map(f, tree)
+
+    def inner_index(self, device=None):
+        return torch.arange(self.n_inner, device=device).repeat(self.n_outer)
+
+    def mask_where(self, cond_per_rank, a, b):
+        """Select a where cond (per-rank bool [R]) else b, leafwise."""
+        return tree_map(lambda x, y: torch.where(
+            cond_per_rank.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)

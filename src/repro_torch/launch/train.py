@@ -10,8 +10,9 @@ asked for) and `--seed` (the random weights; the JAX launcher uses key 0).
 `--mesh` takes only `host`, one device: the multi-device meshes and the
 hierarchical sync modes across them are ROADMAP.md queue A item 6; every
 `--sync` mode runs the all-reduce step on one device, as the JAX package
-does without a mesh.  `--ckpt-dir` raises: the checkpoint writer is
-ROADMAP.md queue A item 2.  Prints the loss as it goes, then the SSD
+does without a mesh.  `--ckpt-dir` raises: the checkpoint writer of
+ROADMAP.md queue A item 2 serves the GAN trainer, and the LLM trainer
+does not call it yet (item 12).  Prints the loss as it goes, then the SSD
 scan's (B5) and flash attention's (B4) kernel launches and plain calls.
 """
 from __future__ import annotations
@@ -51,8 +52,9 @@ def main(argv=None):
             f"multi-device meshes are ROADMAP.md queue A item 6")
     if args.ckpt_dir:
         raise NotImplementedError(
-            "--ckpt-dir: the port has no checkpoint writer yet (ROADMAP.md "
-            "queue A item 2)")
+            "--ckpt-dir: the LLM trainer writes no checkpoints yet; the "
+            "writer of ROADMAP.md queue A item 2 serves the GAN trainer, "
+            "and wiring it in here is queue A item 12")
     cfg = get_config(args.arch, smoke=args.smoke)
     tcfg = TrainConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
                        total_steps=args.steps,

@@ -1,0 +1,187 @@
+"""Train the paper's GAN inverse-problem solver across simulated ranks.
+
+Counterpart of `examples/train_sagips_gan.py` with its `vmap` backend:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --preset paper \\
+        --epochs 200
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \\
+        --preset reduced --ranks 4 --epochs 12 --events 2000
+
+R = --ranks ranks in groups of --inner (GPUs a node, Tab. I) are stacked
+on one device (CUDA unless `--device cpu`).  `--preset reduced` (the
+default) is `configs.sagips_gan.REDUCED`, the JAX example's settings (64
+samples x 25 events a rank, gen lr 2e-4, disc lr 5e-4, h 50); `--preset
+paper` is Tab. III (`PAPER`: 1024 x 100 events, lr 1e-5 / 1e-4, h 1000).
+--mode, --h and --param-samples given explicitly override the preset.
+Full-state checkpoints land in --checkpoint-dir every --ckpt-every
+epochs (the JAX store's layout) and --resume continues bitwise from the
+newest one.
+
+The exchange schedules other than `sync` (--sync-schedule, --staleness,
+--max-staleness, --payload-precision, --ring-chunking, --disc-every,
+--gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3,
+and `--backend proc` is item 7: they raise.  The run ends with the
+ensemble against the truth, the serving-path solve (`core.workflow
+.make_solver`) on the reference events, and the inverse-CDF sampler's
+(B1) launches and plain calls.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import sagips_gan
+from repro_torch.core import gan, workflow
+from repro_torch.core.ensemble import ensemble_response
+from repro_torch.core.sync import MODES, SCHEDULE_ITEM
+from repro_torch.kernels import build
+from repro_torch.kernels.inverse_cdf import counts as icdf_counts
+from repro_torch.problems import available, get_problem
+
+PROC_ITEM = "ROADMAP.md queue A item 7 (the proc runtime)"
+
+
+def report_final(problem, gen_stack, data, device):
+    """The ensemble prediction (§VI-A) and the serving-path solve of the
+    trained stack against the reference events."""
+    noise = torch.randn((256, gan.NOISE_DIM),
+                        generator=torch.Generator().manual_seed(7)
+                        ).to(device)
+    p_hat, sigma = ensemble_response(gen_stack, noise)
+    truth = problem.true_params(device)
+    print("\nfinal ensemble prediction vs truth:")
+    for i in range(problem.n_params):
+        print(f"  p{i}: {float(p_hat[i]):.4f} ± {float(sigma[i]):.4f} "
+              f"(truth {float(truth[i]):.4f})")
+    cfg = workflow.SolveConfig()
+    R = next(gan.leaves(gen_stack)).shape[0]
+    solve = workflow.make_solver(problem, cfg,
+                                 workflow.solve_draws(cfg, R, problem, device))
+    n = min(int(data.shape[0]), 1024)
+    out = solve(gen_stack, data[None, :n],
+                torch.ones((1, n), dtype=torch.bool, device=device))
+    r_ens = float(problem.mean_abs_residual(p_hat))
+    r_sol = float(problem.mean_abs_residual(out["params"][0]))
+    print(f"serving-path solve (make_solver, {n} events): "
+          f"mean|r̂|={r_sol:.4f} vs ensemble {r_ens:.4f} "
+          f"(score {float(out['score'][0]):.3f})")
+    return r_ens, r_sol
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", choices=("paper", "reduced"),
+                    default="reduced")
+    ap.add_argument("--mode", choices=MODES, default=None)
+    ap.add_argument("--problem", choices=available(), default="proxy1d")
+    ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--inner", type=int, default=4,
+                    help="inner group size (GPUs per node, Tab. I)")
+    ap.add_argument("--epochs", type=int, default=2000)
+    ap.add_argument("--h", type=int, default=None)
+    ap.add_argument("--events", type=int, default=50_000,
+                    help="reference events")
+    ap.add_argument("--param-samples", type=int, default=None)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=500)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--no-fuse", action="store_true")
+    ap.add_argument("--chunk", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    # the JAX example's flags that are not ported yet: they raise
+    ap.add_argument("--sync-schedule", default="sync")
+    ap.add_argument("--staleness", type=int, default=1)
+    ap.add_argument("--max-staleness", type=int, default=None)
+    ap.add_argument("--payload-precision", default="fp32")
+    ap.add_argument("--ring-chunking", type=int, default=0)
+    ap.add_argument("--disc-every", type=int, default=1)
+    ap.add_argument("--gen-every", type=int, default=1)
+    ap.add_argument("--backend", default="vmap")
+    for flag in ("--metrics-out", "--trace-dir", "--profile-dir"):
+        ap.add_argument(flag, default=None)
+    ap.add_argument("--obs-metrics", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.backend != "vmap":
+        raise NotImplementedError(
+            f"--backend {args.backend}: the port simulates the ranks on one "
+            f"device; real worker processes are {PROC_ITEM}")
+    later = [f for f, on in (
+        ("--sync-schedule", args.sync_schedule != "sync"),
+        ("--staleness", args.staleness != 1),
+        ("--max-staleness", args.max_staleness is not None),
+        ("--payload-precision", args.payload_precision != "fp32"),
+        ("--ring-chunking", args.ring_chunking != 0),
+        ("--disc-every", args.disc_every != 1),
+        ("--gen-every", args.gen_every != 1),
+        ("--metrics-out", args.metrics_out), ("--trace-dir", args.trace_dir),
+        ("--profile-dir", args.profile_dir),
+        ("--obs-metrics", args.obs_metrics)) if on]
+    if later:
+        raise NotImplementedError(f"{', '.join(later)}: not ported yet, "
+                                  f"{SCHEDULE_ITEM}")
+    dev = resolve_device(args.device)
+    base = {"paper": sagips_gan.PAPER,
+            "reduced": sagips_gan.REDUCED}[args.preset]
+    sync = dataclasses.replace(
+        base.sync, fuse_tensors=not args.no_fuse,
+        **{k: v for k, v in (("mode", args.mode), ("h", args.h))
+           if v is not None})
+    wcfg = dataclasses.replace(base, sync=sync, problem=args.problem)
+    if args.param_samples is not None:
+        wcfg = dataclasses.replace(wcfg, n_param_samples=args.param_samples)
+    wcfg = sagips_gan.for_problem(args.problem, wcfg)
+    problem = get_problem(args.problem)
+    n_inner = min(args.inner, args.ranks)
+    if args.ranks % n_inner:
+        ap.error(f"--ranks {args.ranks} must be divisible by --inner "
+                 f"{n_inner}")
+    n_outer = args.ranks // n_inner
+    if dev.type == "cuda":          # the kernel's first-use build
+        build.build_all(("inverse_cdf",))
+    data = problem.make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), args.events, device=dev)
+    print(f"problem={args.problem} ({problem.n_params} params -> "
+          f"{problem.obs_dim} observables) mode={wcfg.sync.mode} "
+          f"h={wcfg.sync.h} schedule=sync ranks={n_outer}x{n_inner} "
+          f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "
+          f"disc_batch={wcfg.disc_batch} lr gen {wcfg.gen_lr} disc "
+          f"{wcfg.disc_lr} on {dev}")
+
+    report_every = max(args.epochs // 10, 1)
+    chunk = args.chunk if args.chunk > 0 else report_every
+    if args.checkpoint_dir:
+        # chunk boundaries land on the checkpoint cadence, as in the JAX
+        # example: the largest divisor of --ckpt-every that fits
+        chunk = max(d for d in range(1, min(chunk, args.ckpt_every) + 1)
+                    if args.ckpt_every % d == 0)
+    t0 = time.time()
+
+    def on_epoch(e, metrics):
+        if (e + 1) % report_every == 0 or e + 1 == args.epochs:
+            print(f"epoch {e:6d}  mean|r̂|="
+                  f"{float(metrics['residuals'].abs().mean()):.4f}  d_loss="
+                  f"{float(metrics['d_loss'].mean()):.3f}  g_loss="
+                  f"{float(metrics['g_loss'].mean()):.3f}  "
+                  f"({time.time() - t0:.0f}s)", flush=True)
+    icdf_counts.reset()
+    state, _ = workflow.train_stacked(
+        args.seed, wcfg, n_outer, n_inner, args.epochs, data,
+        checkpoint_every=args.ckpt_every if args.checkpoint_dir else 0,
+        chunk=chunk, checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume, device=dev, on_epoch=on_epoch)
+    c = icdf_counts
+    print(f"inverse-CDF sampler (B1): {c.launches} kernel launches, "
+          f"{c.plain_calls} plain calls, {c.backward_plain} backward passes "
+          f"(closed form in PyTorch)")
+    report_final(problem, state["gen"], data, dev)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -46,16 +46,22 @@ def _check_text_decoder(cfg: ModelConfig):
 
 
 def map_params(fn, tree):
-    """The same nested-dict structure with `fn` applied to every leaf."""
+    """The same structure of nested dicts and lists with `fn` applied to
+    every leaf."""
     if isinstance(tree, dict):
         return {k: map_params(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_params(fn, v) for v in tree]
     return fn(tree)
 
 
 def leaves(tree):
-    """Every leaf of a nested dict, depth first."""
+    """Every leaf of nested dicts and lists, depth first."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from leaves(v)
     else:
         yield tree

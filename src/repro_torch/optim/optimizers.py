@@ -1,6 +1,7 @@
 """Optimizers written out, counterparts of `repro.optim.optimizers`.
 
-Each optimizer is a pair of functions over nested dicts of tensors:
+Each optimizer is a pair of functions over nested dicts and lists of
+tensors:
     init(params)                        -> opt_state
     update(grads, opt_state, params)    -> (updates, opt_state)
 `updates` are deltas to add to the parameters (sign included), applied by
@@ -12,6 +13,9 @@ orders them otherwise, so it is not used.
 
 The step counter is a 0-d int32 tensor on the parameters' device and every
 scalar is a tensor there, so an update reads nothing back to the host.
+A state of R stacked ranks (the GAN trainer's, as `jax.vmap` stacks it)
+carries an [R] step instead: the bias corrections and a scheduled lr_t
+are then [R] and broadcast over each leaf's leading rank axis.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Callable, Union
 
 import torch
 
+from ..core.tree import tree_map
 from ..models.model import leaves, map_params
 
 Schedule = Union[float, Callable]
@@ -30,11 +35,10 @@ def _lr_at(lr: Schedule, step):
         lr, dtype=torch.float32, device=step.device)
 
 
-def _zip_map(fn, *trees):
-    """`fn` over the leaves of equal-structure nested dicts."""
-    if isinstance(trees[0], dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _lead(x, like):
+    """x (0-d, or [R] per rank) shaped to broadcast over `like`'s leading
+    axes."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
 def global_norm(tree):
@@ -72,15 +76,16 @@ def adam(lr: Schedule, b1=0.9, b2=0.999, eps=1e-8):
     def update(grads, state, params=None):
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
-        mu = _zip_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                       state["mu"], grads)
-        nu = _zip_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                       state["nu"], grads)
         s = step.float()
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=s.device) ** s
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=s.device) ** s
-        upd = _zip_map(
-            lambda m, v, g: (-(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        upd = tree_map(
+            lambda m, v, g: (-(_lead(lr_t, m) * (m / _lead(bc1, m))
+                               / (torch.sqrt(v / _lead(bc2, v)) + eps))
                              ).to(g.dtype), mu, nu, grads)
         return upd, {"mu": mu, "nu": nu, "step": step}
 
@@ -94,7 +99,7 @@ def adamw(lr: Schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
         upd, state = base.update(grads, state, params)
         if weight_decay:
             lr_t = _lr_at(lr, state["step"])
-            upd = _zip_map(
+            upd = tree_map(
                 lambda u, p: u - (lr_t * weight_decay * p.float()).to(u.dtype),
                 upd, params)
         return upd, state
@@ -113,9 +118,9 @@ def sgd(lr: Schedule, momentum: float = 0.0):
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
         if momentum:
-            mom = _zip_map(lambda m, g: momentum * m + g.float(),
+            mom = tree_map(lambda m, g: momentum * m + g.float(),
                            state["mom"], grads)
-            upd = _zip_map(lambda m, g: (-lr_t * m).to(g.dtype), mom, grads)
+            upd = tree_map(lambda m, g: (-lr_t * m).to(g.dtype), mom, grads)
             return upd, {"step": step, "mom": mom}
         upd = map_params(lambda g: (-lr_t * g.float()).to(g.dtype), grads)
         return upd, {"step": step}
@@ -124,5 +129,5 @@ def sgd(lr: Schedule, momentum: float = 0.0):
 
 
 def apply_updates(params, updates):
-    return _zip_map(lambda p, u: (p.float() + u.float()).to(p.dtype),
+    return tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype),
                     params, updates)

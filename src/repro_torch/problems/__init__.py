@@ -72,6 +72,23 @@ class InverseProblem:
         return self.residuals(pred_params, true_params).abs().mean()
 
 
+def synthetic_events(problem: InverseProblem, gen_params, noise, u):
+    """The generator -> forward-model pass of the GAN loop (counterpart of
+    `repro.problems.synthetic_events`, lines 111–127), over R stacked
+    generators with the draws handed in: noise [R, K, NOISE_DIM] and
+    u [R, K, E, C] (the JAX function draws them from a key).
+
+    Returns (events [R, K·E, obs_dim], params [R, K, n_params]).  The
+    forward model runs once over all ranks, u as [R·K, E, C]: for proxy1d
+    that is ONE launch of the inverse-CDF sampler."""
+    from ..core import gan
+    params = gan.generate_params(gen_params, noise)
+    R, K, E, C = u.shape
+    events = problem.sample_events(params.reshape((R * K,) + params.shape[2:]),
+                                   u.reshape(R * K, E, C))
+    return events.reshape(R, K * E, -1), params
+
+
 # ----------------------------------------------------------------------------
 # registry
 
@@ -106,4 +123,5 @@ def _register_builtin():
 
 _register_builtin()
 
-__all__ = ["InverseProblem", "available", "get_problem", "register"]
+__all__ = ["InverseProblem", "available", "get_problem", "register",
+           "synthetic_events"]

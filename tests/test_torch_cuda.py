@@ -15,8 +15,9 @@ attention and the SSD scan take bf16 through their tensor-core kernels
 held here, with the bf16 flash route's strided model layout; its wrapper
 is shown to raise on what the kernel does not take, every wrapper's
 gradients on the card are shown to equal the CPU's, and the solve
-service, the LLM engine and the LLM trainer on the card are shown to
-launch the kernels and to agree with the CPU on the same inputs.
+service, the LLM engine, the LLM trainer and the GAN trainer on the card
+are shown to launch the kernels and to agree with the CPU on the same
+inputs (the GAN trainer: B1 once an epoch, forward and backward).
 """
 import numpy as np
 import pytest
@@ -667,3 +668,90 @@ def test_trainer_on_the_card_launches_b5_and_matches_the_cpu(sm90_card):
                                atol=1e-5)
     for a, b in zip(M.leaves(ng["params"]), M.leaves(nc["params"])):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2.5e-4)
+
+
+# ----------------------------------------------------------------------------
+# the GAN training path
+
+
+def _gan_run(dev, mode, seed=0):
+    """A smoke-size run (R 4 as 2 x 2, K 16, E 8, h 1) made on the CPU:
+    config, state (a non-zero mailbox), per-rank data and one epoch's
+    draws, each moved to `dev`."""
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.tree import tree_map
+    wcfg = W.WorkflowConfig(sync=sync.SyncConfig(mode=mode, h=1),
+                            n_param_samples=16, events_per_sample=8,
+                            gen_lr=2e-4, disc_lr=5e-4)
+    g = torch.Generator().manual_seed(seed)
+    data = get_problem("proxy1d").make_reference_data(g, 2_000, device="cpu")
+    state, per_rank = W.init_run(g, 4, wcfg, data, "cpu")
+    state["sync"]["mailbox"] = tree_map(
+        lambda t: torch.randn(t.shape, generator=g), state["sync"]["mailbox"])
+    draws = W.make_draws(g, wcfg, 4, per_rank.shape[1])
+    move = lambda tree: tree_map(lambda t: t.to(dev), tree)   # noqa: E731
+    return wcfg, move(state), per_rank.to(dev), move(draws)
+
+
+@pytest.mark.parametrize("mode", ["rma_arar_arar", "conv_arar"])
+def test_gan_epoch_on_the_card_matches_the_cpu(sm90_card, mode):
+    """One epoch from the same state and draws on both devices: the
+    losses at rtol 1e-5, each generator gradient within 1e-3 in relative
+    norm, the card's exchange bitwise the CPU's on the card's gradients,
+    and the card's new generator and its Adam state against the CPU's
+    optimizer applied to the card's synced gradients."""
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map
+    out = {}
+    for dev in ("cpu", sm90_card):
+        wcfg, state, data, draws = _gan_run(dev, mode)
+        part, grads, metrics = W.rank_grads(state, data, draws, wcfg)
+        synced, new_sync = W.make_schedule(wcfg).exchange(
+            VmapComm(2, 2), grads, part["sync"], part["epoch"][0])
+        new = W.rank_apply(part, synced, new_sync, wcfg)
+        out[str(dev)] = tree_map(lambda t: t.cpu(), (part, grads, metrics,
+                                                     synced, new))
+    (pc, gc, mc, sc, nc), (pg, gg, mg, sg, ng) = out["cpu"], \
+        out[str(sm90_card)]
+    for k in ("d_loss", "g_loss"):
+        torch.testing.assert_close(mg[k], mc[k], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        assert float((a - b).norm() / b.norm()) < 1e-3
+    wcfg = _gan_run("cpu", mode)[0]
+    s2, ns2 = W.make_schedule(wcfg).exchange(VmapComm(2, 2), gg, pg["sync"],
+                                             pg["epoch"][0])
+    for a, b in zip(tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))):
+        assert torch.equal(a, b)
+    want = W.rank_apply(pg, sg, ns2, wcfg)
+    for a, b in zip(tree_leaves((ng["gen"], ng["gen_opt"])),
+                    tree_leaves((want["gen"], want["gen_opt"]))):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_gan_training_launches_b1_once_an_epoch(sm90_card):
+    """The fake events are computed once an epoch: B1 launches once and
+    its backward runs once, and nothing takes the plain version."""
+    from repro_torch.core import workflow as W
+    wcfg, _, _, _ = _gan_run("cpu", "rma_arar_arar")
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator().manual_seed(99), 2_000, device=sm90_card)
+    counts.reset()
+    state, hist = W.train_stacked(0, wcfg, 2, 2, 3, data, device=sm90_card)
+    assert (counts.launches, counts.plain_calls, counts.backward_plain) == \
+        (3, 0, 3)
+    assert bool(torch.isfinite(hist["d_loss"]).all())
+    assert state["gen"][0]["w"].device.type == "cuda"
+
+
+def test_gan_step_with_cpu_uniforms_raises_on_the_card(sm90_card):
+    """A CUDA state whose sampler uniforms lie on the CPU reaches the
+    sampler with CUDA parameters: it raises instead of taking the plain
+    route, and nothing is counted."""
+    from repro_torch.core import workflow as W
+    wcfg, state, data, draws = _gan_run(sm90_card, "conv_arar")
+    draws = dict(draws, u=draws["u"].cpu())
+    counts.reset()
+    with pytest.raises(ValueError, match="is on cuda"):
+        W.rank_grads(state, data, draws, wcfg)
+    assert (counts.launches, counts.plain_calls) == (0, 0)
