@@ -11,20 +11,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
   3. hold each kernel against its plain PyTorch version on the card, at the
      solve service's main-path shapes and at ragged, tiny and bf16 shapes:
      the sampler (B1) at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, also at
-     the GAN trainer's shape u [8192, 100, 2], at C 1, 3 and 5 and on views
-     that start 1 or 3 elements into their buffer; the mask (B2) bitwise
+     the GAN trainer's shapes u [8192, 100, C] (C 2 for proxy1d, 3 for
+     proxy2d, 4 for linear_blur), at C 1, 3 and 5 and on views that start
+     1 or 3 elements into their buffer, and through the 2-D entry at
+     imaging training's readout noise u [512, 32]; the mask (B2) bitwise
      over a sweep of threads per block; the blur (B3) at rtol/atol 1e-6
      over a sweep of band heights (bitwise the same at each), also at
      [16, 256, 256] and [3, 130, 77] and on views 1 element into their
-     buffer (the scalar path);
+     buffer (the scalar path); B2 and B3 also at imaging training's
+     shapes (x [512, 1024] and [512, 32, 32]), forward and backward (the
+     backward against autograd through the plain version, at 1e-6);
   4. time each kernel, its plain version and, where one exists, the one
      PyTorch call that computes the same function, at the main-path shape
      (CUDA events, median of 50 samples of 20 calls each after warm-up; the
      card's time with the stream held while the host enqueues, and the time
      per call back to back with host launch included), beside the least
      time the card could take (its byte or operation bound); B1 also at
-     u [8192, 100, 2] and B3 at [16, 256, 256], and the launch floor: an
-     empty kernel on B1's grid at the main-path shape;
+     u [8192, 100, C] for C 2, 3 and 4 and B3 at [16, 256, 256], and the
+     launch floor: an empty kernel on B1's grid at the main-path shape;
   5. serve proxy1d: `SolveService(DEFAULT)` on the card, with a 16-rank
      generator stack at the paper's widths (random weights from a seed)
      written in the JAX package's checkpoint layout and loaded through
@@ -49,9 +53,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
      prefill shape (q [8, 32, 1024, 64], k/v [8, 4, 1024, 64]) in bf16
      and fp32 at each route's model-path tiles, the prefill's own call
      (`flash_attention_model` on the model layout [8, 1024, 4, 8, 64],
-     bf16, whose error the kernels line reports), and over a sweep of GQA groups (1, 4, 8), head dims (32,
-     64, 128), masks (causal, full, window 64 and 256), ragged lengths (1,
-     100, 1000) and tiles (block_q, block_k in 32, 64, 128), at fp32 rtol
+     bf16, whose error the kernels line reports), and over a sweep of GQA
+     groups (1, 4, 8), head dims (32, 64, 80 (hubert-xlarge's), 128),
+     masks (causal, full, window 64 and 256), ragged lengths (1, 100,
+     1000) and tiles (block_q, block_k in 32, 64, 128), at fp32 rtol
      1e-4 / atol 1e-5 and bf16 2e-2; in fp32 every pair of tiles within
      rtol 1e-5 / atol 1e-6 of the first, in bf16 within 2e-2; each dtype
      counted under its route; the bf16 route's strided model layout (q,
@@ -138,7 +143,42 @@ Phases, each reported on its own lines; any failure exits non-zero:
      applied to the card's synced gradients at rtol 1e-6 / atol 1e-9;
  24. profile 5 PAPER epochs: the card's busy share, its time by kernel
      (GEMMs, B1, the exchange's rolls, the rest), B1's share, device ops
-     an epoch.
+     an epoch;
+ 25. serve proxy2d and linear_blur as phase 5 serves proxy1d (16-rank
+     stacks of the MLP at 135->128->128->128->10 and ->8, random weights
+     from a seed, in the JAX checkpoint layout through
+     `load_generator_stack`; every solver call launches B1 once on
+     u [R·M, E, 3] or [R·M, E, 4], and nothing takes a plain version;
+     p50/p99 per bucket), then one batch on the card against the CPU as
+     phase 6;
+ 26. train proxy2d, linear_blur, imaging and imaging_blur at full width
+     through `core.workflow.train_stacked` at `for_problem(name, PAPER)`
+     (the flat problems 1024 x 100 events a rank, the image problems 64 x
+     32 with the capped generator step and the conv generator at
+     CONV_CHANNELS (32, 32, 16)), 8 ranks as 2 x 4, rma_arar_arar, h
+     1000, fp32 with TF32 off, 200 epochs after an uncounted 2-epoch
+     warm-up, history every 20: every state leaf finite, the ensemble in
+     (0, 1), every recorded d_loss finite and its minimum below the
+     first; B1 launched once an epoch (u [8192, 100, 3] / [8192, 100, 4],
+     or [512, 32] of readout noise) with its backward once an epoch for
+     the flat problems, B2 (x [512, 1024], backward in PyTorch) or B3
+     (x [512, 32, 32], backward one B3 launch) once an epoch for the image
+     problems, and no plain call; epoch p50/p99, generated events/s, peak
+     memory, the d_loss trajectory, final mean|r̂| (no bar: linear_blur's
+     near-zero truth pixel keeps it O(1) by design);
+ 27. one epoch on the card and on the CPU for proxy2d, linear_blur and
+     imaging as phase 23 (full width, REDUCED batch sizes, 4 ranks as
+     2 x 2, h 1, fp32, TF32 off, both ring modes), with phase 23's bars,
+     but the generator's gradient leaves held at 1e-5 in relative norm
+     against the CPU's computed at the card's Leaky ReLU signs: a
+     pre-activation within rounding of 0 that takes the other sign on
+     the CPU moves an upstream leaf by up to ~5e-3 (see
+     scripts/imaging_grad_gap.py); the gap without pinning and the number
+     of such flips are reported;
+ 28. profile 5 imaging epochs at `for_problem("imaging", PAPER)`: the
+     card's busy share, its time by kernel (cuDNN's grouped conv forward
+     and backward, GEMMs, B1-B3, the exchange's rolls, the rest), device
+     ops an epoch.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -152,6 +192,7 @@ nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
+import contextlib
 import ctypes
 import itertools
 import json
@@ -179,6 +220,12 @@ BLUR_BIG_SHAPE = (16, 256, 256)   # large images: 8.4 MB, half BLUR_SHAPE's
 BLUR_ROWS = (None, 1, 3, 4, 32, 64, 1000)   # band heights (None: the plan)
 TRAIN_ICDF_SHAPE = (8192, 100, 2)   # u of the GAN trainer's PAPER preset:
                                     # 8 ranks x 1024 samples, 100 events
+TRAIN_ICDF_C3 = (8192, 100, 3)      # ... for proxy2d (3 channels)
+TRAIN_ICDF_C4 = (8192, 100, 4)      # ... for linear_blur (4 channels)
+TRAIN_IMAGES = 512                  # imaging training: 8 ranks x 64 samples
+TRAIN_READOUT_SHAPE = (TRAIN_IMAGES, 32)    # B1's u: the readout's noise
+TRAIN_MASK_SHAPE = (TRAIN_IMAGES, 1024)     # B2's x training imaging
+TRAIN_BLUR_SHAPE = (TRAIN_IMAGES, 32, 32)   # B3's x training imaging_blur
 L2_ROTATION = 8                 # B2/B3 input sets cycled: 67 MB > the 50 MB L2
 SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
 RANKS = 16
@@ -202,13 +249,20 @@ CARD_VS_CPU_STEPS = (("mamba2-130m", 1, 1024), ("tinyllama-1.1b", 1, 256))
 HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phase 19's loss check
 STEP_LOSS_RTOL = 1e-5           # phase 20, card against CPU (fp32)
 STEP_GRAD_REL = 1e-3            # each gradient leaf, in relative norm
+KINK_GRAD_REL = 1e-5            # phase 27: ... with the CPU at the card's
+                                # Leaky ReLU signs (`leaky_kinks`)
 UPDATE_TOL = dict(rtol=1e-6, atol=1e-9)   # the optimizer, card vs CPU
 GAN_MODES = ("rma_arar_arar", "conv_arar")   # test_system.py's two modes
 GAN_OUTER, GAN_INNER = 2, 4     # R 8: 2 nodes of 4 GPUs (Tab. I)
 GAN_EPOCHS, GAN_EVERY = 200, 20     # phase 22: epochs, history cadence
 GAN_REF_EVENTS = 50_000         # reference events, as the example CLI
 GAN_D_MIN = 1.42                # the healthy bar on min d_loss
-GAN_PROFILED = 5                # phase 24's epochs
+GAN_PROFILED = 5                # phase 24's and 28's epochs
+PROBLEMS_SERVED = ("proxy2d", "linear_blur")    # phase 25
+PROBLEMS_TRAINED = ("proxy2d", "linear_blur", "imaging", "imaging_blur")
+# phase 26: the kernel each problem's forward model runs beside B1
+TRAINED_FORWARD = {"proxy2d": None, "linear_blur": None,
+                   "imaging": "mask_apply", "imaging_blur": "blur2d"}
 
 
 def fail(msg):
@@ -362,18 +416,19 @@ def flash_phases(dev):
              "window64": (True, 64), "window256": (True, 256)}
     worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
     for G, d, (mname, (causal, window)), L, dtype in itertools.product(
-            (1, 4, 8), (32, 64, 128), masks.items(), (1, 100, 1000),
+            (1, 4, 8), (32, 64, 80, 128), masks.items(), (1, 100, 1000),
             (torch.float32, torch.bfloat16)):
         bq, bk = TILES[n % len(TILES)]
         n += 1
         _, err = check(f"G={G} hd={d} {mname} S={L} {dtype} tiles {bq}x{bk}",
                        *qkv(2, 2 * G, 2, L, d, dtype), causal, window, bq, bk)
         worst[dtype] = max(worst[dtype], err)
-    print(f"[11] flash_attention sweep: {n} cases (G 1/4/8, hd 32/64/128, "
-          f"causal/full/window 64/window 256, S 1/100/1000, fp32 and bf16, "
-          f"all 9 tile pairs in turn) within fp32 rtol 1e-4 / atol 1e-5 and "
-          f"bf16 2e-2; max |kernel - plain| fp32 {worst[torch.float32]:.3e}, "
-          f"bf16 {worst[torch.bfloat16]:.3e}")
+    print(f"[11] flash_attention sweep: {n} cases (G 1/4/8, hd 32/64/80/128 "
+          f"(80: hubert-xlarge's 1280 / 16), causal/full/window 64/window "
+          f"256, S 1/100/1000, fp32 and bf16, all 9 tile pairs in turn) "
+          f"within fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; max |kernel - "
+          f"plain| fp32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}")
     for L, window in ((1000, 64), (1024, None), (300, 8)):
         q, k, v = qkv(1, 8, 2, L, 64, torch.float32)
         outs = [check(f"S={L} window {window} tiles {bq}x{bk}", q, k, v,
@@ -1138,165 +1193,357 @@ def gan_phases(dev, all_counts):
     Returns B1's launches over the counted training runs."""
     import dataclasses
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.configs.sagips_gan import PAPER, REDUCED
-    from repro_torch.core import gan
-    from repro_torch.core import workflow as W
-    from repro_torch.core.ensemble import ensemble_response
-    from repro_torch.core.ring import VmapComm
-    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
     from repro_torch.problems import get_problem
 
     prob = get_problem("proxy1d")
-    R = GAN_OUTER * GAN_INNER
-    K, E = PAPER.n_param_samples, PAPER.events_per_sample
     data = prob.make_reference_data(torch.Generator(device=dev).manual_seed(
         99), GAN_REF_EVENTS, device=dev)
-    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
-        ).manual_seed(7)).to(dev)
 
     def paper(mode):
         return dataclasses.replace(
             PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode))
 
     # -- 22. train PAPER at full width in both ring modes --------------------
-    # one uncounted warm-up run: PyTorch's runtime kernels and the
-    # allocator's pool at these shapes
-    W.train_stacked(SEED + 20, paper(GAN_MODES[0]), GAN_OUTER, GAN_INNER, 2,
-                    data, device=dev)
-    torch.cuda.synchronize()
+    def healthy(d):
+        return (d[-1] < d[0] and d.min() < GAN_D_MIN,
+                f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
     launches = 0
     for mode in GAN_MODES:
-        wcfg = paper(mode)
-        events = []
-
-        def on_epoch(e, metrics):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        for cnt in all_counts.values():
-            cnt.reset()                # --- the counted main-path run ---
-        state, hist = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
-                                      GAN_EPOCHS, data,
-                                      checkpoint_every=GAN_EVERY, device=dev,
-                                      on_epoch=on_epoch)
-        events[-1].synchronize()
-        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
-        backward = all_counts["inverse_cdf"].backward_plain
-        # ------------------------------------------------------------------
-        expect = {k: ((GAN_EPOCHS if k == "inverse_cdf" else 0), 0)
-                  for k in all_counts}
-        if got != expect or backward != GAN_EPOCHS:
-            fail(f"GAN training {mode}: (kernel launches, plain calls) {got}, "
-                 f"B1 backward passes {backward}; expected {expect} and "
-                 f"{GAN_EPOCHS}: the fake events are made once an epoch")
+        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
+                      else (0, 0, 0, 0)) for k in all_counts}
+        got = train_and_check("22", f"GAN PAPER {mode}", dev, paper(mode),
+                              data, all_counts, expect, healthy)
         launches += got["inverse_cdf"][0]
-        bad = [k for k, t in tree_paths(state)
-               if not bool(torch.isfinite(t.float()).all())]
-        p_hat, sigma = ensemble_response(state["gen"], noise)
-        d = hist["d_loss"].mean(1).cpu().numpy()
-        if bad or not (0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
-                or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
-            fail(f"GAN training {mode}: non-finite leaves {bad[:4]}, "
-                 f"ensemble {p_hat.tolist()}, d_loss by recorded epoch "
-                 f"{d.tolist()}: the healthy bars are finite state, the "
-                 f"ensemble in (0, 1), last d_loss below the first and its "
-                 f"minimum below {GAN_D_MIN}")
-        steps = np.array([a.elapsed_time(b)
-                          for a, b in zip(events[:-1], events[1:])])
-        p50 = float(np.percentile(steps, 50))
-        r_ens = float(prob.mean_abs_residual(p_hat))
-        r_last = float(hist["residuals"][-1].abs().mean())
-        print(f"[22] GAN PAPER {mode}: {R} ranks ({GAN_OUTER} x {GAN_INNER}), "
-              f"{K} x {E} events a rank an epoch, h {wcfg.sync.h}, lr gen "
-              f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {GAN_EPOCHS} epochs from "
-              f"seed {SEED}, fp32 (TF32 off); B1 launches "
-              f"{got['inverse_cdf'][0]}, plain calls {got['inverse_cdf'][1]}, "
-              f"backward passes "
-              f"{backward} (one of each an epoch)")
-        print(f"[22] GAN PAPER {mode}: d_loss (mean over ranks) at epochs 0, "
-              f"{GAN_EVERY}, ...: " + " ".join(f"{v:.4f}" for v in d)
-              + f"; last < first and min {d.min():.4f} < {GAN_D_MIN}; every "
-              f"state leaf finite; ensemble in ({float(p_hat.min()):.4f}, "
-              f"{float(p_hat.max()):.4f})")
-        print(f"[22] GAN PAPER {mode}: epoch p50 {p50:.3f} ms, p99 "
-              f"{float(np.percentile(steps, 99)):.3f} ms (CUDA events, epoch "
-              f"end to epoch end, {len(steps)} epochs); "
-              f"{R * K * E / p50 * 1e3:,.0f} generated events/s at p50; peak "
-              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB;"
-              f" final mean|r̂| {r_ens:.4f} (ensemble of the {R} generators), "
-              f"{r_last:.4f} (last epoch's batch, mean over ranks)")
-        del state, hist
-    torch.cuda.empty_cache()
 
     # -- 23. one epoch on the card against the CPU ---------------------------
     for mode in GAN_MODES:
-        wcfg = dataclasses.replace(
+        epoch_card_vs_cpu("23", f"GAN {mode}", dev, dataclasses.replace(
             PAPER, n_param_samples=REDUCED.n_param_samples,
             events_per_sample=REDUCED.events_per_sample,
-            sync=dataclasses.replace(PAPER.sync, mode=mode, h=1))
-        g = torch.Generator().manual_seed(SEED + 23)
-        cpu_data = prob.make_reference_data(g, 5_000, device="cpu")
-        state0, per_rank = W.init_run(g, 4, wcfg, cpu_data, "cpu")
-        state0["sync"]["mailbox"] = tree_map(
-            lambda t: torch.randn(t.shape, generator=g),
-            state0["sync"]["mailbox"])
-        draws0 = W.make_draws(g, wcfg, 4, per_rank.shape[1])
-        sched = W.make_schedule(wcfg)
-        out = {}
-        for d_ in ("cpu", dev):
-            move = lambda tree: tree_map(lambda t: t.to(d_), tree)  # noqa
-            part, grads, met = W.rank_grads(move(state0), per_rank.to(d_),
-                                            move(draws0), wcfg)
-            synced, ns = sched.exchange(VmapComm(2, 2), grads, part["sync"],
-                                        part["epoch"][0])
-            new = W.rank_apply(part, synced, ns, wcfg)
-            out[str(d_)] = tree_map(lambda t: t.cpu(),
-                                    (part, grads, met, synced, new))
-        (pc, gc, mc, sc, nc), (pg, gg, mg, sg, ng) = out["cpu"], out[str(dev)]
-        loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
-                       for k in ("d_loss", "g_loss")
-                       for a, b in zip(mg[k], mc[k]))
-        grad_rel = max(float((a - b).norm() / b.norm())
-                       for a, b in zip(tree_leaves(gg), tree_leaves(gc)))
-        s2, ns2 = sched.exchange(VmapComm(2, 2), gg, pg["sync"],
-                                 pg["epoch"][0])
-        ring_same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))))
-        want = W.rank_apply(pg, sg, ns2, wcfg)
-        pairs = list(zip(tree_leaves((ng["gen"], ng["gen_opt"])),
-                         tree_leaves((want["gen"], want["gen_opt"]))))
-        update_ok = all(torch.allclose(a.float(), b.float(), **UPDATE_TOL)
-                        for a, b in pairs)
-        update_err = max(float((a.float() - b.float()).abs().max())
-                         for a, b in pairs)
-        disc_err = max(float((a - b).abs().max()) for a, b in
-                       zip(tree_leaves(ng["disc"]), tree_leaves(nc["disc"])))
-        if loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL \
-                or not ring_same or not update_ok:
-            fail(f"phase 23 {mode}: losses off by {loss_rel:.3e} (rel), worst "
-                 f"gradient leaf {grad_rel:.3e} in relative norm, the "
-                 f"exchange bitwise the CPU's: {ring_same}, the generator's "
-                 f"update off the CPU's optimizer by {update_err:.3e} (bars "
-                 f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL})")
-        print(f"[23] GAN {mode} one epoch card vs CPU (full width, K "
-              f"{wcfg.n_param_samples}, E {wcfg.events_per_sample}, R 4 as 2 "
-              f"x 2, h 1, fp32, TF32 off, the same state with a non-zero "
-              f"mailbox and the same draws): d_loss/g_loss within "
-              f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst generator "
-              f"gradient leaf {grad_rel:.3e} in relative norm (<= "
-              f"{STEP_GRAD_REL}); the CPU's exchange of the card's gradients "
-              f"bitwise the card's; the card's new generator and Adam state "
-              f"against the CPU's optimizer on the card's synced gradients: "
-              f"max |diff| {update_err:.3e} ({UPDATE_TOL}); the new "
-              f"discriminator against the CPU's own step: max |diff| "
-              f"{disc_err:.3e} (reported)")
+            sync=dataclasses.replace(PAPER.sync, mode=mode, h=1)))
 
     # -- 24. profile PAPER epochs --------------------------------------------
-    wcfg = paper(GAN_MODES[0])
+    def group(low):
+        return ("B1 icdf_kernel" if "icdf_kernel" in low else
+                "GEMM (cuBLAS/CUTLASS)" if any(
+                    w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "sm90_")) else
+                "the exchange's rolls" if "roll" in low else
+                "reductions" if "reduce" in low else
+                "other (elementwise: activations, losses, Adam, B1's "
+                "backward; copies, draws)")
+    prof = profile_epochs("24", f"GAN PAPER {GAN_MODES[0]}", dev,
+                          paper(GAN_MODES[0]), data, group, SEED + 24)
+    if prof is not None:
+        groups, total, wall_us = prof
+        b1 = groups.get("B1 icdf_kernel", 0.0)
+        n = GAN_PROFILED
+        print(f"[24] GAN PAPER: B1's share of the card's time "
+              f"{100 * b1 / total:.2f}% ({b1 / n / 1e3:.4f} ms an epoch), of "
+              f"the epoch's host-clock time {100 * b1 / wall_us:.2f}%")
+    return launches
+
+
+def problem_phases(dev, all_counts):
+    """Phases 26-28: proxy2d, linear_blur, imaging and imaging_blur
+    trained at full width (`for_problem(name, PAPER)`, R 8), one epoch of
+    three of them on the card against the CPU, and a profile of imaging
+    epochs.  Returns each kernel's launches over the counted runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
+    from repro_torch.problems import get_problem
+
+    launches = {k: 0 for k in all_counts}
+    datas = {}
+
+    # -- 26. train every other problem at full width -------------------------
+    def healthy(d):
+        return (d.min() < d[0],
+                f"min {d.min():.4f} < first {d[0]:.4f}")
+    for name in PROBLEMS_TRAINED:
+        datas[name] = data = get_problem(name).make_reference_data(
+            torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+            device=dev)
+        # forward launches: B1, and B2 or B3 for the image problems;
+        # backward: B1's closed form where the gradient reaches it (not
+        # the imaging readout's noise), B2's in PyTorch, B3 as B3
+        forward = TRAINED_FORWARD[name]
+        expect = {k: (0, 0, 0, 0) for k in all_counts}
+        expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0,
+                                 GAN_EPOCHS if forward is None else 0)
+        if forward == "mask_apply":
+            expect[forward] = (GAN_EPOCHS, 0, 0, GAN_EPOCHS)
+        elif forward == "blur2d":
+            expect[forward] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
+        got = train_and_check("26", f"{name} for_problem(PAPER)", dev,
+                              for_problem(name, PAPER), data, all_counts,
+                              expect, healthy)
+        for k in launches:
+            launches[k] += got[k][0]
+
+    # -- 27. one epoch on the card against the CPU ---------------------------
+    for name in ("proxy2d", "linear_blur", "imaging"):
+        base = for_problem(name, REDUCED)
+        for mode in GAN_MODES:
+            epoch_card_vs_cpu("27", f"{name} {mode}", dev, dataclasses.replace(
+                for_problem(name, PAPER),
+                n_param_samples=base.n_param_samples,
+                events_per_sample=base.events_per_sample,
+                sync=dataclasses.replace(PAPER.sync, mode=mode, h=1)),
+                pin_kinks=True)
+
+    # -- 28. profile imaging epochs ------------------------------------------
+    def group(low):
+        return ("B1 icdf_kernel" if "icdf_kernel" in low else
+                "B2 mask_kernel" if "mask_kernel" in low else
+                "B3 blur_kernel" if "blur_kernel" in low else
+                "conv backward (cuDNN dgrad/wgrad)" if any(
+                    w in low for w in ("dgrad", "wgrad", "backward_data",
+                                       "backward_filter")) else
+                "conv forward (cuDNN)" if any(
+                    w in low for w in ("fprop", "convolve", "conv2d",
+                                       "cudnn", "implicit")) else
+                "GEMM (cuBLAS/CUTLASS)" if any(
+                    w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "sm90_")) else
+                "the exchange's rolls" if "roll" in low else
+                "reductions" if "reduce" in low else
+                "other (elementwise: activations, upsampling, losses, "
+                "Adam, gathers; copies, draws)")
+    wcfg = for_problem("imaging", PAPER)
+    prof = profile_epochs("28", "imaging for_problem(PAPER) "
+                          f"{wcfg.sync.mode}", dev, wcfg, datas["imaging"],
+                          group, SEED + 28)
+    if prof is not None:
+        groups, total, _ = prof
+        conv = sum(us for k, us in groups.items() if k.startswith("conv"))
+        kern = sum(groups.get(k, 0.0) for k in (
+            "B1 icdf_kernel", "B2 mask_kernel", "B3 blur_kernel"))
+        print(f"[28] imaging: the generator's convs take "
+              f"{100 * conv / total:.1f}% of the card's time, B1-B3 "
+              f"{100 * kern / total:.2f}%")
+    return launches
+
+
+def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
+                    d_bar):
+    """Train `wcfg` at R 8 (GAN_OUTER x GAN_INNER) for GAN_EPOCHS epochs
+    after an uncounted 2-epoch warm-up (phases 22 and 26).  Fails unless
+    each kernel's (launches, plain calls, backward launches, backward
+    plain calls) over the counted run equal `expect`, every state leaf is
+    finite, the ensemble lies in (0, 1), every recorded d_loss is finite
+    and `d_bar(d_loss by recorded epoch)` gives (True, its text).  Prints
+    the run, the d_loss trajectory, epoch p50/p99 (CUDA events), events/s,
+    peak memory and the final mean|r̂|; returns the counts."""
+    import torch
+    from repro_torch.core import gan
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ensemble import ensemble_response
+    from repro_torch.core.tree import tree_paths
+
+    R = GAN_OUTER * GAN_INNER
+    K, E = wcfg.n_param_samples, wcfg.events_per_sample
+    prob = wcfg.problem_obj
+    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
+        ).manual_seed(7)).to(dev)
+    # the warm-up: PyTorch's runtime kernels, cuDNN's plans and the
+    # allocator's pool at these shapes
+    W.train_stacked(SEED + int(tag), wcfg, GAN_OUTER, GAN_INNER, 2, data,
+                    device=dev)
+    torch.cuda.synchronize()
+    events = []
+
+    def on_epoch(e, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    state, hist = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                                  GAN_EPOCHS, data,
+                                  checkpoint_every=GAN_EVERY, device=dev,
+                                  on_epoch=on_epoch)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls, c.backward_launches,
+               c.backward_plain) for k, c in all_counts.items()}
+    # ----------------------------------------------------------------------
+    if got != expect:
+        fail(f"training {label}: (launches, plain calls, backward launches, "
+             f"backward plain calls) {got}; expected {expect}")
+    bad = [k for k, t in tree_paths(state)
+           if not bool(torch.isfinite(t.float()).all())]
+    p_hat, _ = ensemble_response(state["gen"], noise)
+    d = hist["d_loss"].mean(1).cpu().numpy()
+    ok, bar = d_bar(d) if np.isfinite(d).all() else (False, "")
+    if bad or not (0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
+            or not ok:
+        fail(f"training {label}: non-finite leaves {bad[:4]}, ensemble in "
+             f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss by "
+             f"recorded epoch {d.tolist()}: the bars are finite state, the "
+             f"ensemble in (0, 1), every recorded d_loss finite, {bar}")
+    steps = np.array([a.elapsed_time(b)
+                      for a, b in zip(events[:-1], events[1:])])
+    p50 = float(np.percentile(steps, 50))
+    runs = ", ".join(f"{k} {n[0]} (backward {n[2]} launches, {n[3]} in "
+                     f"PyTorch)" for k, n in got.items() if n[0])
+    print(f"[{tag}] {label}: {R} ranks ({GAN_OUTER} x {GAN_INNER}), {K} x "
+          f"{E} events a rank an epoch, {gan.param_count(state['gen']) // R:,}"
+          f" generator parameters a rank, h {wcfg.sync.h}, lr gen "
+          f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {wcfg.sync.mode}, {GAN_EPOCHS} "
+          f"epochs from seed {SEED}, fp32 (TF32 off); kernel launches: "
+          f"{runs}; no plain call")
+    print(f"[{tag}] {label}: d_loss (mean over ranks) at epochs 0, "
+          f"{GAN_EVERY}, ...: " + " ".join(f"{v:.4f}" for v in d)
+          + f"; all finite, {bar}; every state leaf finite; ensemble in "
+          f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f})")
+    print(f"[{tag}] {label}: epoch p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms (CUDA events, epoch "
+          f"end to epoch end, {len(steps)} epochs); "
+          f"{R * K * E / p50 * 1e3:,.0f} generated events/s at p50; peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          f"final mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f} "
+          f"(ensemble of the {R} generators), "
+          f"{float(hist['residuals'][-1].abs().mean()):.4f} (last epoch's "
+          f"batch, mean over ranks)")
+    del state, hist
+    torch.cuda.empty_cache()
+    return got
+
+
+@contextlib.contextmanager
+def leaky_kinks(record, signs=None):
+    """Inside, every Leaky ReLU of the generators and the discriminator
+    (`F.leaky_relu` in `core.gan` and `models.convgen`) appends its
+    pre-activation to `record`; given `signs`, bool tensors in the same
+    call order, each takes its slope from them (x where True, 0.01·x
+    elsewhere) instead of from the sign of its own x."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import gan
+    from repro_torch.models import convgen
+    signs = None if signs is None else iter(signs)
+
+    def leaky_relu(x, slope=0.01):
+        record.append(x.detach())
+        if signs is None:
+            return F.leaky_relu(x, slope)
+        return torch.where(next(signs).to(x.device), x, slope * x)
+    shim = types.SimpleNamespace(**dict(
+        {k: getattr(F, k) for k in dir(F) if not k.startswith("_")},
+        leaky_relu=leaky_relu))
+    saved = gan.F, convgen.F
+    gan.F = convgen.F = shim
+    try:
+        yield record
+    finally:
+        gan.F, convgen.F = saved
+
+
+def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
+    """One epoch on the card and on the CPU from the same state (a
+    non-zero RMA mailbox) and draws, 4 ranks as 2 x 2 (phases 23 and 27):
+    losses at rtol STEP_LOSS_RTOL, each generator gradient leaf within
+    STEP_GRAD_REL in relative norm, the CPU's exchange of the card's
+    gradients bitwise the card's, and the card's new generator and Adam
+    state against the CPU's optimizer on the card's synced gradients.
+
+    `pin_kinks` holds the gradient leaves at KINK_GRAD_REL instead,
+    against the CPU's gradients at the card's Leaky ReLU signs
+    (`leaky_kinks`), and reports the gap without pinning and the number
+    of pre-activations whose sign differs between the card and the CPU."""
+    import torch
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    prob = wcfg.problem_obj
+    g = torch.Generator().manual_seed(SEED + 23)
+    cpu_data = prob.make_reference_data(g, 5_000, device="cpu")
+    state0, per_rank = W.init_run(g, 4, wcfg, cpu_data, "cpu")
+    state0["sync"]["mailbox"] = tree_map(
+        lambda t: torch.randn(t.shape, generator=g),
+        state0["sync"]["mailbox"])
+    draws0 = W.make_draws(g, wcfg, 4, per_rank.shape[1])
+    sched = W.make_schedule(wcfg)
+    out, pre = {}, {}
+    for d_ in ("cpu", dev):
+        move = lambda tree: tree_map(lambda t: t.to(d_), tree)  # noqa
+        with leaky_kinks([]) as pre[str(d_)]:
+            part, grads, met = W.rank_grads(move(state0), per_rank.to(d_),
+                                            move(draws0), wcfg)
+        synced, ns = sched.exchange(VmapComm(2, 2), grads, part["sync"],
+                                    part["epoch"][0])
+        new = W.rank_apply(part, synced, ns, wcfg)
+        out[str(d_)] = tree_map(lambda t: t.cpu(),
+                                (part, grads, met, synced, new))
+    (pc, gc, mc, sc, nc), (pg, gg, mg, sg, ng) = out["cpu"], out[str(dev)]
+    loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                   for k in ("d_loss", "g_loss")
+                   for a, b in zip(mg[k], mc[k]))
+    def worst(grads):
+        return max(float((a - b).norm() / b.norm())
+                   for a, b in zip(tree_leaves(gg), tree_leaves(grads)))
+    grad_rel = unpinned = worst(gc)
+    bar = STEP_GRAD_REL
+    if pin_kinks:
+        signs = [t.cpu() > 0 for t in pre[str(dev)]]
+        flips = sum(int((a != (b > 0)).sum())
+                    for a, b in zip(signs, pre["cpu"]))
+        with leaky_kinks([], signs):
+            _, gp, _ = W.rank_grads(state0, per_rank, draws0, wcfg)
+        grad_rel, bar = worst(gp), KINK_GRAD_REL
+    s2, ns2 = sched.exchange(VmapComm(2, 2), gg, pg["sync"], pg["epoch"][0])
+    ring_same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))))
+    want = W.rank_apply(pg, sg, ns2, wcfg)
+    pairs = list(zip(tree_leaves((ng["gen"], ng["gen_opt"])),
+                     tree_leaves((want["gen"], want["gen_opt"]))))
+    update_ok = all(torch.allclose(a.float(), b.float(), **UPDATE_TOL)
+                    for a, b in pairs)
+    update_err = max(float((a.float() - b.float()).abs().max())
+                     for a, b in pairs)
+    disc_err = max(float((a - b).abs().max()) for a, b in
+                   zip(tree_leaves(ng["disc"]), tree_leaves(nc["disc"])))
+    pinned = (f" at the card's Leaky ReLU signs ({flips} of the CPU's "
+              f"differ; {unpinned:.3e} without pinning)" if pin_kinks else "")
+    if loss_rel > STEP_LOSS_RTOL or grad_rel > bar \
+            or not ring_same or not update_ok:
+        fail(f"phase {tag} {label}: losses off by {loss_rel:.3e} (rel), "
+             f"worst gradient leaf {grad_rel:.3e} in relative norm{pinned}, "
+             f"the exchange bitwise the CPU's: {ring_same}, the generator's "
+             f"update off the CPU's optimizer by {update_err:.3e} (bars "
+             f"{STEP_LOSS_RTOL}, {bar}, {UPDATE_TOL})")
+    print(f"[{tag}] {label} one epoch card vs CPU (full width, K "
+          f"{wcfg.n_param_samples}, E {wcfg.events_per_sample}, R 4 as 2 "
+          f"x 2, h 1, fp32, TF32 off, the same state with a non-zero "
+          f"mailbox and the same draws): d_loss/g_loss within "
+          f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst generator "
+          f"gradient leaf {grad_rel:.3e} in relative norm (<= {bar})"
+          f"{pinned}; the CPU's exchange of the card's gradients "
+          f"bitwise the card's; the card's new generator and Adam state "
+          f"against the CPU's optimizer on the card's synced gradients: "
+          f"max |diff| {update_err:.3e} ({UPDATE_TOL}); the new "
+          f"discriminator against the CPU's own step: max |diff| "
+          f"{disc_err:.3e} (reported)")
+
+
+def profile_epochs(tag, label, dev, wcfg, data, group, seed):
+    """Profile GAN_PROFILED epochs of `wcfg` at R 8 after one warm epoch
+    (phases 24 and 28): the card's busy share, its time by `group(lower
+    kernel name)` and the ten longest kernels, device ops an epoch.
+    Returns (group -> us, busy us, host-clock us), or None when the
+    profiler recorded no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.core import workflow as W
+
+    R = GAN_OUTER * GAN_INNER
     epoch = W.make_epoch_fn(GAN_OUTER, GAN_INNER, wcfg)
-    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    g = torch.Generator(device=dev).manual_seed(seed)
     state, per_rank = W.init_run(g, R, wcfg, data, dev)
     draws = [W.make_draws(g, wcfg, R, per_rank.shape[1])
              for _ in range(GAN_PROFILED + 1)]
@@ -1313,40 +1560,28 @@ def gan_phases(dev, all_counts):
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not on_card:
-        print(f"[24] GAN PAPER {n} profiled epochs: the profiler recorded no "
-              f"device events: the card's busy share is not measured")
-        return launches
+        print(f"[{tag}] {label} {n} profiled epochs: the profiler recorded "
+              f"no device events: the card's busy share is not measured")
+        return None
     busy, groups = {}, {}
     for e in on_card:
         us = e.time_range.elapsed_us()
         busy[e.name] = busy.get(e.name, 0.0) + us
-        low = e.name.lower()
-        grp = ("B1 icdf_kernel" if "icdf_kernel" in low else
-               "GEMM (cuBLAS/CUTLASS)" if any(
-                   w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                      "sm90_")) else
-               "the exchange's rolls" if "roll" in low else
-               "reductions" if "reduce" in low else
-               "other (elementwise: activations, losses, Adam, B1's "
-               "backward; copies, draws)")
+        grp = group(e.name.lower())
         groups[grp] = groups.get(grp, 0.0) + us
     total = sum(busy.values())
-    print(f"[24] GAN PAPER {GAN_MODES[0]} {n} profiled epochs: "
+    print(f"[{tag}] {label} {n} profiled epochs: "
           f"{wall_us / n / 1e3:.2f} ms an epoch on the host clock under the "
           f"profiler, card busy {total / n / 1e3:.2f} ms an epoch "
           f"({100 * total / wall_us:.1f}%), {len(on_card) // n} device ops an "
           f"epoch")
     for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[24]   {us / n / 1e3:9.3f} ms an epoch ({100 * us / total:5.1f}"
-              f"%)  {grp}")
-    b1 = groups.get("B1 icdf_kernel", 0.0)
-    print(f"[24] GAN PAPER: B1's share of the card's time "
-          f"{100 * b1 / total:.2f}% ({b1 / n / 1e3:.4f} ms an epoch), of the "
-          f"epoch's host-clock time {100 * b1 / wall_us:.2f}%")
+        print(f"[{tag}]   {us / n / 1e3:9.3f} ms an epoch "
+              f"({100 * us / total:5.1f}%)  {grp}")
     for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[24]   {us / n / 1e3:9.3f} ms an epoch ({100 * us / total:5.1f}"
-              f"%)  {name[:90]}")
-    return launches
+        print(f"[{tag}]   {us / n / 1e3:9.3f} ms an epoch "
+              f"({100 * us / total:5.1f}%)  {name[:90]}")
+    return groups, total, wall_us
 
 
 def time_phase(dev, strict):
@@ -1415,11 +1650,13 @@ def time_phase(dev, strict):
                 fail("the empty kernel did not launch")
 
         floor_ms = cuda_ms(empty_kernel, device_only=True)
-    sets = [sampler_inputs(*TRAIN_ICDF_SHAPE) for _ in range(L2_ROTATION)]
-    timing["inverse_cdf_train"] = timed(
-        inverse_cdf_channels, inverse_cdf_ref, None, sets,
-        *sampler_bytes_ops(sets[0][0], sets[0][1]))
-    del sets
+    for key, shape in (("inverse_cdf_train", TRAIN_ICDF_SHAPE),
+                       ("inverse_cdf_train_c3", TRAIN_ICDF_C3),
+                       ("inverse_cdf_train_c4", TRAIN_ICDF_C4)):
+        sets = [sampler_inputs(*shape) for _ in range(L2_ROTATION)]
+        timing[key] = timed(inverse_cdf_channels, inverse_cdf_ref, None, sets,
+                            *sampler_bytes_ops(sets[0][0], sets[0][1]))
+        del sets
 
     m = (torch.rand(MASK_SHAPE[1], generator=g) > 0.4).to(dev, torch.float32)
     sets = [(torch.randn(MASK_SHAPE, generator=g).to(dev), m)
@@ -1464,6 +1701,8 @@ def time_phase(dev, strict):
 
     shapes = {"inverse_cdf": f"inverse_cdf u{list(MAIN_SHAPE)}",
               "inverse_cdf_train": f"inverse_cdf u{list(TRAIN_ICDF_SHAPE)}",
+              "inverse_cdf_train_c3": f"inverse_cdf u{list(TRAIN_ICDF_C3)}",
+              "inverse_cdf_train_c4": f"inverse_cdf u{list(TRAIN_ICDF_C4)}",
               "mask_apply": f"mask_apply x{list(MASK_SHAPE)}",
               "blur2d": f"blur2d x{list(BLUR_SHAPE)}",
               "blur2d_big": f"blur2d x{list(BLUR_BIG_SHAPE)}"}
@@ -1486,7 +1725,8 @@ def time_phase(dev, strict):
               f"the sampler's grid at u{list(MAIN_SHAPE)}: {floor_ms:.5f} ms;"
               f" the sampler there is "
               f"{timing['inverse_cdf']['ms'] - floor_ms:.5f} ms above it")
-    print(f"[4] u{list(TRAIN_ICDF_SHAPE)}, mask_apply and blur2d cycle "
+    print(f"[4] u{list(TRAIN_ICDF_SHAPE)} (and C 3, 4), mask_apply and "
+          f"blur2d cycle "
           f"{L2_ROTATION} input sets (a working set above the 50 MB L2); "
           f"inverse_cdf at u{list(MAIN_SHAPE)} reuses one, as the service "
           f"does")
@@ -1516,11 +1756,13 @@ def main():
     from repro_torch.core.workflow import make_solver, solve_draws
     from repro_torch.kernels import build
     from repro_torch.kernels import imaging as kimaging
-    from repro_torch.kernels.inverse_cdf import counts, inverse_cdf_channels
+    from repro_torch.kernels.inverse_cdf import (counts, inverse_cdf,
+                                                 inverse_cdf_channels)
     from repro_torch.kernels.ref import (blur2d_ref, inverse_cdf_ref,
                                          mask_apply_ref)
     from repro_torch.models import convgen
     from repro_torch.problems import get_problem
+    from repro_torch.problems.imaging import SIGMA as IMAGING_SIGMA
     from repro_torch.serving import SolveService
 
     dev = torch.device("cuda")
@@ -1589,6 +1831,10 @@ def main():
              (TRAIN_ICDF_SHAPE, torch.float32, torch.float32, 1),
              (TRAIN_ICDF_SHAPE, torch.bfloat16, torch.float32, 3),
              ((8192, 100, 1), torch.float32, torch.float32, 0),
+             (TRAIN_ICDF_C3, torch.float32, torch.float32, 0),
+             (TRAIN_ICDF_C3, torch.bfloat16, torch.float32, 1),
+             (TRAIN_ICDF_C4, torch.float32, torch.float32, 0),
+             (TRAIN_ICDF_C4, torch.float32, torch.float32, 3),
              ((300, 7, 3), torch.float32, torch.float32, 0),
              ((300, 7, 3), torch.bfloat16, torch.float32, 1),
              ((64, 100, 5), torch.float32, torch.bfloat16, 0),
@@ -1618,9 +1864,26 @@ def main():
                  f"{shape} {udtype}{at}")
         if shape == MAIN_SHAPE and udtype == torch.float32:
             max_err["inverse_cdf"] = err
+    # the imaging readout's call in training: the 2-D entry on the noise
+    # channel of u [512, 32, 2], mu = k = 0, s = SIGMA
+    u = torch.rand(TRAIN_READOUT_SHAPE + (2,), generator=g).to(dev)
+    u = u[..., 1].contiguous()
+    zeros = torch.zeros(TRAIN_IMAGES, device=dev)
+    s = torch.full((TRAIN_IMAGES,), IMAGING_SIGMA, device=dev)
+    y = inverse_cdf(u, zeros, s, zeros)
+    torch.cuda.synchronize()
+    ok, err = close(y, inverse_cdf_ref(u, zeros, s, zeros), **FP32)
+    if not ok or y.shape != u.shape:
+        fail(f"inverse_cdf kernel disagrees with its plain version at the "
+             f"imaging readout's u{list(u.shape)} (max {err:.3e})")
+    print(f"[3] inverse_cdf u{list(u.shape)} float32 through the 2-D entry "
+          f"(imaging training's readout noise, s {IMAGING_SIGMA}): max "
+          f"|kernel - plain| = {err:.3e} (rtol 1e-4, atol 1e-5) ok")
 
     for shape, dtype, mdtype in [(MASK_SHAPE, torch.float32, torch.float32),
                                  (MASK_SHAPE, torch.bfloat16, torch.float32),
+                                 (TRAIN_MASK_SHAPE, torch.float32,
+                                  torch.float32),
                                  ((257, 130), torch.float32, torch.bfloat16),
                                  ((7, 100), torch.bfloat16, torch.bfloat16),
                                  ((1, 32), torch.float32, torch.float32)]:
@@ -1642,6 +1905,7 @@ def main():
     # (shape, dtype, elements x lies into its buffer)
     for shape, dtype, offset in [(BLUR_SHAPE, torch.float32, 0),
                                  (BLUR_SHAPE, torch.bfloat16, 0),
+                                 (TRAIN_BLUR_SHAPE, torch.float32, 0),
                                  (BLUR_BIG_SHAPE, torch.float32, 0),
                                  (BLUR_BIG_SHAPE, torch.bfloat16, 0),
                                  (BLUR_BIG_SHAPE, torch.float32, 1),
@@ -1672,6 +1936,32 @@ def main():
               f"(rtol/atol 1e-6; bitwise the same at each) ok")
         if shape == BLUR_SHAPE and dtype == torch.float32 and not offset:
             max_err["blur2d"] = worst
+
+    # the backward of B2 (PyTorch's x·m on the cotangent) and B3 (the blur
+    # kernel on the cotangent) at the training shapes, against autograd
+    # through the plain versions
+    m = (torch.rand(TRAIN_MASK_SHAPE[1], generator=g) > 0.4).to(dev)
+    for name, fn, ref, shape in (
+            ("mask_apply", lambda x: kimaging.mask_apply(x, m.float()),
+             lambda x: mask_apply_ref(x, m.float()), TRAIN_MASK_SHAPE),
+            ("blur2d", kimaging.blur2d, blur2d_ref, TRAIN_BLUR_SHAPE)):
+        x = torch.randn(shape, generator=g).to(dev)
+        ct = torch.randn(shape, generator=g).to(dev)
+        cnt = all_counts[name]
+        before = cnt.backward_launches
+        got, = torch.autograd.grad(fn(x.requires_grad_()), x, ct)
+        torch.cuda.synchronize()
+        want, = torch.autograd.grad(ref(x), x, ct)
+        ok, err = close(got, want, **BLUR)
+        launched = cnt.backward_launches - before
+        if not ok or launched != (name == "blur2d"):
+            fail(f"{name}'s backward at x{list(shape)} differs from autograd "
+                 f"through the plain version by {err:.3e}, or launched the "
+                 f"kernel {launched} times")
+        print(f"[3] {name} backward x{list(shape)} float32 (training's "
+              f"shape; {'the blur kernel' if launched else 'PyTorch'} on the "
+              f"cotangent): max |kernel - autograd of plain| = {err:.3e} "
+              f"(rtol/atol 1e-6) ok")
 
     # -- 4. time at the main-path shapes -------------------------------------
     timing = time_phase(dev, strict=True)
@@ -1889,6 +2179,34 @@ def main():
 
     # -- 22-24. the paper's GAN training -------------------------------------
     launches["inverse_cdf"] += gan_phases(dev, all_counts)
+
+    # -- 25. serve proxy2d and linear_blur -----------------------------------
+    for name in PROBLEMS_SERVED:
+        problem = get_problem(name)
+        widths = gan.gen_widths(problem.n_params)
+        ckpt = os.path.join(ROOT, "build", "repro_torch", f"smoke_ckpt_{name}")
+        written = write_stack(ckpt, widths, RANKS)
+        requests = make_requests(problem)
+        _, step, _, got = serve("25", name, requests, None,
+                                checkpoint_dir=ckpt)
+        launches["inverse_cdf"] += got["inverse_cdf"][0]
+        stack, _ = load_generator_stack(ckpt, dev)
+        per_rank = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+        for i, layer in enumerate(stack):
+            if not np.array_equal(layer["w"].cpu().numpy(),
+                                  written[f"gen/{i}/w"]):
+                fail(f"{name}: layer {i} of the loaded stack differs from "
+                     f"the stored one")
+        if step != 1 or gan.param_count(stack) != RANKS * per_rank:
+            fail(f"{name}: loaded step {step}, {gan.param_count(stack)} "
+                 f"parameters")
+        print(f"[25] {name} stack {RANKS}x{per_rank} params (widths "
+              f"{widths}) from checkpoint step {step}")
+        card_vs_cpu("25", name, stack, requests)
+
+    # -- 26-28. every other problem trained ----------------------------------
+    for k, n in problem_phases(dev, all_counts).items():
+        launches[k] = launches.get(k, 0) + n
 
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",

@@ -5,20 +5,20 @@ names where that helps a reader find the counterpart, and imports nothing
 from it (nor JAX).  Plain tensor code is PyTorch; every Pallas kernel of a
 ported path is a hand-written CUDA kernel under `kernels/csrc/`.
 
-Ported so far: the solve service (`serving.SolveService`,
-`python -m repro_torch.launch.serve`) for `proxy1d` and the imaging
-problems `imaging` and `imaging_blur`, with the inverse-CDF event sampler,
-the inpainting mask and the 3-tap blur as CUDA kernels, and the conv
-generator of the imaging problems (`models.convgen`); and LLM serving of
-the dense decoders (`serving.generate`, `python -m
-repro_torch.launch.serve_llm`, tinyllama-1.1b by default) with flash
-attention as a CUDA kernel in prefill, and of mamba2-130m; and LLM
-training on one device (`training.Trainer`, `python -m
-repro_torch.launch.train`, mamba2-130m with the SSD chunked scan as a
-CUDA kernel); and the paper's GAN training loop (`core.workflow
-.train_stacked`, `python -m repro_torch.launch.train_gan`), R ranks
-stacked on one device with the sampler's kernel on the path.  Every kernel wrapper is a `torch.autograd.Function` with
-the JAX package's backward.
+Ported so far: every problem of the JAX registry (`problems`: proxy1d,
+proxy2d, linear_blur, imaging, imaging_blur), served by the solve service
+(`serving.SolveService`, `python -m repro_torch.launch.serve`) and
+trained by the paper's GAN loop (`core.workflow.train_stacked`, `python
+-m repro_torch.launch.train_gan`), R ranks stacked on one device; the
+inverse-CDF event sampler, the inpainting mask and the 3-tap blur are
+CUDA kernels on both paths, and the imaging problems train and serve the
+conv generator (`models.convgen`).  Also LLM serving of the dense
+decoders (`serving.generate`, `python -m repro_torch.launch.serve_llm`,
+tinyllama-1.1b by default) with flash attention as a CUDA kernel in
+prefill, and of mamba2-130m; and LLM training on one device
+(`training.Trainer`, `python -m repro_torch.launch.train`, mamba2-130m
+with the SSD chunked scan as a CUDA kernel).  Every kernel wrapper is a
+`torch.autograd.Function` with the JAX package's backward.
 
 Device policy: entry points take `device=`; with none they run on CUDA and
 raise when CUDA is absent (`resolve_device`).  They never fall back to the

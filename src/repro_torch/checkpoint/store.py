@@ -15,7 +15,8 @@ that layout for the port's GAN training state, so the JAX package's
 `restore_latest` reads a port checkpoint into its own state template,
 and its solve service serves the generator in it.  The keys are the JAX
 state's ("gen/0/w", "disc_opt/mu/2/b", "gen_opt/step", "sync/mailbox/0/w",
-"sync/outer_mailbox", "epoch"), with the same shapes.  The one leaf that
+"sync/outer_mailbox", "epoch"; a conv generator's "gen/convs/0/w", ...,
+"gen/proj/b", conv weights HWIO), with the same shapes.  The one leaf that
 differs is "rng": the port stores its `torch.Generator`'s state there
 (a uint8 vector; the JAX state holds its per-rank keys under that name),
 so a resume continues the run bitwise.  `gan_state_from_numpy` carries
@@ -316,10 +317,11 @@ GAN_STATE_KEYS = ("gen", "disc", "gen_opt", "disc_opt", "sync", "epoch")
 def gan_state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> dict:
     """A JAX stacked training state (`repro.core.workflow.init_state` /
     `train_vmap`'s), as path-flattened numpy arrays ("gen/0/w", ...,
-    "sync/outer_mailbox", "epoch"), -> the port's state on `device`, with
-    the same leaves and dtypes.  The JAX state's "rng" (its per-rank
-    keys) has no counterpart in the port and is dropped; any other
-    unknown top-level key raises."""
+    "sync/outer_mailbox", "epoch"; "gen/convs/0/w", "gen/proj/b", ... for
+    the conv generator of an imaging problem, conv weights HWIO), -> the
+    port's state on `device`, with the same leaves and dtypes.  The JAX
+    state's "rng" (its per-rank keys) has no counterpart in the port and
+    is dropped; any other unknown top-level key raises."""
     dev = resolve_device(device)
     tops = {k.split(_SEP)[0] for k in flat} - {"rng"}
     if tops != set(GAN_STATE_KEYS):
@@ -328,9 +330,13 @@ def gan_state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> dict:
                          f"{sorted(tops)}")
     tree = tree_from_paths({k: v for k, v in flat.items()
                             if k.split(_SEP)[0] != "rng"})
-    for half in ("gen", "disc"):
-        if not isinstance(tree[half], list):
-            raise ValueError(f"{half!r} must be an MLP (a list of layers); "
-                             f"got keys {sorted(tree[half])}")
+    if not isinstance(tree["disc"], list):
+        raise ValueError(f"'disc' must be an MLP (a list of layers); got "
+                         f"keys {sorted(tree['disc'])}")
+    gen = tree["gen"]
+    if not isinstance(gen, list) and set(gen) != {"proj", "convs"}:
+        raise ValueError(f"'gen' must be an MLP (a list of layers) or a "
+                         f"conv generator ('proj', 'convs'); got keys "
+                         f"{sorted(gen)}")
     from ..models.model import map_params
     return map_params(lambda a: _to_tensor(a, None, dev), tree)

@@ -2,10 +2,9 @@
 as `repro.configs.sagips_gan` has it.
 
 `PAPER` is Tab. III at the paper's widths; `REDUCED` keeps its structure
-at CPU scale.  `for_problem` retargets either preset at a registered
-problem; image-valued problems get the JAX package's retuned batch shape
-and generator step, though training them raises in the port (ROADMAP.md
-queue A item 5).
+at CPU scale.  `for_problem` retargets either preset at any registered
+problem; image-valued problems (the conv generator) get the JAX
+package's retuned batch shape and capped generator step.
 """
 import dataclasses
 

@@ -158,12 +158,10 @@ def gen_loss(disc_params: Generator, fake_events, compute_dtype=None):
 
 def weight_mask(params: AnyGenerator):
     """True for weight matrices, False for biases, in the tree's layout:
-    only weight gradients ride the ring (§V-C).  The conv generator has no
-    training path in the port yet (ROADMAP.md queue A item 5)."""
+    only weight gradients ride the ring (§V-C).  A dict is the conv
+    generator, a list the MLP."""
     if isinstance(params, dict):
-        raise NotImplementedError(
-            "the conv generator's weight mask comes with imaging training, "
-            "ROADMAP.md queue A item 5")
+        return convgen.conv_weight_mask(params)
     return [{"w": True, "b": False} for _ in params]
 
 

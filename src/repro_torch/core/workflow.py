@@ -24,8 +24,11 @@ Two halves:
     6. applies its Adam update.
   The fake events of steps 3 and 4 are computed once an epoch (the JAX
   package samples twice with one key, so both see the same events): step
-  3 reads them detached, step 4 backpropagates through them, so the
-  sampler (B1 for proxy1d) runs forward once and backward once an epoch.
+  3 reads them detached, step 4 backpropagates through them, so each
+  kernel of the forward model (B1 for the flat problems; B1 on the
+  readout noise and B2 or B3 for the imaging ones) runs forward once an
+  epoch, and backward once where the gradient reaches it.  An
+  image-valued problem trains the conv generator (`models.convgen`).
 
 The epoch's random draws (`make_draws`: generator noise, sampler
 uniforms, bootstrap indices) come from one `torch.Generator` on the run's
@@ -41,12 +44,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..models import convgen
 from ..optim import adam
 from . import gan, pipeline, sync as sync_lib
 from .ring import VmapComm
-from .tree import tree_leaves, tree_map, tree_unflatten
-
-IMAGING_ITEM = "ROADMAP.md queue A item 5 (imaging training)"
+from .tree import tree_from_paths, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,8 +212,14 @@ class WorkflowConfig:
 
 
 def _gen_example(wcfg: WorkflowConfig):
-    """The per-rank generator's shapes ("meta" tensors, nothing drawn)."""
-    widths = gan.gen_widths(wcfg.problem_obj.n_params)
+    """The per-rank generator's shapes ("meta" tensors, nothing drawn):
+    the conv generator's for an image-valued problem, else the MLP's."""
+    prob = wcfg.problem_obj
+    if prob.param_shape is not None:
+        shapes = convgen.leaf_shapes(prob.param_shape, gan.NOISE_DIM)
+        return tree_from_paths({k: torch.empty(shape, device="meta")
+                                for k, shape in shapes.items()})
+    widths = gan.gen_widths(prob.n_params)
     return [{"w": torch.empty((a, b), device="meta"),
              "b": torch.empty((b,), device="meta")}
             for a, b in zip(widths[:-1], widths[1:])]
@@ -230,16 +238,14 @@ def make_schedule(wcfg: WorkflowConfig) -> sync_lib.SyncSchedule:
 
 def init_rank_state(generator: torch.Generator, wcfg: WorkflowConfig,
                     schedule=None, device=None):
-    """The state of ONE rank (no leading rank axis): generator and
-    discriminator (Kaiming-normal from `generator`, in that order), their
-    Adam states, the schedule's SyncState and the epoch counter."""
+    """The state of ONE rank (no leading rank axis): generator (the conv
+    generator for an image-valued problem) and discriminator
+    (Kaiming-normal from `generator`, in that order), their Adam states,
+    the schedule's SyncState and the epoch counter."""
     prob = wcfg.problem_obj
-    if prob.param_shape is not None:
-        raise NotImplementedError(
-            f"training {prob.name!r} (an image-valued problem, the conv "
-            f"generator) is not ported yet: {IMAGING_ITEM}")
     dev = resolve_device(device)
-    gen_p = gan.init_generator(generator, n_params=prob.n_params, device=dev)
+    gen_p = gan.init_generator(generator, n_params=prob.n_params, device=dev,
+                               param_shape=prob.param_shape)
     disc_p = gan.init_discriminator(generator, obs_dim=prob.obs_dim,
                                     device=dev)
     schedule = make_schedule(wcfg) if schedule is None else schedule

@@ -48,13 +48,15 @@
 // corr is exp(-inf) = 0: the same result without the spurious terms.  A row
 // with no visible key at all writes 0.
 //
-// Tile sizes.  block_q and block_k (each 32, 64 or 128) and hd (32, 64 or
-// 128) are template arguments; the Pallas signature takes block_q/block_k
-// too, and the result depends on them only through fp32 reordering: each
-// score is the same FMA chain for every tiling, only the softmax's running
-// rescaling differs.  Shared memory is
-// 4 (hd (BQ + 1) + hd (BK + 1) + BK (BQ + 1)) bytes, 49,920 at 64/64/64
-// and 198,144 at 128/128/128, taken as dynamic shared memory above 48 KB.
+// Tile sizes.  block_q and block_k (each 32, 64 or 128) and hd (32, 64, 80
+// or 128; each a multiple of the 16 threads of a row, which own hd / 16
+// output columns each) are template arguments; the Pallas signature
+// takes block_q/block_k too, and the result depends on them only through
+// fp32 reordering: each score is the same FMA chain for every tiling,
+// only the softmax's running rescaling differs.  Shared memory is
+// 4 (hd (BQ + 1) + hd (BK + 1) + BK (BQ + 1)) bytes, 49,920 at 64/64/64,
+// 148,608 at 128/128 and hd 80, and 198,144 at 128/128/128, taken as
+// dynamic shared memory above 48 KB.
 //
 // Numerics: built WITHOUT --use_fast_math (expf, not __expf): the
 // kernel holds fp32 rtol 1e-4 / atol 1e-5 against its plain version.
@@ -113,6 +115,7 @@ __global__ void __launch_bounds__(kThreads)
                  const void *__restrict__ v, void *__restrict__ o, int H,
                  int KV, int Sq, int Sk, int causal, int window, float scale,
                  int bf16) {
+  static_assert(HD % kSide == 0, "a row's 16 threads split hd evenly");
   constexpr int TM = BQ / kSide, TN = BK / kSide, TD = HD / kSide;
   constexpr int QLD = BQ + 1, KLD = BK + 1;
   extern __shared__ float smem[];
@@ -274,6 +277,7 @@ Launch pick_hd(int hd) {
   switch (hd) {
     case 32: return launch<BQ, BK, 32>;
     case 64: return launch<BQ, BK, 64>;
+    case 80: return launch<BQ, BK, 80>;
     case 128: return launch<BQ, BK, 128>;
   }
   return nullptr;

@@ -31,7 +31,9 @@
 //     its own rows; rows past Sq or Sk are zero-filled by TMA and masked;
 //   * S = Q K^T is a wgmma m64nBKk16 from shared memory, both operands
 //     K-major; a bf16 row of 64 is one 128-byte swizzle row (hd 32: a 64-
-//     byte swizzle; hd 128: two 128-byte atoms side by side);
+//     byte swizzle; hd 128: two 128-byte atoms side by side; hd 80: five
+//     32-byte atoms of 16, each one K step, so the head dim is neither
+//     padded nor read twice);
 //   * the online softmax runs on the accumulator fragments: a row lives in
 //     the 4 lanes of a quad, so its max is two xor-shuffles; m is kept in
 //     the log2 domain and p = 2^(s scale log2(e) - m) is one FMA and one
@@ -92,7 +94,10 @@ template <int BQ, int BK, int HD>
 struct Cfg {
   static constexpr int NWG = BQ / 64;              // warpgroups, 64 rows each
   static constexpr int THREADS = NWG * 128;
-  static constexpr int ATOM = HD < 64 ? HD : 64;   // bf16 per swizzle row
+  // bf16 per swizzle row: 64 (128-byte swizzle) where it divides hd, else
+  // 32 (hd 32, 64-byte swizzle), else 16 (hd 80: five 32-byte atoms)
+  static constexpr int ATOM = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  static_assert(HD % 16 == 0 && HD <= 256, "a wgmma N and K steps of 16");
   static constexpr int NATOM = HD / ATOM;
   static constexpr int SW = ATOM * 2;              // swizzle bytes
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -350,6 +355,7 @@ Launch pick_hd(int hd) {
   switch (hd) {
     case 32: return launch<BQ, BK, 32>;
     case 64: return launch<BQ, BK, 64>;
+    case 80: return launch<BQ, BK, 80>;
     case 128: return launch<BQ, BK, 128>;
   }
   return nullptr;

@@ -13,7 +13,9 @@ online-softmax attention, causal and/or sliding window, GQA through the
 KV-head index h // G, fp32 math, written in q's dtype (fp32 or bf16).
 `block_q`/`block_k` are the tiles, as in the Pallas signature (32, 64 or
 128 each).  Unlike the Pallas kernel, which asserts Sq % min(128, Sq) ==
-0, any Sq, Sk >= 1 is taken.
+0, any Sq, Sk >= 1 is taken.  The plain version takes any head dim, as
+the Pallas kernel and its oracle do; the CUDA routes take the head dims
+of `HEAD_DIMS` (80 is hubert-xlarge's 1280 / 16) and raise on another.
 
 Dispatch is fixed, by the device and then the dtype and nothing else
 (`route`); the inputs are checked first:
@@ -54,7 +56,7 @@ from . import build
 from .inverse_cdf import Counts
 from .ref import flash_attention_ref, vjp_of_plain
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)   # what the CUDA routes take
 TILES = (32, 64, 128)
 # the tiles the model path uses (prefill attention) on the fp32 route ...
 BLOCK_Q = 128
@@ -101,7 +103,7 @@ def _check(name, t, dtype, device, dims=4, contiguous=True):
                          f"{t.device}")
 
 
-def _check_args(B, H, KV, Sq, Sk, hd, k_shape, v_shape, want_k, block_q,
+def _check_args(B, H, KV, Sq, Sk, k_shape, v_shape, want_k, block_q,
                 block_k, window):
     if tuple(k_shape) != want_k or tuple(v_shape) != want_k:
         raise ValueError(f"k and v must be {list(want_k)} and equal, got "
@@ -109,8 +111,6 @@ def _check_args(B, H, KV, Sq, Sk, hd, k_shape, v_shape, want_k, block_q,
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not split into groups over "
                          f"{KV} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {hd}")
     if block_q not in TILES or block_k not in TILES:
         raise ValueError(f"block_q and block_k must be in {TILES}, got "
                          f"{block_q} and {block_k}")
@@ -118,6 +118,13 @@ def _check_args(B, H, KV, Sq, Sk, hd, k_shape, v_shape, want_k, block_q,
         raise ValueError(f"Sq and Sk must be >= 1, got {Sq} and {Sk}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _check_head_dim(hd):
+    """The kernel routes' head dims (the plain version takes any)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS} on the CUDA "
+                         f"routes, got {hd}")
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -133,7 +140,7 @@ def flash_attention(q, k, v, causal: bool = True,
         _check(name, t, q.dtype, q.device)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    _check_args(B, H, KV, Sq, Sk, hd, k.shape, v.shape, (B, KV, Sk, hd),
+    _check_args(B, H, KV, Sq, Sk, k.shape, v.shape, (B, KV, Sk, hd),
                 block_q, block_k, window)
     if route(q.dtype, q.device) == "wgmma":
         # the same kernel as the model layout, on strided views of it
@@ -170,6 +177,7 @@ def _launch(q, k, v, causal, window, block_q, block_k):
     current stream."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    _check_head_dim(hd)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernels().repro_flash_attention(
@@ -209,6 +217,7 @@ def _launch_tc(q, k, v, o, qs, ks, vs, os_, dims, causal, window, block_q,
     (`csrc/flash_attention_tc.cu`): q and o strides (b, s, kv, g), k and
     v strides (b, s, kv), in elements."""
     B, H, KV, Sq, Sk, hd = dims
+    _check_head_dim(hd)
     for name, t, st in (("q", q, qs), ("k", k, ks), ("v", v, vs),
                         ("o", o, os_)):
         _tma_ready(name, t, st)
@@ -273,7 +282,7 @@ def flash_attention_model(q, k, v, causal: bool = True,
         _check(name, t, q.dtype, q.device, dims=4, contiguous=False)
     B, S, KV, G, hd = q.shape
     if route(q.dtype, q.device) == "wgmma":
-        _check_args(B, KV * G, KV, S, S, hd, k.shape, v.shape,
+        _check_args(B, KV * G, KV, S, S, k.shape, v.shape,
                     (B, S, KV, hd), TC_BLOCK_Q, TC_BLOCK_K, window)
         return _FlashAttentionModel.apply(q, k, v, causal, window,
                                           TC_BLOCK_Q, TC_BLOCK_K)

@@ -8,7 +8,10 @@ Counterpart of `examples/train_sagips_gan.py` with its `vmap` backend:
         --preset reduced --ranks 4 --epochs 12 --events 2000
 
 R = --ranks ranks in groups of --inner (GPUs a node, Tab. I) are stacked
-on one device (CUDA unless `--device cpu`).  `--preset reduced` (the
+on one device (CUDA unless `--device cpu`).  --problem is any of the five
+registered problems; the image-valued ones (imaging, imaging_blur) train
+the conv generator at the JAX package's image batch shape and capped
+generator step (`configs.sagips_gan.for_problem`).  `--preset reduced` (the
 default) is `configs.sagips_gan.REDUCED`, the JAX example's settings (64
 samples x 25 events a rank, gen lr 2e-4, disc lr 5e-4, h 50); `--preset
 paper` is Tab. III (`PAPER`: 1024 x 100 events, lr 1e-5 / 1e-4, h 1000).
@@ -22,8 +25,8 @@ The exchange schedules other than `sync` (--sync-schedule, --staleness,
 --gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3,
 and `--backend proc` is item 7: they raise.  The run ends with the
 ensemble against the truth, the serving-path solve (`core.workflow
-.make_solver`) on the reference events, and the inverse-CDF sampler's
-(B1) launches and plain calls.
+.make_solver`) on the reference events, and the kernels' launches and
+plain calls.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.core import gan, workflow
 from repro_torch.core.ensemble import ensemble_response
 from repro_torch.core.sync import MODES, SCHEDULE_ITEM
 from repro_torch.kernels import build
+from repro_torch.kernels.imaging import blur_counts, mask_counts
 from repro_torch.kernels.inverse_cdf import counts as icdf_counts
 from repro_torch.problems import available, get_problem
 
@@ -54,9 +58,14 @@ def report_final(problem, gen_stack, data, device):
     p_hat, sigma = ensemble_response(gen_stack, noise)
     truth = problem.true_params(device)
     print("\nfinal ensemble prediction vs truth:")
-    for i in range(problem.n_params):
-        print(f"  p{i}: {float(p_hat[i]):.4f} ± {float(sigma[i]):.4f} "
-              f"(truth {float(truth[i]):.4f})")
+    if problem.param_shape is not None:     # an image: a summary, not 1024
+        print(f"  {problem.n_params} pixels: mean|p̂ - truth| "
+              f"{float((p_hat - truth).abs().mean()):.4f}, mean σ "
+              f"{float(sigma.mean()):.4f}")
+    else:
+        for i in range(problem.n_params):
+            print(f"  p{i}: {float(p_hat[i]):.4f} ± {float(sigma[i]):.4f} "
+                  f"(truth {float(truth[i]):.4f})")
     cfg = workflow.SolveConfig()
     R = next(gan.leaves(gen_stack)).shape[0]
     solve = workflow.make_solver(problem, cfg,
@@ -142,8 +151,9 @@ def main(argv=None):
         ap.error(f"--ranks {args.ranks} must be divisible by --inner "
                  f"{n_inner}")
     n_outer = args.ranks // n_inner
-    if dev.type == "cuda":          # the kernel's first-use build
-        build.build_all(("inverse_cdf",))
+    if dev.type == "cuda":          # the kernels' first-use build
+        build.build_all(("inverse_cdf", "imaging")
+                        if problem.param_shape else ("inverse_cdf",))
     data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), args.events, device=dev)
     print(f"problem={args.problem} ({problem.n_params} params -> "
@@ -169,7 +179,8 @@ def main(argv=None):
                   f"{float(metrics['d_loss'].mean()):.3f}  g_loss="
                   f"{float(metrics['g_loss'].mean()):.3f}  "
                   f"({time.time() - t0:.0f}s)", flush=True)
-    icdf_counts.reset()
+    for c in (icdf_counts, mask_counts, blur_counts):
+        c.reset()
     state, _ = workflow.train_stacked(
         args.seed, wcfg, n_outer, n_inner, args.epochs, data,
         checkpoint_every=args.ckpt_every if args.checkpoint_dir else 0,
@@ -179,6 +190,13 @@ def main(argv=None):
     print(f"inverse-CDF sampler (B1): {c.launches} kernel launches, "
           f"{c.plain_calls} plain calls, {c.backward_plain} backward passes "
           f"(closed form in PyTorch)")
+    if problem.param_shape is not None:
+        m, b = mask_counts, blur_counts
+        print(f"mask (B2): {m.launches} kernel launches, {m.plain_calls} "
+              f"plain calls, {m.backward_plain} backward passes in PyTorch; "
+              f"blur (B3): {b.launches} kernel launches, {b.plain_calls} "
+              f"plain calls, {b.backward_launches + b.backward_plain} "
+              f"backward passes (the blur itself)")
     report_final(problem, state["gen"], data, dev)
     return state
 

@@ -19,9 +19,11 @@ in that order (NHWC), as `repro/models/convgen.py` (line 134) reshapes
 them.  Inside
 `conv_generator_apply` the activations are NCHW with the R ranks side by
 side on the channel axis, and each conv layer is ONE grouped `conv2d`
-(`groups=R`) over all ranks.  The convolution runs in full fp32: cuDNN's
-TF32 is switched off for the call (`_fp32_conv`), and the process-wide
-flag is restored after it.
+(`groups=R`) over all ranks.  The convolution runs in full fp32, forward
+and backward: cuDNN's TF32 is switched off for each call (`_fp32_conv`)
+and the process-wide flag restored after it.  Autograd runs a backward
+outside the forward's scope, so the conv is a `torch.autograd.Function`
+(`_GroupedConv`) whose backward enters the same scope.
 
 Sizing (CONV_CHANNELS = (32, 32, 16), 32x32 output): 292,545 parameters a
 rank.
@@ -83,6 +85,14 @@ def flatten(params: ConvGenerator) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def conv_weight_mask(params: ConvGenerator):
+    """Weight-only ring mask in the conv generator's structure (§V-C:
+    biases never ride the ring), as `repro.models.convgen
+    .conv_weight_mask`."""
+    return {"proj": {"w": True, "b": False},
+            "convs": [{"w": True, "b": False} for _ in params["convs"]]}
+
+
 def map_leaves(fn, params: ConvGenerator) -> ConvGenerator:
     """The same conv generator with `fn` applied to every leaf."""
     return {"proj": {k: fn(v) for k, v in params["proj"].items()},
@@ -121,6 +131,28 @@ def _fp32_conv():
                        deterministic=cudnn.deterministic, allow_tf32=False)
 
 
+class _GroupedConv(torch.autograd.Function):
+    """3x3 SAME grouped conv, `F.conv2d(x, w, b, padding=1, groups=g)`,
+    with TF32 off in the forward and in the backward (the same ATen
+    `convolution_backward` autograd would call, inside `_fp32_conv`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, groups):
+        ctx.save_for_backward(x, w)
+        ctx.groups = groups
+        with _fp32_conv():
+            return F.conv2d(x, w, b, padding=1, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _fp32_conv():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0],
+                ctx.groups, list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
 def conv_generator_apply(params: ConvGenerator, noise):
     """noise [R, M, noise_dim] through an R-rank stack -> parameter samples
     [R, M, H·W] in (0, 1), contiguous.  A single generator (no rank axis)
@@ -140,17 +172,15 @@ def conv_generator_apply(params: ConvGenerator, noise):
     # the channel axis: [M, R·c0, h0, w0], channel r·c0 + c
     x = x.reshape(R, M, h0, h0, c0).permute(1, 0, 4, 2, 3)
     x = x.reshape(M, R * c0, h0, h0)
-    with _fp32_conv():
-        for i, layer in enumerate(convs):
-            if i < UPSAMPLE_STAGES:
-                x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-            w = layer["w"]                          # [R, 3, 3, cin, cout]
-            cin, cout = w.shape[3], w.shape[4]
-            x = F.conv2d(x, w.permute(0, 4, 3, 1, 2).reshape(
-                R * cout, cin, 3, 3), layer["b"].reshape(R * cout),
-                padding=1, groups=R)
-            if i < len(convs) - 1:
-                x = F.leaky_relu(x, LEAK)
+    for i, layer in enumerate(convs):
+        if i < UPSAMPLE_STAGES:
+            x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        w = layer["w"]                              # [R, 3, 3, cin, cout]
+        cin, cout = w.shape[3], w.shape[4]
+        x = _GroupedConv.apply(x, w.permute(0, 4, 3, 1, 2).reshape(
+            R * cout, cin, 3, 3), layer["b"].reshape(R * cout), R)
+        if i < len(convs) - 1:
+            x = F.leaky_relu(x, LEAK)
     H, W = x.shape[2:]
     x = torch.sigmoid(x)                           # [M, R, H, W]
     return x.permute(1, 0, 2, 3).reshape(R, M, H * W).contiguous()

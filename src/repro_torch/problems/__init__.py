@@ -2,9 +2,19 @@
 
 Counterpart of `repro.problems`: everything the solver stack needs to know
 about a workload lives behind `InverseProblem`, and a registry maps names
-to instances.  Registered so far: `proxy1d`, the paper's 1D proxy app,
-and the imaging problems `imaging` and `imaging_blur`.  The JAX package's
-other problems (proxy2d, linear_blur) come with later slices.
+to instances.  The five problems of the JAX registry (`available()`):
+
+    proxy1d      the paper's 1D proxy app: 6 params, 2 observables
+    proxy2d      10 params, 3 observables mixed by a learned correlation
+    linear_blur  y = A x + eps: an 8-pixel source seen through a fixed
+                 4-channel Gaussian blur, logistic measurement noise
+    imaging      32x32 inpainting (the conv generator)
+    imaging_blur 32x32 compressive blur (the conv generator)
+
+The flat problems sample through one call of the inverse-CDF sampler on
+u [K, E, C]; the imaging problems through the mask or the blur and the
+sampler on the readout noise.  Each trains (`core.workflow
+.train_stacked`) and is served (`serving.SolveService`).
 """
 from __future__ import annotations
 
@@ -118,7 +128,8 @@ def available() -> Tuple[str, ...]:
 
 
 def _register_builtin():
-    from . import imaging, proxy1d  # noqa: F401  (register on import)
+    # each module registers its problem on import
+    from . import imaging, linear, proxy1d, proxy2d  # noqa: F401
 
 
 _register_builtin()

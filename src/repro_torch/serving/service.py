@@ -113,8 +113,10 @@ class Ticket:
 
 
 def _train_hint(problem, checkpoint_dir) -> str:
-    return (f"Train one with the JAX package: examples/train_sagips_gan.py "
-            f"--problem {problem.name} --checkpoint-dir {checkpoint_dir}")
+    return (f"Train one with the port: python -m repro_torch.launch.train_gan "
+            f"--problem {problem.name} --checkpoint-dir {checkpoint_dir}, or "
+            f"with the JAX package: examples/train_sagips_gan.py --problem "
+            f"{problem.name} --checkpoint-dir {checkpoint_dir}")
 
 
 def _check_stack(name, problem, gen_stack):

@@ -17,7 +17,9 @@ is shown to raise on what the kernel does not take, every wrapper's
 gradients on the card are shown to equal the CPU's, and the solve
 service, the LLM engine, the LLM trainer and the GAN trainer on the card
 are shown to launch the kernels and to agree with the CPU on the same
-inputs (the GAN trainer: B1 once an epoch, forward and backward).
+inputs (the GAN trainer: B1 once an epoch, forward and backward; every
+registered problem on its kernels, with the conv generator's backward in
+full fp32).  Flash attention is held at head dim 80 on both routes.
 """
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from repro_torch.kernels.ref import (blur2d_ref, flash_attention_ref,
                                      ssd_chunked_ref, ssd_scan_ref)
 from repro_torch.models import model as M
 from repro_torch.problems import get_problem
+from repro_torch.problems.imaging import SIGMA as IMAGING_SIGMA
 from repro_torch.serving import SolveService, generate
 from repro_torch.training import trainer as T
 
@@ -73,7 +76,8 @@ def _inputs(shape, udtype, pdtype, dev, seed=0):
 @pytest.mark.parametrize("shape", [(2048, 64, 2), (1000, 77, 1), (3, 5, 2),
                                    (257, 130, 2), (8192, 100, 2),
                                    (2048, 64, 1), (8192, 100, 1),
-                                   (300, 7, 3), (64, 100, 5), (5, 1, 1)])
+                                   (300, 7, 3), (64, 100, 5), (5, 1, 1),
+                                   (8192, 100, 3), (8192, 100, 4)])
 def test_kernel_matches_plain(sm90_card, shape, udtype, pdtype):
     u, mu, s, k = _inputs(shape, udtype, pdtype, sm90_card)
     before = counts.launches
@@ -116,6 +120,22 @@ def test_kernel_two_dim_entry_and_clamp(sm90_card):
     ref = inverse_cdf_ref(u, mu, s, k)
     assert torch.isnan(y[0, -1])
     torch.testing.assert_close(y[:, :-1], ref[:, :-1], **FP32)
+
+
+def test_kernel_at_the_imaging_readout(sm90_card):
+    """The imaging readout's call in training: the 2-D entry on the noise
+    channel of u [512, 32, 2] (8 ranks x 64 samples, 32 events), mu = k =
+    0 and s = SIGMA, one launch."""
+    g = torch.Generator().manual_seed(512)
+    u = torch.rand((512, 32, 2), generator=g).to(sm90_card)[..., 1]
+    u = u.contiguous()
+    zeros = torch.zeros(512, device=sm90_card)
+    s = torch.full((512,), IMAGING_SIGMA, device=sm90_card)
+    before = counts.launches
+    y = inverse_cdf(u, zeros, s, zeros)
+    torch.cuda.synchronize()
+    assert counts.launches == before + 1
+    torch.testing.assert_close(y, inverse_cdf_ref(u, zeros, s, zeros), **FP32)
 
 
 def test_kernel_wrapper_raises(sm90_card):
@@ -181,8 +201,8 @@ def test_solver_draws_are_device_independent(sm90_card):
 
 @pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,P", [(2048, 1024), (1, 32), (7, 100), (300, 128),
-                                 (257, 130)])
+@pytest.mark.parametrize("K,P", [(2048, 1024), (512, 1024), (1, 32), (7, 100),
+                                 (300, 128), (257, 130)])
 def test_mask_kernel_matches_plain_bitwise(sm90_card, K, P, dtype, mdtype):
     g = torch.Generator().manual_seed(K + P)
     x = torch.randn((K, P), generator=g).to(sm90_card, dtype)
@@ -218,7 +238,8 @@ def _blur_sweep(x, K, H, W, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,H,W", [(2048, 32, 32), (1, 8, 8), (5, 32, 32),
+@pytest.mark.parametrize("K,H,W", [(2048, 32, 32), (512, 32, 32), (1, 8, 8),
+                                   (5, 32, 32),
                                    (20, 16, 24), (3, 1, 5), (33, 64, 48),
                                    (2, 128, 128), (2, 256, 256),
                                    (16, 256, 256), (3, 130, 77), (1, 1, 300),
@@ -322,10 +343,12 @@ def _qkv(B, H, KV, S, hd, dtype, dev, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask", list(MASKS))
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_flash_kernel_matches_plain(sm90_card, G, hd, mask, dtype):
-    """Ragged lengths 1, 100 and 1000, each at another pair of tiles."""
+    """Ragged lengths 1, 100 and 1000, each at another pair of tiles; hd
+    80 is hubert-xlarge's (1280 / 16): 80 / 16 columns a thread on the
+    fp32 route, five 32-byte swizzle atoms on the bf16 one."""
     causal, window = MASKS[mask]
     for n, S in enumerate((1, 100, 1000)):
         bq, bk = TILES[(G + hd + 3 * n + len(mask)) % len(TILES)]
@@ -609,6 +632,12 @@ def _grad_cases(dev):
                                     .float()], mask_counts),
         "blur2d": (blur2d, [torch.randn(3, 8, 12, generator=g)],
                    blur_counts),
+        # imaging training's shapes: 8 ranks x 64 images
+        "mask_apply@train": (mask_apply, [
+            torch.randn(512, 1024, generator=g),
+            (torch.rand(1024, generator=g) > 0.4).float()], mask_counts),
+        "blur2d@train": (blur2d, [torch.randn(512, 32, 32, generator=g)],
+                         blur_counts),
         "flash_attention": (lambda *a: fa.flash_attention_model(
             *a, window=16), [q] + kv, fa.counts),
         "ssd_scan": (lambda *a: ssd.ssd_scan(*a, chunk=16),
@@ -617,10 +646,12 @@ def _grad_cases(dev):
 
 
 @pytest.mark.parametrize("name", ["inverse_cdf", "mask_apply", "blur2d",
-                                  "flash_attention", "ssd_scan"])
+                                  "flash_attention", "ssd_scan",
+                                  "mask_apply@train", "blur2d@train"])
 def test_gradients_on_the_card_equal_the_cpus(sm90_card, name):
-    """The backward on the card against the CPU's for each wrapper; the
-    blur's backward launches the blur kernel once."""
+    """The backward on the card against the CPU's for each wrapper, B2
+    and B3 also at imaging training's shapes; the blur's backward
+    launches the blur kernel once."""
     fn, inputs, cnt = _grad_cases(sm90_card)[name]
     w = torch.randn(fn(*inputs).shape, generator=torch.Generator()
                     .manual_seed(4))
@@ -635,8 +666,9 @@ def test_gradients_on_the_card_equal_the_cpus(sm90_card, name):
         grads[str(dev)] = [x.grad.cpu() for x in xs]
         if dev != "cpu":
             assert (cnt.launches, cnt.plain_calls) == (1, 0)
-            assert cnt.backward_launches == (1 if name == "blur2d" else 0)
-            assert cnt.backward_plain == (0 if name == "blur2d" else 1)
+            blur = name.startswith("blur2d")
+            assert cnt.backward_launches == (1 if blur else 0)
+            assert cnt.backward_plain == (0 if blur else 1)
     tol = dict(rtol=1e-4, atol=1e-4) if name == "ssd_scan" else FP32
     for a, b in zip(grads[str(sm90_card)], grads["cpu"]):
         torch.testing.assert_close(a, b, **tol)
@@ -742,6 +774,66 @@ def test_gan_training_launches_b1_once_an_epoch(sm90_card):
         (3, 0, 3)
     assert bool(torch.isfinite(hist["d_loss"]).all())
     assert state["gen"][0]["w"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", ["proxy2d", "linear_blur", "imaging",
+                                  "imaging_blur"])
+def test_every_problem_trains_on_its_kernels(sm90_card, name):
+    """3 epochs of each problem at smoke sizes: the forward model's
+    kernels launch once an epoch and nothing takes a plain version; B1's
+    backward once an epoch for the flat problems (none for the imaging
+    readout's noise, whose parameters are constants), B2's backward in
+    PyTorch and B3's as one B3 launch."""
+    import dataclasses
+    from repro_torch.configs.sagips_gan import REDUCED, for_problem
+    from repro_torch.core import workflow as W
+    wcfg = dataclasses.replace(for_problem(name, REDUCED),
+                               n_param_samples=8, events_per_sample=16)
+    data = get_problem(name).make_reference_data(
+        torch.Generator().manual_seed(99), 1_000, device=sm90_card)
+    for c in (counts, mask_counts, blur_counts):
+        c.reset()
+    state, hist = W.train_stacked(0, wcfg, 2, 2, 3, data, device=sm90_card)
+    torch.cuda.synchronize()
+    image = name.startswith("imaging")
+    assert (counts.launches, counts.plain_calls, counts.backward_plain) == \
+        (3, 0, 0 if image else 3)
+    assert (mask_counts.launches, mask_counts.plain_calls,
+            mask_counts.backward_plain) == \
+        ((3, 0, 3) if name == "imaging" else (0, 0, 0))
+    assert (blur_counts.launches, blur_counts.plain_calls,
+            blur_counts.backward_launches) == \
+        ((3, 0, 3) if name == "imaging_blur" else (0, 0, 0))
+    assert bool(torch.isfinite(hist["d_loss"]).all())
+
+
+def test_conv_generator_backward_is_fp32(sm90_card):
+    """With cuDNN's TF32 on for the process, the conv generator's
+    gradients on the card stay within 1e-5 in relative norm of a float64
+    CPU reference (TF32 keeps ~3 digits, ~1e-3): the backward's convs run
+    in full fp32, like the forward's, and the flag is unchanged after."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import convgen
+    g = torch.Generator().manual_seed(4)
+    gen = convgen.init_conv_generator(g, (32, 32), gan.NOISE_DIM, ranks=2,
+                                      device="cpu")
+    noise = torch.randn((2, 16, gan.NOISE_DIM), generator=g)
+    cot = torch.randn((2, 16, 1024), generator=g)
+    grads = {}
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev, dt in ((sm90_card, torch.float32), ("cpu", torch.float64)):
+            p = tree_map(lambda t: t.to(dev, dt).requires_grad_(), gen)
+            out = convgen.conv_generator_apply(p, noise.to(dev, dt))
+            grads[str(dev)] = torch.autograd.grad(out, tree_leaves(p),
+                                                  cot.to(dev, dt))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    for a, b in zip(grads[str(sm90_card)], grads["cpu"]):
+        a = a.double().cpu()
+        assert float((a - b).norm() / b.norm()) < 1e-5
 
 
 def test_gan_step_with_cpu_uniforms_raises_on_the_card(sm90_card):

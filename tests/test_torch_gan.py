@@ -399,9 +399,12 @@ def test_workflow_features_raise_with_their_item():
     img = sagips_gan.for_problem("imaging")
     assert (img.n_param_samples, img.events_per_sample, img.gen_lr) == \
         (64, 32, 5e-5)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        workflow.init_run(torch.Generator(), 2, img, torch.zeros(10, 15),
-                          "cpu")
+    # imaging trains the conv generator (queue A item 5, done)
+    state, per_rank = workflow.init_run(torch.Generator(), 2, img,
+                                        torch.zeros(10, 15), "cpu")
+    assert set(state["gen"]) == {"proj", "convs"}
+    assert state["gen"]["convs"][0]["w"].shape == (2, 3, 3, 32, 32)
+    assert per_rank.shape == (2, 5, 15)
     with pytest.raises(KeyError, match="registered"):
         sagips_gan.for_problem("no_such_problem")
 

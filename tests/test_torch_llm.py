@@ -9,8 +9,9 @@ non-unit norm weights so that every parameter counts):
                   in interpret mode and its `kernels/ref.py` oracle on
                   tests/test_kernels.py's sweep (fp32 rtol 1e-4 / atol
                   1e-5, bf16 2e-2); the model-layout adapter against
-                  `kernels.ops.flash_attention`; ragged S and a window
-                  smaller than any tile against the oracle
+                  `kernels.ops.flash_attention`; ragged S, a window
+                  smaller than any tile and head dims 16 and 80 against
+                  the oracle
   layers          rms_norm, apply_rope, qkv_project (qkv_bias, qk_norm),
                   run_mlp, attention_decode at fp32 1e-4 / 1e-5
   model           forward and prefill logits and KV cache (attn_impl
@@ -186,12 +187,26 @@ def test_flash_plain_ragged_and_narrow_window(Sq, Sk, causal, window):
                                                       window))
 
 
+@pytest.mark.parametrize("hd", [16, 80])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)])
+def test_flash_plain_takes_any_head_dim(hd, causal, window):
+    """Head dims outside the kernels' (16) and hubert-xlarge's 80 against
+    the Pallas kernel in interpret mode and the JAX oracle, fp32 rtol
+    1e-4 / atol 1e-5: the plain version takes any hd, as they do."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 4, 2, 128, hd, torch.float32,
+                                   seed=hd)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert o.shape == q.shape
+    _close(o, jax_flash(jq, jk, jv, causal=causal, window=window,
+                        interpret=True), FP32)
+    _close(o, jax_ref.flash_attention_ref(jq, jk, jv, causal, window), FP32)
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     (_, _, _), (q, k, v) = _qkv(1, 4, 2, 16, 32, torch.float32)
     before = (fa.counts.launches, fa.counts.plain_calls)
     bad = [
-        (dict(q=q[..., :16].contiguous(), k=k[..., :16].contiguous(),
-              v=v[..., :16].contiguous()), ValueError, "head_dim"),
         (dict(q=q.half(), k=k.half(), v=v.half()), TypeError, "float32"),
         (dict(q=q, k=k.bfloat16(), v=v), TypeError, "share a dtype"),
         (dict(q=q.transpose(2, 3), k=k, v=v), ValueError, "contiguous"),
@@ -207,6 +222,13 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
         with pytest.raises(err, match=match):
             fa.flash_attention(**kwargs)
     assert (fa.counts.launches, fa.counts.plain_calls) == before
+    # a head dim no kernel takes computes on the plain version (the CUDA
+    # routes raise on it: tests/test_torch_cuda.py)
+    q16, k16, v16 = (t[..., :16].contiguous() for t in (q, k, v))
+    o = fa.flash_attention(q16, k16, v16)
+    assert (fa.counts.launches, fa.counts.plain_calls) == (before[0],
+                                                           before[1] + 1)
+    torch.testing.assert_close(o, flash_attention_ref(q16, k16, v16))
 
 
 # ----------------------------------------------------------------------------

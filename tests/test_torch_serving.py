@@ -170,7 +170,8 @@ def test_sample_events_matches_jax(K, E, impl):
 
 def test_problem_constants_match_jax():
     prob, jprob = get_problem("proxy1d"), jax_get_problem("proxy1d")
-    assert available() == ("imaging", "imaging_blur", "proxy1d")
+    assert available() == ("imaging", "imaging_blur", "linear_blur",
+                           "proxy1d", "proxy2d")
     for attr in ("n_params", "obs_dim", "noise_channels",
                  "events_per_sample", "solve_threshold", "param_shape"):
         assert getattr(prob, attr) == getattr(jprob, attr), attr
