@@ -51,16 +51,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
      both routes (bf16: the tensor-core kernel `flash_attention_tc.cu`;
      fp32: the FMA kernel `flash_attention.cu`): at tinyllama-1.1b's
      prefill shape (q [8, 32, 1024, 64], k/v [8, 4, 1024, 64]) in bf16
-     and fp32 at each route's model-path tiles, the prefill's own call
-     (`flash_attention_model` on the model layout [8, 1024, 4, 8, 64],
-     bf16, whose error the kernels line reports), and over a sweep of GQA
-     groups (1, 4, 8), head dims (32, 64, 80 (hubert-xlarge's), 128),
-     masks (causal, full, window 64 and 256), ragged lengths (1, 100,
-     1000) and tiles (block_q, block_k in 32, 64, 128), at fp32 rtol
-     1e-4 / atol 1e-5 and bf16 2e-2; in fp32 every pair of tiles within
-     rtol 1e-5 / atol 1e-6 of the first, in bf16 within 2e-2; each dtype
-     counted under its route; the bf16 route's strided model layout (q,
-     k, v as views of one fused projection) against the plain version;
+     and fp32 at each route's model-path tiles, each main path's own call
+     (`flash_attention_model` on the model layout [B, S, KV, G, hd], bf16,
+     the wgmma route: tinyllama-1.1b's prefill [8, 1024, 4, 8, 64],
+     qwen2-moe-a2.7b's prefill [8, 1024, 16, 1, 128], granite-moe-3b-a800m's
+     training step [8, 256, 8, 3, 64]; the largest error is the kernels
+     line's), and over a sweep of GQA
+     groups (1, 3 (granite-moe-3b-a800m's), 4, 8), head dims (32, 64, 80
+     (hubert-xlarge's), 128), masks (causal, full, window 64 and 256),
+     ragged lengths (1, 100, 1000) and tiles (block_q, block_k in 32,
+     64, 128), at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; in fp32
+     every pair of tiles within rtol 1e-5 / atol 1e-6 of the first, in
+     bf16 within 2e-2; each dtype counted under its route; the bf16
+     route's strided model layout (q, k, v as views of one fused
+     projection) against the plain version;
  12. time B4 at the prefill shape in bf16 as in phase 4: the prefill's
      call checked in phase 11 (the kernels line's time), the same kernel
      in the [B, H, S, hd] layout, its plain version, `scaled_dot_product_attention` (causal, GQA;
@@ -137,7 +141,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  23. one epoch on the card and on the CPU from the same state (a non-zero
      RMA mailbox) and draws, full width, REDUCED batch sizes, 4 ranks as
      2 x 2, h 1, fp32, TF32 off, in both ring modes: losses at rtol 1e-5,
-     every generator gradient leaf within 1e-3 in relative norm, the
+     every generator gradient leaf within 1e-5 in relative norm against
+     the CPU's computed at the card's Leaky ReLU signs, as phase 27 (the
+     gap without pinning and the number of flips are reported), the
      CPU's exchange of the card's gradients bitwise the card's, and the
      card's new generator and Adam state against the CPU's optimizer
      applied to the card's synced gradients at rtol 1e-6 / atol 1e-9;
@@ -168,8 +174,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      near-zero truth pixel keeps it O(1) by design);
  27. one epoch on the card and on the CPU for proxy2d, linear_blur and
      imaging as phase 23 (full width, REDUCED batch sizes, 4 ranks as
-     2 x 2, h 1, fp32, TF32 off, both ring modes), with phase 23's bars,
-     but the generator's gradient leaves held at 1e-5 in relative norm
+     2 x 2, h 1, fp32, TF32 off, both ring modes), with phase 23's bars:
+     the generator's gradient leaves held at 1e-5 in relative norm
      against the CPU's computed at the card's Leaky ReLU signs: a
      pre-activation within rounding of 0 that takes the other sign on
      the CPU moves an upstream leaf by up to ~5e-3 (see
@@ -178,7 +184,55 @@ Phases, each reported on its own lines; any failure exits non-zero:
  28. profile 5 imaging epochs at `for_problem("imaging", PAPER)`: the
      card's busy share, its time by kernel (cuDNN's grouped conv forward
      and backward, GEMMs, B1-B3, the exchange's rolls, the rest), device
-     ops an epoch.
+     ops an epoch;
+ 29. the MoE layer (`models.moe.run_moe`) on the card and on the CPU at
+     qwen2-moe-a2.7b's widths (D 2048, 60 experts of 1408, 4 shared,
+     top-4) and granite-moe-3b-a800m's (D 1536, 40 experts of 512,
+     top-8), T 512, fp32, TF32 off, once at the default capacity and once
+     with drops forced by a router biased towards experts 0 and 2: y on
+     the card and on the CPU each within rtol 1e-4 and atol 1e-5 x max |y|
+     of the layer's float64 run (its sums run over 2048 to 5632 terms:
+     fp32 missed float64 by up to 1.6e-5 where |y| reaches 13, ~1e-5 of
+     the output's scale, on an NVIDIA H100 80GB HBM3 at 700 W and on its
+     host's CPU alike; card against CPU, which adds both errors, is
+     reported), aux card against CPU at rtol 1e-6, the same drops, the
+     card's top-k choices the CPU's (where they differ, the CPU's gap
+     between its k-th and (k+1)-th probability must be under 1e-6, and
+     the CPU runs again at the card's choices, as Leaky ReLU signs are
+     pinned in phase 27); the same layer on the card with TF32 matmuls
+     and in bf16, at the card's fp32 choices, must fail y's bar (its
+     readings printed); then two bf16 runs on the card bitwise equal;
+ 30. serve qwen2-moe-a2.7b at full size (24 layers, d_model 2048, bf16,
+     14.0 B parameters, random weights from a seed) through
+     `serving.engine.generate`: batch 8, prompt 1024, 64 greedy tokens
+     after an uncounted warm-up; 24 B4 launches a prefill (head dim 128,
+     GQA group 1), all on the bf16 route, and no plain call; prefill ms,
+     decode ms a step p50/p99, tok/s, peak memory, the (token, expert)
+     assignments dropped by capacity, and the bounds: the prefill's
+     operations at the bf16 peak, a decode step's weight and KV-cache
+     reads at the memory rate;
+ 31. qwen2-moe-a2.7b at full width, depth 2, fp32 (TF32 off), batch 1,
+     prompt 256, 8 greedy tokens, on the card and on the CPU with the same
+     weights: logits within 1e-3, token ids equal unless the CPU's top-2
+     gap is below 1e-4, routing pinned as in phase 29;
+ 32. train granite-moe-3b-a800m at full size (32 layers, d_model 1536,
+     bf16, 3.3 B parameters, random weights from a seed) through
+     `training.Trainer` (its donating step) at the `launch/train`
+     defaults: batch 8, seq 256, lr 3e-4, warmup 11, MOE_TRAIN_STEPS
+     steps after an uncounted forward and backward; 64 B4 launches a step
+     (32 layers, forward and remat recompute), all on the bf16 route, 32
+     backward passes through the plain VJP, no plain call; every loss
+     finite, and the loss of 4 held-out batches lower after training than
+     before; step p50/p99, tokens/s, peak memory, the aux loss, the drops;
+     then profile 3 steps: the card's busy share and the shares of the
+     expert GEMMs, the routing and dispatch (sort, scatter, gather,
+     forward and backward) and B4;
+ 33. one granite-moe-3b-a800m training step on the card and on the CPU as
+     phase 20 (full width, depth 2, fp32, TF32 off, batch 1, seq 256):
+     the loss at rtol 1e-5, every gradient leaf (the router's included)
+     within 1e-3 in relative norm, the card's new parameters against the
+     CPU's optimizer on the card's gradients at rtol 1e-6 / atol 1e-9,
+     routing pinned as in phase 29.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -246,7 +300,7 @@ TRAIN_ARCH = "mamba2-130m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 50
 MAMBA_PARAMS = 128_983_488
 CARD_VS_CPU_STEPS = (("mamba2-130m", 1, 1024), ("tinyllama-1.1b", 1, 256))
-HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phase 19's loss check
+HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phases 19, 32: loss check
 STEP_LOSS_RTOL = 1e-5           # phase 20, card against CPU (fp32)
 STEP_GRAD_REL = 1e-3            # each gradient leaf, in relative norm
 KINK_GRAD_REL = 1e-5            # phase 27: ... with the CPU at the card's
@@ -263,6 +317,19 @@ PROBLEMS_TRAINED = ("proxy2d", "linear_blur", "imaging", "imaging_blur")
 # phase 26: the kernel each problem's forward model runs beside B1
 TRAINED_FORWARD = {"proxy2d": None, "linear_blur": None,
                    "imaging": "mask_apply", "imaging_blur": "blur2d"}
+MOE_SERVE_ARCH = "qwen2-moe-a2.7b"       # phases 29-31
+MOE_SERVE_SIZE = (24, 2048)              # its layers and d_model
+MOE_TRAIN_ARCH = "granite-moe-3b-a800m"  # phases 29, 32, 33
+MOE_TRAIN_SIZE = (32, 1536)
+MOE_LAYER_T = 512               # phase 29's tokens
+MOE_FORCED = (0, 2)             # phase 29: experts the biased router favours
+MOE_FORCED_LOGIT = 3.0          # ... by this much on average (x's mean 0.5)
+MOE_Y = dict(rtol=1e-4, atol=1e-5)   # phase 29: y (fp32) against float64,
+                                     # atol in units of max |y|
+AUX_RTOL = 1e-6                 # phase 29, the aux loss
+ROUTE_GAP = 1e-6                # a top-k choice may differ below this gap
+MOE_TRAIN_STEPS = 50            # phase 32
+MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")  # models.moe's
 
 
 def fail(msg):
@@ -359,10 +426,11 @@ def conv_stack_arrays(leaf_shapes, ranks):
 
 def flash_phases(dev):
     """Phases 11 and 12: B4 against its plain version, then its times.
-    Returns (max |kernel - plain| of the prefill's call, the model layout
-    in bf16, and its timing)."""
+    Returns (the largest |kernel - plain| over the main paths' calls, the
+    model layout in bf16, and the timing of tinyllama-1.1b's prefill call)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -398,32 +466,57 @@ def flash_phases(dev):
               f"{S}, {hd}] {str(dtype)[6:]} causal, tiles {bq}x{bk}: "
               f"max |kernel - plain| = {err:.3e} ok")
     del prefill[torch.float32]
-    # the prefill's own call: the model layout at the bf16 route's tiles
+    # each main path's own call: the model layout [B, S, KV, G, hd] at the
+    # bf16 route's tiles, at the prefill's (served) or the step's (trained)
+    # shape; tinyllama's from the inputs above, which phase 12 times
     q, k, v = prefill[torch.bfloat16]
     qm = q.transpose(1, 2).reshape(B, S, KVh, G, hd).contiguous()
     km, vm = (x.transpose(1, 2).contiguous() for x in (k, v))
-    om = fa.flash_attention_model(qm, km, vm, True, None)
-    torch.cuda.synchronize()
-    ok, main_err = close(om, fa._plain_model(qm, km, vm, True, None), **BF16)
-    if not ok or om.dtype != qm.dtype or om.shape != qm.shape:
-        fail(f"flash_attention_model disagrees with its plain version at the "
-             f"prefill's call q{list(qm.shape)} bf16 (max {main_err:.3e})")
-    print(f"[11] flash_attention_model q{list(qm.shape)} k/v{list(km.shape)} "
-          f"bf16 causal (the prefill's call, tiles {fa.TC_BLOCK_Q}x"
-          f"{fa.TC_BLOCK_K}): max |kernel - plain| = {main_err:.3e} ok")
-    del q, k, v, om
+    del q, k, v
+    main_err = 0.0
+    for arch, (b, s) in ((LLM_ARCH, (LLM_BATCH, LLM_PROMPT)),
+                         (MOE_SERVE_ARCH, (LLM_BATCH, LLM_PROMPT)),
+                         (MOE_TRAIN_ARCH, (TRAIN_BATCH, TRAIN_SEQ))):
+        c = get_config(arch)
+        kv, d = c.num_kv_heads, c.resolved_head_dim
+        shape = (b, s, kv, c.num_heads // kv, d)
+        if arch == LLM_ARCH:
+            args = (qm, km, vm)
+        else:
+            args = tuple(torch.randn(sh, generator=g).to(dev, torch.bfloat16)
+                         for sh in (shape, (b, s, kv, d), (b, s, kv, d)))
+        if args[0].shape != shape:
+            fail(f"phase 11: {arch}'s model layout {list(shape)} is not "
+                 f"{list(args[0].shape)}")
+        fa.counts.reset()
+        om = fa.flash_attention_model(*args, True, None)
+        torch.cuda.synchronize()
+        ok, err = close(om, fa._plain_model(*args, True, None), **BF16)
+        if (not ok or om.dtype != args[0].dtype or om.shape != shape
+                or fa.counts.routes != {"fma": 0, "wgmma": 1}):
+            fail(f"flash_attention_model disagrees with its plain version at "
+                 f"{arch}'s call q{list(shape)} bf16 (max {err:.3e}, routes "
+                 f"{fa.counts.routes})")
+        main_err = max(main_err, err)
+        print(f"[11] flash_attention_model q{list(shape)} "
+              f"k/v{list(args[1].shape)} bf16 causal ({arch}'s "
+              f"{'step' if arch == MOE_TRAIN_ARCH else 'prefill'} call, "
+              f"wgmma route, tiles {fa.TC_BLOCK_Q}x{fa.TC_BLOCK_K}): max "
+              f"|kernel - plain| = {err:.3e} ok")
+        del args, om
     masks = {"causal": (True, None), "full": (False, None),
              "window64": (True, 64), "window256": (True, 256)}
     worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
     for G, d, (mname, (causal, window)), L, dtype in itertools.product(
-            (1, 4, 8), (32, 64, 80, 128), masks.items(), (1, 100, 1000),
+            (1, 3, 4, 8), (32, 64, 80, 128), masks.items(), (1, 100, 1000),
             (torch.float32, torch.bfloat16)):
         bq, bk = TILES[n % len(TILES)]
         n += 1
         _, err = check(f"G={G} hd={d} {mname} S={L} {dtype} tiles {bq}x{bk}",
                        *qkv(2, 2 * G, 2, L, d, dtype), causal, window, bq, bk)
         worst[dtype] = max(worst[dtype], err)
-    print(f"[11] flash_attention sweep: {n} cases (G 1/4/8, hd 32/64/80/128 "
+    print(f"[11] flash_attention sweep: {n} cases (G 1/3/4/8 (3: "
+          f"granite-moe-3b-a800m's), hd 32/64/80/128 "
           f"(80: hubert-xlarge's 1280 / 16), causal/full/window 64/window "
           f"256, S 1/100/1000, fp32 and bf16, all 9 tile pairs in turn) "
           f"within fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; max |kernel - "
@@ -984,10 +1077,11 @@ def train_phases(dev, all_counts):
     before = held_out_loss()
     # one warm-up step, not counted, its new state dropped: the first call
     # at these shapes compiles PyTorch's runtime kernels and grows the
-    # allocator's pool
-    trainer.step_fn(trainer.state, next(TokenStream(cfg, TRAIN_BATCH,
-                                                    TRAIN_SEQ, seed=SEED + 11,
-                                                    device=dev)))
+    # allocator's pool (a step that builds a new state: the Trainer's own
+    # step donates, and would train the state)
+    T.make_train_step(cfg, tcfg, donate=False)[0](
+        trainer.state, next(TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                        seed=SEED + 11, device=dev)))
     torch.cuda.synchronize()
     events, losses = [], []
 
@@ -1093,58 +1187,7 @@ def train_phases(dev, all_counts):
 
     # -- 20. one step on the card against the CPU, full width, depth 2 -------
     for arch, batch, seq in CARD_VS_CPU_STEPS:
-        c = get_config(arch).replace(num_layers=2, dtype="float32")
-        tc = T.TrainConfig(lr=3e-4, warmup=11, total_steps=TRAIN_STEPS)
-        small = M.init(torch.Generator().manual_seed(SEED + 8), c, "cpu")
-        data = make_batch(c, batch, seq, seed=SEED + 9, device="cpu")
-        out = {}
-        for d in ("cpu", dev):
-            state = T.train_state_from_params(
-                M.map_params(lambda t: t.to(d), small), tc)
-            loss, _, grads = T._compute_grads(
-                state["params"], {"tokens": data["tokens"].to(d)}, c, tc)
-            new, gnorm = T._apply(state, grads, tc)
-            out[str(d)] = (float(loss), M.map_params(
-                lambda t: t.float().cpu(), grads), M.map_params(
-                lambda t: t.float().cpu(), new["params"]), float(gnorm))
-            del state, grads, new
-        (lc, gc, pc, nc), (lg, gg, pg, ng) = out["cpu"], out[str(dev)]
-        grad_rel = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
-                       for a, b in zip(M.leaves(gg), M.leaves(gc)))
-        # the card's update against the CPU's optimizer arithmetic on the
-        # card's own gradients: every entry, no exceptions
-        want, _ = T._apply(T.train_state_from_params(small, tc), gg, tc)
-        update_err = max(float((a - b).abs().max()) for a, b in
-                         zip(M.leaves(pg), M.leaves(want["params"])))
-        update_ok = all(torch.allclose(a, b, **UPDATE_TOL) for a, b in
-                        zip(M.leaves(pg), M.leaves(want["params"])))
-        # card against CPU end to end: Adam's first step moves an entry by
-        # lr_t g/(|g| + eps), so where |g| is near eps (1e-8) the gradients'
-        # last bits move it by up to lr_t; reported, not held
-        lr_t = tc.lr / tc.warmup
-        diffs = [(a - b).abs() for a, b in zip(M.leaves(pg), M.leaves(pc))]
-        end_err = max(float(d.max()) for d in diffs)
-        n_far = sum(int((d > 0.01 * lr_t).sum()) for d in diffs)
-        n_all = sum(d.numel() for d in diffs)
-        if abs(lg - lc) > STEP_LOSS_RTOL * abs(lc) \
-                or grad_rel > STEP_GRAD_REL or not update_ok:
-            fail(f"phase 20 {arch}: loss card {lg} CPU {lc}, worst gradient "
-                 f"leaf off by {grad_rel:.3e} in relative norm, the card's "
-                 f"update off the CPU's arithmetic by {update_err:.3e} (bars "
-                 f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL})")
-        print(f"[20] {arch} full width, depth 2, fp32, TF32 off, batch "
-              f"{batch}, seq {seq}: one step card vs CPU from the same "
-              f"weights and batch: loss {lg:.6f} vs {lc:.6f} (rel "
-              f"{abs(lg - lc) / abs(lc):.2e} <= {STEP_LOSS_RTOL}), grad norm "
-              f"{ng:.6f} vs {nc:.6f}, worst gradient leaf {grad_rel:.3e} in "
-              f"relative norm (<= {STEP_GRAD_REL}) over {len(diffs)} leaves; "
-              f"the card's new parameters against the CPU's optimizer on the "
-              f"card's gradients: max |diff| {update_err:.3e} (rtol "
-              f"{UPDATE_TOL['rtol']}, atol {UPDATE_TOL['atol']}, every "
-              f"entry); against the CPU's own step: max |diff| "
-              f"{end_err:.3e}, {n_far} of {n_all} entries above 0.01 lr_t "
-              f"({0.01 * lr_t:.2e})")
-        del small, out
+        step_card_vs_cpu("20", dev, arch, batch, seq)
 
     # -- 21. serve mamba2-130m -----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1187,6 +1230,575 @@ def train_phases(dev, all_counts):
     return launches
 
 
+def routing_diff(card, cpu, label):
+    """Compare the top-k choices that two `models.moe.Tap`s recorded
+    (their `routes`) call by call:
+    (rows whose expert sets differ, the smallest of the CPU's gaps between
+    its k-th and (k+1)-th probability on those rows, or None).  Fails
+    unless every such gap is below ROUTE_GAP."""
+    import torch
+    if len(card) != len(cpu):
+        fail(f"{label}: {len(card)} router calls on the card, {len(cpu)} on "
+             f"the CPU")
+    n, gaps = 0, []
+    for (_, ig), (pc, ic) in zip(card, cpu):
+        k = ic.shape[-1]
+        diff = (torch.sort(ig, -1).values != torch.sort(ic, -1).values
+                ).any(-1)
+        if bool(diff.any()):
+            top = torch.topk(pc[diff], k + 1, dim=-1).values
+            gaps += (top[:, k - 1] - top[:, k]).tolist()
+            n += int(diff.sum())
+    if gaps and max(gaps) >= ROUTE_GAP:
+        fail(f"{label}: the card's top-k choices differ from the CPU's in "
+             f"{n} rows, at a CPU gap of up to {max(gaps):.3e} (>= "
+             f"{ROUTE_GAP})")
+    return n, (min(gaps) if gaps else None)
+
+
+def moe_flops(cfg, B, S, last_only=True):
+    """The operations of one prefill of B x S tokens, by part (2 per
+    multiply-add): the expert buffers as run (E x C rows each), the shared
+    experts, the projections and router, causal attention, the LM head
+    (the last position's logits only)."""
+    from repro_torch.models.moe import moe_capacity
+    T, D, L = B * S, cfg.d_model, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    F, E = cfg.moe_d_ff, cfg.num_experts
+    C = moe_capacity(T, cfg)
+    return {
+        "experts": L * 6 * E * C * D * F,
+        "shared experts": L * 6 * T * D * F * cfg.num_shared_experts,
+        "projections and router": L * 2 * T * D * (2 * H * hd + 2 * KV * hd
+                                                    + E),
+        "attention": L * 4 * B * H * hd * (S * (S + 1) // 2),
+        "LM head": 2 * (B if last_only else T) * D * cfg.vocab_size}
+
+
+def moe_phases(dev, all_counts):
+    """Phases 29-33: the MoE layer card against CPU, qwen2-moe-a2.7b
+    served at full size and held against the CPU at full width, depth 2,
+    granite-moe-3b-a800m trained at full size and one of its steps held
+    against the CPU.  Returns B4's launches over the counted runs of
+    phases 30 and 32."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving import generate
+    from repro_torch.training import trainer as T
+
+    # -- 29. the MoE layer, card against CPU ---------------------------------
+    for arch in (MOE_SERVE_ARCH, MOE_TRAIN_ARCH):
+        cfg = get_config(arch).replace(dtype="float32")
+        g = torch.Generator().manual_seed(SEED + 29)
+        p = moe.init_moe(g, cfg, torch.float32, "cpu")
+        x = torch.randn((1, MOE_LAYER_T, cfg.d_model), generator=g)
+        forced = dict(p, router=p["router"].clone())
+        forced["router"][:, list(MOE_FORCED)] += MOE_FORCED_LOGIT / (
+            0.5 * cfg.d_model)
+
+        def run(d, params, xs, choices=None):
+            tap = moe.Tap(record=True, choices=choices)
+            y, aux = moe.run_moe(M.map_params(lambda t: t.to(d), params),
+                                 xs.to(d), cfg, tap)
+            return (y.cpu(), float(aux), tap.dropped), tap.routes
+        for case, params, xs in (("default capacity", p, x),
+                                 ("drops forced", forced, x + 0.5)):
+            (yg, ag, dg), rec_g = run(dev, params, xs)
+            (yc, ac, dc), rec_c = run("cpu", params, xs)
+            n_diff, gap = routing_diff(rec_g, rec_c, f"phase 29 {arch}")
+            card_choices = [i for _, i in rec_g]
+            if n_diff:
+                (yc, ac, dc), _ = run("cpu", params, xs, card_choices)
+            # the exact answer: float64 on the CPU at the card's choices
+            (y64, _, _), _ = run("cpu", M.map_params(torch.Tensor.double,
+                                                     params),
+                                 xs.double(), card_choices)
+            scale = float(y64.abs().max())
+            tol = dict(rtol=MOE_Y["rtol"], atol=MOE_Y["atol"] * scale)
+            ok, err = close(yg, y64, **tol)
+            ok_c, err_c = close(yc, y64, **tol)
+            aux_rel = abs(ag - ac) / abs(ac)
+            if not ok or not ok_c or aux_rel > AUX_RTOL or dg != dc \
+                    or (case == "drops forced" and dg == 0):
+                fail(f"phase 29 {arch} {case}: y off the float64 run's by "
+                     f"{err:.3e} on the card, {err_c:.3e} on the CPU "
+                     f"({tol}), aux card vs CPU by {aux_rel:.3e} (rel, "
+                     f"{AUX_RTOL}), drops {dg} on the card, {dc} on the CPU")
+            C = moe.moe_capacity(MOE_LAYER_T, cfg)
+            print(f"[29] {arch} MoE layer (D {cfg.d_model}, {cfg.num_experts}"
+                  f" experts of {cfg.moe_d_ff}, {cfg.num_shared_experts} "
+                  f"shared, top-{cfg.top_k}), T {MOE_LAYER_T}, C {C}, fp32, "
+                  f"TF32 off, {case}: {dg} of {MOE_LAYER_T * cfg.top_k} "
+                  f"assignments dropped on both; y against float64 max "
+                  f"|diff| {err:.3e} on the card, {err_c:.3e} on the CPU "
+                  f"(rtol {MOE_Y['rtol']}, atol {MOE_Y['atol']} x max |y| "
+                  f"{scale:.3f}), card vs CPU "
+                  f"{float((yg - yc).abs().max()):.3e} (reported); aux "
+                  f"{ag:.6f} vs {ac:.6f} (rel {aux_rel:.2e} <= {AUX_RTOL}); "
+                  f"top-k choices "
+                  + ("identical" if not n_diff else
+                     f"differ in {n_diff} rows at CPU gaps down to "
+                     f"{gap:.2e}: the CPU at the card's choices"))
+        # the bar against runs it must refuse: the same layer on the card
+        # with TF32 matmuls, and in bf16 (router fp32), at the card's
+        # fp32 choices
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            (y_tf, _, _), _ = run(dev, params, xs, card_choices)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        low = M.map_params(lambda t: t.to(torch.bfloat16), params)
+        low["router"] = params["router"]
+        tap = moe.Tap(choices=card_choices)
+        y_bf, _ = moe.run_moe(M.map_params(lambda t: t.to(dev), low),
+                              xs.to(dev, torch.bfloat16),
+                              cfg.replace(dtype="bfloat16"), tap)
+        readings = {"TF32": close(y_tf, y64, **tol),
+                    "bf16": close(y_bf.float().cpu(), y64, **tol)}
+        if any(ok for ok, _ in readings.values()):
+            fail(f"phase 29 {arch} {case}: a lower-precision run meets y's "
+                 f"bar ({readings}): the bar cannot tell it from fp32")
+        print(f"[29] {arch} {case}: the bar refuses lower precision: y "
+              f"against float64 max |diff| "
+              + ", ".join(f"{k} {err:.3e}" for k, (_, err) in
+                          readings.items())
+              + f" (atol {tol['atol']:.3e}), at the card's fp32 choices")
+        bf = M.map_params(lambda t: t.to(dev, torch.bfloat16), forced)
+        bf["router"] = forced["router"].to(dev)      # fp32 in a bf16 model
+        cb = cfg.replace(dtype="bfloat16")
+        xb = (x + 0.5).to(dev, torch.bfloat16)
+        runs = [moe.run_moe(bf, xb, cb) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not (torch.equal(runs[0][0], runs[1][0])
+                and torch.equal(runs[0][1], runs[1][1])) \
+                or runs[0][0].dtype != torch.bfloat16:
+            fail(f"phase 29 {arch}: two bf16 runs on the card differ")
+        print(f"[29] {arch} MoE layer bf16 (router fp32), drops forced: two "
+              f"card runs bitwise equal (y and aux)")
+        del p, forced, bf, runs
+
+    # -- 30. serve qwen2-moe-a2.7b at full size ------------------------------
+    cfg = get_config(MOE_SERVE_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    L, D, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+    n_params = M.param_count(params)
+    want = cfg.param_counts()["total"] + (2 * L + 1) * D \
+        + L * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd      # qkv biases
+    if n_params != want or (L, D) != MOE_SERVE_SIZE:
+        fail(f"{MOE_SERVE_ARCH}: {n_params} parameters, {L} layers, d_model "
+             f"{D}; expected {want} and {MOE_SERVE_SIZE}")
+    weight_bytes = sum(t.numel() * t.element_size() for t in M.leaves(params))
+    print(f"[30] {MOE_SERVE_ARCH}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{weight_bytes / 1e9:.2f} GB; {L} layers, d_model {D}, "
+          f"{cfg.num_heads} heads of {hd} over {cfg.num_kv_heads} KV heads, "
+          f"qkv bias, {cfg.num_experts} experts of {cfg.moe_d_ff} top-"
+          f"{cfg.top_k} and {cfg.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}, tied) made on the card from seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    # the warm-up, not counted, counts the dropped assignments: the counted
+    # run takes the same inputs, so the same routes, without the count
+    tap = moe.Tap()
+    generate(params, cfg, prompts, LLM_NEW, tap=tap)
+    events, finite = [], []
+
+    def on_logits(i, lg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        finite.append(torch.isfinite(lg).all())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    t0 = time.perf_counter()
+    start.record()
+    out = generate(params, cfg, prompts, LLM_NEW, on_logits=on_logits)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    routes = dict(all_counts["flash_attention"].routes)
+    # ----------------------------------------------------------------------
+    expect = {k: ((L if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or routes != {"fma": 0, "wgmma": L}:
+        fail(f"{MOE_SERVE_ARCH}: (kernel launches, plain calls) {got}, B4 "
+             f"routes {routes}; expected {expect}, every launch on the bf16 "
+             f"(wgmma) route")
+    new = out[:, LLM_PROMPT:]
+    if out.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) \
+            or not torch.equal(out[:, :LLM_PROMPT], prompts) \
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size \
+            or not bool(torch.stack(finite).all()):
+        fail(f"{MOE_SERVE_ARCH}: generated ids of shape {tuple(out.shape)} "
+             f"outside [0, {cfg.vocab_size}) or non-finite logits")
+    launches = got["flash_attention"][0]
+    prefill_ms = start.elapsed_time(events[0])
+    steps = np.array([a.elapsed_time(b)
+                      for a, b in zip(events[:-1], events[1:])])
+    total_ms = start.elapsed_time(end)
+    W = LLM_PROMPT + LLM_NEW
+    cache_bytes = 2 * L * LLM_BATCH * W * cfg.num_kv_heads * hd * 2
+    flops = moe_flops(cfg, LLM_BATCH, LLM_PROMPT)
+    n_ops = sum(flops.values())
+    print(f"[30] {MOE_SERVE_ARCH}: batch {LLM_BATCH}, prompt {LLM_PROMPT}, "
+          f"{LLM_NEW} greedy tokens; B4 launches {launches} (by route "
+          f"{routes}), plain calls {got['flash_attention'][1]}; no other "
+          f"kernel; logits finite; {tap.dropped} (token, expert) "
+          f"assignments dropped by capacity over {tap.calls} run_moe calls "
+          f"of the warm-up run, the same inputs (C "
+          f"{moe.moe_capacity(LLM_BATCH * LLM_PROMPT, cfg)} in the "
+          f"prefill, {moe.moe_capacity(LLM_BATCH, cfg)} a decode step)")
+    print(f"[30] {MOE_SERVE_ARCH}: prefill {prefill_ms:.3f} ms "
+          f"({LLM_BATCH * LLM_PROMPT / prefill_ms * 1e3:.0f} prompt tok/s; "
+          f"bound {n_ops / BF16_TC_OPS_PER_S * 1e3:.3f} ms: {n_ops:.3e} FLOP "
+          f"at the bf16 peak, of which "
+          + ", ".join(f"{k} {v:.2e}" for k, v in flops.items())
+          + f"), decode step p50 {np.percentile(steps, 50):.3f} ms, p99 "
+          f"{np.percentile(steps, 99):.3f} ms over {len(steps)} steps of "
+          f"{LLM_BATCH} tokens (bound "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms reading every "
+          f"weight once, "
+          f"{(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"with the {cache_bytes / 1e9:.2f} GB KV cache), "
+          f"{LLM_BATCH * LLM_NEW / total_ms * 1e3:.1f} tok/s generated "
+          f"including prefill ({total_ms:.1f} ms on the card's clock, "
+          f"{wall * 1e3:.1f} ms on the host's); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"[30]   request 0, first 12 new ids: {new[0, :12].tolist()}")
+    del params, out, prompts, events, finite
+    torch.cuda.empty_cache()
+
+    # -- 31. qwen2-moe-a2.7b card against CPU, full width, depth 2, fp32 ----
+    c = cfg.replace(num_layers=2, dtype="float32")
+    small = M.init(torch.Generator().manual_seed(SEED + 31), c, "cpu")
+    tok = torch.randint(0, c.vocab_size, (1, 256),
+                        generator=torch.Generator().manual_seed(SEED + 32))
+
+    def serve(d, choices=None):
+        logits, tap = [], moe.Tap(record=True, choices=choices)
+        out = generate(M.map_params(lambda x: x.to(d), small), c, tok.to(d),
+                       8, on_logits=lambda i, lg: logits.append(lg.cpu()),
+                       tap=tap)
+        return (out.cpu(), torch.cat(logits, 1)), tap.routes
+    (out_g, lg_g), rec_g = serve(dev)
+    (out_c, lg_c), rec_c = serve("cpu")
+    n_diff, gap = routing_diff(rec_g, rec_c, "phase 31")
+    if n_diff:
+        (out_c, lg_c), _ = serve("cpu", [i for _, i in rec_g])
+    err = float((lg_g - lg_c).abs().max())
+    if err > LOGIT_ATOL:
+        fail(f"phase 31: card logits differ from the CPU's by {err:.3e} (> "
+             f"{LOGIT_ATOL})")
+    top2 = torch.topk(lg_c, 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])[0]
+    for i in range(8):
+        if out_c[0, 256 + i] != out_g[0, 256 + i]:
+            if float(gaps[i]) >= TOP2_GAP:
+                fail(f"phase 31: token {i} differs (CPU top-2 gap "
+                     f"{float(gaps[i]):.3e})")
+            break                           # the sequences part here
+    same = bool(torch.equal(out_c, out_g))
+    print(f"[31] {MOE_SERVE_ARCH} full width, depth 2, fp32, TF32 off: batch "
+          f"1, prompt 256, 8 greedy tokens; logits card vs CPU max |diff| "
+          f"{err:.3e} (<= {LOGIT_ATOL}); token ids "
+          f"{'identical' if same else 'differ only after a near-tie'}; "
+          f"smallest CPU top-2 gap {float(gaps.min()):.3e}; top-k choices of "
+          f"{len(rec_g)} router calls "
+          + ("identical" if not n_diff else
+             f"differ in {n_diff} rows at CPU gaps down to {gap:.2e}: the "
+             f"CPU at the card's choices"))
+    del small
+
+    # -- 32. train granite-moe-3b-a800m at full size -------------------------
+    cfg = get_config(MOE_TRAIN_ARCH)
+    L = cfg.num_layers
+    tcfg = T.TrainConfig(lr=3e-4, warmup=min(20, MOE_TRAIN_STEPS // 5 + 1),
+                         total_steps=MOE_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    tap = moe.Tap()
+    trainer = T.Trainer(cfg, tcfg, SEED, device=dev, tap=tap)
+    n_params = M.param_count(trainer.state["params"])
+    want = cfg.param_counts()["total"] + (2 * L + 1) * cfg.d_model
+    if n_params != want or (L, cfg.d_model) != MOE_TRAIN_SIZE:
+        fail(f"{MOE_TRAIN_ARCH}: {n_params} parameters, {L} layers, d_model "
+             f"{cfg.d_model}; expected {want} and {MOE_TRAIN_SIZE}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in M.leaves(trainer.state))
+    print(f"[32] {MOE_TRAIN_ARCH}: {n_params:,} parameters ({cfg.dtype}; "
+          f"{L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim} over {cfg.num_kv_heads} KV heads, "
+          f"{cfg.num_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k}, "
+          f"vocab {cfg.vocab_size}, tied, remat {cfg.remat}; the train state "
+          f"with fp32 moments {state_bytes / 1e9:.2f} GB) made on the card "
+          f"from seed {SEED} in {time.perf_counter() - t0:.2f}s; batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, lr {tcfg.lr}, warmup "
+          f"{tcfg.warmup}, {MOE_TRAIN_STEPS} steps")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=dev)
+    held_out = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=HELD_OUT_SEED + i,
+                           device=dev) for i in range(HELD_OUT_BATCHES)]
+
+    def held_out_loss():
+        with torch.no_grad():
+            return float(torch.stack([M.loss_fn(trainer.state["params"], b,
+                                                cfg)[0]
+                                      for b in held_out]).mean())
+    before = held_out_loss()
+    # warm-up, not counted: one forward and backward at these shapes (the
+    # donating step would train the state; a step that builds a new state
+    # beside it would not fit)
+    T._compute_grads(trainer.state["params"], next(TokenStream(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 11, device=dev)), cfg, tcfg)
+    torch.cuda.synchronize()
+    events, losses, auxes = [], [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+        auxes.append(metrics["aux"])
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    start.record()
+    trainer.run(stream, MOE_TRAIN_STEPS, log_every=MOE_TRAIN_STEPS,
+                log=lambda s: print(f"[32]   {s}"), on_step=on_step)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    routes = dict(all_counts["flash_attention"].routes)
+    backward = all_counts["flash_attention"].backward_plain
+    # ----------------------------------------------------------------------
+    expect = {k: ((2 * L * MOE_TRAIN_STEPS if k == "flash_attention"
+                   else 0), 0) for k in all_counts}
+    if got != expect or backward != L * MOE_TRAIN_STEPS \
+            or routes != {"fma": 0, "wgmma": 2 * L * MOE_TRAIN_STEPS}:
+        fail(f"{MOE_TRAIN_ARCH} training: (kernel launches, plain calls) "
+             f"{got}, B4 routes {routes}, B4 backward passes {backward}; "
+             f"expected {expect}, all on the bf16 route, and "
+             f"{L * MOE_TRAIN_STEPS} backward passes (B4 twice a layer a "
+             f"step: the forward and the remat recompute)")
+    loss = torch.stack(losses).float().cpu().numpy()
+    aux = torch.stack(auxes).float().cpu().numpy()
+    after = held_out_loss()
+    if not np.isfinite(loss).all() or not np.isfinite([before, after]).all():
+        fail(f"{MOE_TRAIN_ARCH}: non-finite loss {loss}, held out {before} -> "
+             f"{after}")
+    if not after < before:
+        fail(f"{MOE_TRAIN_ARCH}: the loss did not fall: held-out loss "
+             f"{before:.4f} before training, {after:.4f} after")
+    launches += got["flash_attention"][0]
+    steps = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(steps, 50))
+    b4 = got["flash_attention"][0]
+    print(f"[32] {MOE_TRAIN_ARCH} training: B4 launches {b4} "
+          f"({b4 // MOE_TRAIN_STEPS} a step; by route {routes}), plain calls "
+          f"{got['flash_attention'][1]}, B4 backward passes (the VJP of the "
+          f"plain version) {backward}; no other kernel; "
+          f"{tap.dropped} (token, expert) assignments dropped by "
+          f"capacity over {tap.calls} run_moe calls (forward and remat "
+          f"recompute; C {moe.moe_capacity(TRAIN_BATCH * TRAIN_SEQ, cfg)})")
+    print(f"[32] {MOE_TRAIN_ARCH} loss on the {HELD_OUT_BATCHES} held-out "
+          f"batches: {before:.4f} before training, {after:.4f} after (fell "
+          f"by {before - after:.4f}); every step's loss finite")
+    print(f"[32] {MOE_TRAIN_ARCH} training loss by step (each a new random "
+          f"batch): " + " ".join(f"{v:.4f}" for v in loss))
+    print(f"[32] {MOE_TRAIN_ARCH} aux loss (summed over layers) first "
+          f"{aux[0]:.4f}, last {aux[-1]:.4f}, min {aux.min():.4f}, max "
+          f"{aux.max():.4f} ({L} layers: {L}.0 at perfect balance)")
+    print(f"[32] {MOE_TRAIN_ARCH} step time p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms, first "
+          f"{steps[0]:.3f} ms (on the card's clock, from one step's end to "
+          f"the next); {TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} tokens/s at "
+          f"p50; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(stream, 3, log_every=3, log=lambda s: None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile("32", MOE_TRAIN_ARCH, prof, wall_us, 3, "step",
+                   moe_step_part)
+    del trainer, stream, events, losses, auxes, prof, held_out
+    torch.cuda.empty_cache()
+
+    # -- 33. one granite step on the card against the CPU --------------------
+    step_card_vs_cpu("33", dev, MOE_TRAIN_ARCH, 1, 256, pin_routing=True)
+    return launches
+
+
+def report_profile(tag, what, prof, wall_us, n, unit, label):
+    """Print the profile `prof` of `n` `unit`s that took `wall_us` on the
+    host's clock (phases 24, 28 and 32): the card's busy share, device ops
+    a unit, the card's time by `label(lower kernel name, the profiler's
+    CPU op that launched the kernel)` with the share of it so traced, and
+    the ten longest kernels.  Returns (label -> us, busy us), or None when
+    the profiler recorded no device events."""
+    import torch
+    kind = torch.autograd.DeviceType
+    a = "an" if unit[0] in "aeiou" else "a"
+    # the MoE's profiler ranges show on the device's timeline too, as
+    # spans over their kernels: not kernels, so not busy time
+    on_card = [e for e in prof.events()
+               if e.device_type == kind.CUDA and e.name not in MOE_RANGES]
+    if not on_card:
+        print(f"[{tag}] {what} {n} profiled {unit}s: the profiler recorded "
+              f"no device events: the card's busy share is not measured")
+        return None
+    busy, groups = {}, {}
+    for e in on_card:
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(busy.values())
+    for e in prof.events():
+        if e.device_type == kind.CPU:
+            for k in e.kernels:
+                key = label(k.name.lower(), e)
+                groups[key] = groups.get(key, 0.0) + k.duration
+    print(f"[{tag}] {what} {n} profiled {unit}s: {wall_us / n / 1e3:.2f} ms "
+          f"{a} {unit} on the host clock under the profiler, card busy "
+          f"{total / n / 1e3:.2f} ms {a} {unit} ({100 * total / wall_us:.1f}"
+          f"%), {len(on_card) // n} device ops {a} {unit}; "
+          f"{100 * sum(groups.values()) / total:.1f}% of the card's time "
+          f"traced to its launching op")
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}]   {us / n / 1e3:9.3f} ms {a} {unit} "
+              f"({100 * us / total:5.1f}%)  {grp}")
+    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[{tag}]   {us / n / 1e3:9.3f} ms {a} {unit} "
+              f"({100 * us / total:5.1f}%)  {name[:90]}")
+    return groups, total
+
+
+def moe_step_part(low, op):
+    """Phase 32's label of a kernel: B4 by its name; else by the outermost
+    labelled range or autograd node it was launched from: the MoE ranges
+    of `models.moe` ("moe.experts"; "moe.dispatch" and "moe.combine") and
+    the backward nodes of the expert matmuls (BmmBackward) and of the
+    dispatch's sorts, scatters and gathers; B4's backward is the node of
+    its wrapper (the VJP of the plain version); the rest by kernel name."""
+    def part(name):
+        if name == MOE_RANGES[1] or "BmmBackward" in name:
+            return "expert GEMMs and SwiGLU (forward, recompute, backward)"
+        if name in MOE_RANGES[::2] or any(
+                w in name for w in ("IndexBackward", "IndexPutBackward",
+                                    "GatherBackward", "SortBackward",
+                                    "TopkBackward")):
+            return ("routing, dispatch and combine (sort, scatter, gather; "
+                    "forward, recompute, backward)")
+        if "FlashAttention" in name:
+            return "B4 backward (the VJP of the plain version)"
+        return None
+    if "flash_kernel" in low:
+        return "B4 flash_kernel"
+    grp = None
+    while op is not None:                 # the outermost label wins
+        grp = part(op.name) or grp
+        op = op.cpu_parent
+    return grp or ("other GEMMs (projections, LM head)" if any(
+        w in low for w in ("gemm", "xmma", "cutlass", "nvjet", "sm90_"))
+        else "other (elementwise, norms, loss, optimizer, copies)")
+
+
+def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
+    """One training step on the card and on the CPU from the same weights
+    and batch, at `arch`'s full width, depth 2, fp32, TF32 off (phases 20
+    and 33): the loss at rtol STEP_LOSS_RTOL, every gradient leaf within
+    STEP_GRAD_REL in relative norm, the card's new parameters against the
+    CPU's optimizer on the card's gradients at UPDATE_TOL, every entry;
+    the new parameters against the CPU's own step are reported (where |g|
+    is near Adam's eps, the gradients' last bits move an entry by up to
+    lr_t).  `pin_routing`: a MoE's top-k choices are compared call by
+    call and, where they differ at a near-tie, the CPU's step is taken
+    again at the card's choices (a `models.moe.Tap`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.training import trainer as T
+
+    c = get_config(arch).replace(num_layers=2, dtype="float32")
+    tc = T.TrainConfig(lr=3e-4, warmup=11, total_steps=TRAIN_STEPS)
+    small = M.init(torch.Generator().manual_seed(SEED + 8), c, "cpu")
+    data = make_batch(c, batch, seq, seed=SEED + 9, device="cpu")
+
+    def run(d, choices=None):
+        state = T.train_state_from_params(
+            M.map_params(lambda t: t.to(d), small), tc)
+        tap = moe.Tap(record=True, choices=choices)
+        loss, _, grads = T._compute_grads(
+            state["params"], {"tokens": data["tokens"].to(d)}, c, tc, tap)
+        new, gnorm = T._apply(state, grads, tc)
+        return (float(loss), M.map_params(lambda t: t.float().cpu(), grads),
+                M.map_params(lambda t: t.float().cpu(), new["params"]),
+                float(gnorm)), tap.routes
+    out, records = {}, {}
+    for d in ("cpu", dev):
+        out[str(d)], records[str(d)] = run(d)
+    routing = ""
+    if pin_routing:
+        n_diff, gap = routing_diff(records[str(dev)], records["cpu"],
+                                   f"phase {tag} {arch}")
+        if n_diff:
+            out["cpu"], _ = run("cpu", [i for _, i in records[str(dev)]])
+        routing = (f"; top-k choices of {len(records['cpu'])} router calls "
+                   + (f"identical on the card and the CPU" if not n_diff else
+                      f"differ in {n_diff} rows at CPU gaps down to "
+                      f"{gap:.2e} (< {ROUTE_GAP}): the CPU at the card's "
+                      f"choices"))
+    (lc, gc, pc, nc), (lg, gg, pg, ng) = out["cpu"], out[str(dev)]
+    grad_rel = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
+                   for a, b in zip(M.leaves(gg), M.leaves(gc)))
+    # the card's update against the CPU's optimizer arithmetic on the
+    # card's own gradients: every entry, no exceptions
+    want, _ = T._apply(T.train_state_from_params(small, tc), gg, tc)
+    update_err = max(float((a - b).abs().max()) for a, b in
+                     zip(M.leaves(pg), M.leaves(want["params"])))
+    update_ok = all(torch.allclose(a, b, **UPDATE_TOL) for a, b in
+                    zip(M.leaves(pg), M.leaves(want["params"])))
+    # card against CPU end to end: Adam's first step moves an entry by
+    # lr_t g/(|g| + eps), so where |g| is near eps (1e-8) the gradients'
+    # last bits move it by up to lr_t; reported, not held
+    lr_t = tc.lr / tc.warmup
+    diffs = [(a - b).abs() for a, b in zip(M.leaves(pg), M.leaves(pc))]
+    end_err = max(float(d.max()) for d in diffs)
+    n_far = sum(int((d > 0.01 * lr_t).sum()) for d in diffs)
+    n_all = sum(d.numel() for d in diffs)
+    if abs(lg - lc) > STEP_LOSS_RTOL * abs(lc) \
+            or grad_rel > STEP_GRAD_REL or not update_ok:
+        fail(f"phase {tag} {arch}: loss card {lg} CPU {lc}, worst gradient "
+             f"leaf off by {grad_rel:.3e} in relative norm, the card's "
+             f"update off the CPU's arithmetic by {update_err:.3e} (bars "
+             f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL}){routing}")
+    print(f"[{tag}] {arch} full width, depth 2, fp32, TF32 off, batch "
+          f"{batch}, seq {seq}: one step card vs CPU from the same "
+          f"weights and batch: loss {lg:.6f} vs {lc:.6f} (rel "
+          f"{abs(lg - lc) / abs(lc):.2e} <= {STEP_LOSS_RTOL}), grad norm "
+          f"{ng:.6f} vs {nc:.6f}, worst gradient leaf {grad_rel:.3e} in "
+          f"relative norm (<= {STEP_GRAD_REL}) over {len(diffs)} leaves; "
+          f"the card's new parameters against the CPU's optimizer on the "
+          f"card's gradients: max |diff| {update_err:.3e} (rtol "
+          f"{UPDATE_TOL['rtol']}, atol {UPDATE_TOL['atol']}, every "
+          f"entry); against the CPU's own step: max |diff| "
+          f"{end_err:.3e}, {n_far} of {n_all} entries above 0.01 lr_t "
+          f"({0.01 * lr_t:.2e}){routing}")
+
+
 def gan_phases(dev, all_counts):
     """Phases 22-24: the paper's GAN trained at full width (PAPER, R 8),
     one epoch on the card against the CPU, and a profile of PAPER epochs.
@@ -1221,7 +1833,8 @@ def gan_phases(dev, all_counts):
         epoch_card_vs_cpu("23", f"GAN {mode}", dev, dataclasses.replace(
             PAPER, n_param_samples=REDUCED.n_param_samples,
             events_per_sample=REDUCED.events_per_sample,
-            sync=dataclasses.replace(PAPER.sync, mode=mode, h=1)))
+            sync=dataclasses.replace(PAPER.sync, mode=mode, h=1)),
+            pin_kinks=True)
 
     # -- 24. profile PAPER epochs --------------------------------------------
     def group(low):
@@ -1533,10 +2146,10 @@ def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
 
 def profile_epochs(tag, label, dev, wcfg, data, group, seed):
     """Profile GAN_PROFILED epochs of `wcfg` at R 8 after one warm epoch
-    (phases 24 and 28): the card's busy share, its time by `group(lower
-    kernel name)` and the ten longest kernels, device ops an epoch.
-    Returns (group -> us, busy us, host-clock us), or None when the
-    profiler recorded no device events."""
+    (phases 24 and 28), reported by `report_profile` with the kernels
+    grouped by `group(lower kernel name)`.  Returns (group -> us, busy
+    us, host-clock us), or None when the profiler recorded no device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.core import workflow as W
@@ -1556,32 +2169,9 @@ def profile_epochs(tag, label, dev, wcfg, data, group, seed):
             state, _ = epoch(state, per_rank, dr)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n = GAN_PROFILED
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not on_card:
-        print(f"[{tag}] {label} {n} profiled epochs: the profiler recorded "
-              f"no device events: the card's busy share is not measured")
-        return None
-    busy, groups = {}, {}
-    for e in on_card:
-        us = e.time_range.elapsed_us()
-        busy[e.name] = busy.get(e.name, 0.0) + us
-        grp = group(e.name.lower())
-        groups[grp] = groups.get(grp, 0.0) + us
-    total = sum(busy.values())
-    print(f"[{tag}] {label} {n} profiled epochs: "
-          f"{wall_us / n / 1e3:.2f} ms an epoch on the host clock under the "
-          f"profiler, card busy {total / n / 1e3:.2f} ms an epoch "
-          f"({100 * total / wall_us:.1f}%), {len(on_card) // n} device ops an "
-          f"epoch")
-    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[{tag}]   {us / n / 1e3:9.3f} ms an epoch "
-              f"({100 * us / total:5.1f}%)  {grp}")
-    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[{tag}]   {us / n / 1e3:9.3f} ms an epoch "
-              f"({100 * us / total:5.1f}%)  {name[:90]}")
-    return groups, total, wall_us
+    out = report_profile(tag, label, prof, wall_us, GAN_PROFILED, "epoch",
+                         lambda low, op: group(low))
+    return None if out is None else (*out, wall_us)
 
 
 def time_phase(dev, strict):
@@ -2207,6 +2797,9 @@ def main():
     # -- 26-28. every other problem trained ----------------------------------
     for k, n in problem_phases(dev, all_counts).items():
         launches[k] = launches.get(k, 0) + n
+
+    # -- 29-33. the MoE family -----------------------------------------------
+    launches["flash_attention"] += moe_phases(dev, all_counts)
 
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",

@@ -172,7 +172,9 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
     ...}}}, "final_norm", "embed", ["lm_head"]}, the blocks stacked with a
     leading n_periods axis) -> the port's params on `device`, same keys.
 
-    The blocks may be attention blocks ("attn", "mlp", "ln1", "ln2") or
+    The blocks may be attention blocks ("attn", "ln1", "ln2", and "mlp"
+    or a MoE's "moe": `router` [D, E], fp32 in a bf16 model; `we1`, `we3`
+    [E, D, F], `we2` [E, F, D] and the shared experts' "shared" MLP) or
     Mamba-2 blocks ("ssm", "ln1"), whose `A_log`, `D` and `dt_bias` are
     fp32 in a bf16 model.  `dtype` ("float32", "bfloat16" or a torch
     dtype) casts every leaf; None keeps each leaf's own (bf16 stays bf16,

@@ -2,19 +2,23 @@
 
 Counterpart of `examples/serve_llm.py`: the engine's mechanics (the
 ring-buffer KV cache, the flash-attention kernel B4 in prefill; for
-mamba2-130m the SSM state and conv window, in plain PyTorch) with a
-freshly initialized model (random weights from `--seed`), not its text.
+mamba2-130m the SSM state and conv window, in plain PyTorch; for the MoE
+archs the routed experts) with a freshly initialized model (random
+weights from `--seed`), not its text.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm \\
         --arch tinyllama-1.1b --batch 8 --prompt-len 1024 --new-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke \\
         --device cpu --window 16
+    PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke \\
+        --device cpu --arch qwen2-moe-a2.7b
 
 Runs the arch's full config on CUDA unless asked otherwise: `--smoke`
 takes its smoke-test reduction (the JAX example always does), and
 `--device cpu` runs the plain PyTorch path on the CPU.  Prints the
-throughput including prefill, the steady-state decode time per step, and
-B4's launches and plain calls.
+throughput including prefill, the steady-state decode time per step,
+B4's launches and plain calls, and for a MoE arch the (token, expert)
+assignments its capacity dropped, summed over layers and steps.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.configs import ARCHS, LATER, get_config
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import model as M
+from repro_torch.models.moe import Tap
 from repro_torch.serving import generate, make_prefill_fn, make_serve_step
 
 
@@ -74,10 +79,11 @@ def main(argv=None):
     if device.type == "cuda":      # the kernel's first-use build, untimed
         build.build_all(("flash_attention",))
     fa.counts.reset()
+    tap = Tap()                  # counts the MoE's dropped assignments
     _sync(device)
     t0 = time.perf_counter()
     out = generate(params, cfg, prompts, args.new_tokens,
-                   temperature=args.temperature, generator=gen)
+                   temperature=args.temperature, generator=gen, tap=tap)
     _sync(device)
     dt = time.perf_counter() - t0
     n_new = args.batch * args.new_tokens
@@ -87,6 +93,10 @@ def main(argv=None):
     print("generated ids (request 0):", out[0, args.prompt_len:].tolist())
     print(f"[serve_llm] flash attention (B4): {fa.counts.launches} kernel "
           f"launches, {fa.counts.plain_calls} plain calls")
+    if tap.calls:
+        print(f"[serve_llm] MoE: {tap.dropped} (token, expert) assignments "
+              f"dropped by capacity over {tap.calls} run_moe calls "
+              f"(prefill and decode, every layer)")
 
     # steady-state decode throughput
     step_fn = make_serve_step(cfg)

@@ -4,6 +4,8 @@
         --steps 50 --batch 8 --seq 256
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
         --smoke --device cpu --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
 
 The flags are the JAX launcher's plus `--device` (CUDA unless `cpu` is
 asked for) and `--seed` (the random weights; the JAX launcher uses key 0).
@@ -13,7 +15,9 @@ hierarchical sync modes across them are ROADMAP.md queue A item 6; every
 does without a mesh.  `--ckpt-dir` raises: the checkpoint writer of
 ROADMAP.md queue A item 2 serves the GAN trainer, and the LLM trainer
 does not call it yet (item 12).  Prints the loss as it goes, then the SSD
-scan's (B5) and flash attention's (B4) kernel launches and plain calls.
+scan's (B5) and flash attention's (B4) kernel launches and plain calls,
+and for a MoE arch the (token, expert) assignments its capacity dropped,
+summed over layers and steps (the remat recompute included).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.data import TokenStream
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models.moe import Tap
 from repro_torch.training import SYNC_MODES, TrainConfig, Trainer
 
 
@@ -60,7 +65,8 @@ def main(argv=None):
                        total_steps=args.steps,
                        microbatches=args.microbatches,
                        sync_mode=args.sync, sync_h=args.sync_h)
-    trainer = Trainer(cfg, tcfg, args.seed, device=args.device)
+    tap = Tap()                  # counts the MoE's dropped assignments
+    trainer = Trainer(cfg, tcfg, args.seed, device=args.device, tap=tap)
     if trainer.device.type == "cuda":      # the kernels' first-use build
         build.build_all(("ssd_scan", "flash_attention"))
     stream = TokenStream(cfg, args.batch, args.seq, device=trainer.device)
@@ -75,6 +81,10 @@ def main(argv=None):
         print(f"[train] {name}: {c.launches} kernel launches, "
               f"{c.plain_calls} plain calls, {c.backward_plain} backward "
               f"passes (the VJP of the plain version)")
+    if tap.calls:
+        print(f"[train] MoE: {tap.dropped} (token, expert) assignments "
+              f"dropped by capacity over {tap.calls} run_moe calls (every "
+              f"layer's forward and its remat recompute)")
     return state
 
 

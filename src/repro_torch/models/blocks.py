@@ -1,28 +1,23 @@
 """Transformer and Mamba blocks with init, forward and decode.
-Counterpart of `repro.models.blocks` for the kinds the port runs: an
-attention mixer (`kind == "attn"`) with a dense SwiGLU MLP (`mlp_kind ==
-"dense"`), and the Mamba-2 mixer (`kind == "ssm"`) with no MLP
-(`mlp_kind == "none"`, the ssm family).  A block = pre-norm mixer (+
-residual), then the pre-norm MLP (+ residual) if it has one.  The MoE MLP
-raises until its slice lands (ROADMAP.md queue A item 10).
+Counterpart of `repro.models.blocks`: an attention mixer (`kind ==
+"attn"`) or the Mamba-2 mixer (`kind == "ssm"`), then a dense SwiGLU MLP
+(`mlp_kind == "dense"`), the MoE MLP (`"moe"`, `models.moe`) or none
+(`"none"`, the ssm family).  A block = pre-norm mixer (+ residual), then
+the pre-norm MLP (+ residual) if it has one.
 """
 from __future__ import annotations
 
 import torch
 
-from . import layers, ssm as ssm_lib
+from . import layers, moe as moe_lib, ssm as ssm_lib
 from .config import ModelConfig
 
 
 def check_kinds(kind: str, mlp_kind: str):
-    """Raise NotImplementedError for a block the port does not run yet."""
+    """Raise ValueError for an unknown mixer or MLP kind."""
     if kind not in ("attn", "ssm"):
         raise ValueError(f"unknown block kind {kind!r}")
-    if mlp_kind == "moe":
-        raise NotImplementedError(
-            "mlp kind 'moe': the port runs dense MLPs only; MoE comes with "
-            "the MoE family (ROADMAP.md queue A item 10)")
-    if mlp_kind not in ("dense", "none"):
+    if mlp_kind not in ("dense", "moe", "none"):
         raise ValueError(f"unknown mlp kind {mlp_kind!r}")
 
 
@@ -40,17 +35,33 @@ def init_block(gen, cfg: ModelConfig, kind: str, mlp_kind: str, dtype,
     dev = next(iter(mixer.values())).device
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
          kind: mixer}
-    if mlp_kind == "dense":
+    if mlp_kind != "none":
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    if mlp_kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, dev)
+    elif mlp_kind == "dense":
         p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev)
     return p
+
+
+def mlp_sublayer(p, x, cfg: ModelConfig, mlp_kind: str, tap=None):
+    """The pre-norm MLP with its residual: (x, aux), aux None unless the
+    MLP is MoE.  `tap`: a `models.moe.Tap` the MoE reports to."""
+    if mlp_kind == "none":
+        return x, None
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        h, aux = moe_lib.run_moe(p["moe"], h, cfg, tap)
+        return x + h, aux
+    return x + layers.run_mlp(p["mlp"], h), None
 
 
 # ----------------------------------------------------------------------------
 # forward (prefill)
 
 
-def run_block(p, x, cfg: ModelConfig, kind: str, mlp_kind: str, positions):
+def run_block(p, x, cfg: ModelConfig, kind: str, mlp_kind: str, positions,
+              tap=None):
     """Returns (x, aux_loss); aux is 0 without MoE."""
     check_kinds(kind, mlp_kind)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -58,10 +69,10 @@ def run_block(p, x, cfg: ModelConfig, kind: str, mlp_kind: str, positions):
         x = x + layers.run_attention(p["attn"], h, cfg, positions)
     else:
         x = x + ssm_lib.run_ssm(p["ssm"], h, cfg)
-    if mlp_kind == "dense":
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.run_mlp(p["mlp"], h)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = mlp_sublayer(p, x, cfg, mlp_kind, tap)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ----------------------------------------------------------------------------
@@ -81,21 +92,19 @@ def init_block_cache(batch: int, cfg: ModelConfig, kind: str, window: int,
 
 
 def run_block_decode(p, x, cache, pos: int, cfg: ModelConfig, kind: str,
-                     mlp_kind: str):
+                     mlp_kind: str, tap=None):
     """x [B,1,D]; pos = tokens already in the cache.  Writes this token's
     k/v (attention: at ring slot pos % W) or the SSM state and conv
     window into `cache` IN PLACE (the JAX package returns an updated copy;
     the serving loop owns the cache, so the copy is not needed) and
-    returns (x, cache)."""
+    returns (x, cache).  A MoE MLP's aux loss is dropped, as in JAX."""
     check_kinds(kind, mlp_kind)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         x = x + ssm_lib.run_ssm_decode(p["ssm"], h, cache, cfg)
     else:
         x = x + _attention_decode(p["attn"], h, cache, pos, cfg)
-    if mlp_kind == "dense":
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.run_mlp(p["mlp"], h)
+    x, _ = mlp_sublayer(p, x, cfg, mlp_kind, tap)
     return x, cache
 
 

@@ -3,10 +3,10 @@
 The port's own copy of `repro.models.config` (plain Python, the same
 fields, defaults and counts).  One dataclass describes every family
 (dense / moe / ssm / hybrid / audio / vlm); family-specific fields are
-zero / None when unused.  The port runs the dense and ssm families
-(`models.blocks`); `attn_impl` routes prefill attention and the SSM scan:
-"chunked" (the default) and "pallas" to the flash-attention kernel B4 and
-the SSD kernel B5, "naive" to the plain PyTorch versions.
+zero / None when unused.  The port runs the dense, moe and ssm
+families (`models.blocks`); `attn_impl` routes prefill attention and the
+SSM scan: "chunked" (the default) and "pallas" to the flash-attention
+kernel B4 and the SSD kernel B5, "naive" to the plain PyTorch versions.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Unified decoder LM: embed, the layer stack, final norm, LM head; the
 training loss; prefill and one-token decode for serving.  Counterpart of
-`repro.models.model` for the text-only decoders of the dense and ssm
-families.
+`repro.models.model` for the text-only decoders of the dense, moe and
+ssm families.
 
 Parameters keep the JAX package's layout, so checkpoint and parameter
 keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
@@ -67,13 +67,6 @@ def leaves(tree):
         yield tree
 
 
-def _stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
-
-
 def period_params(params, i: int):
     """The blocks of period i: views into the stacked params."""
     return map_params(lambda t: t[i], params["periods"])
@@ -88,17 +81,31 @@ def init(gen, cfg: ModelConfig, device=None):
     norms, zero biases) in `cfg.dtype`, drawn from the torch.Generator
     `gen` on its own device and placed on `device` (CUDA by default, see
     `resolve_device`; a generator on that device draws in place).  On
-    device="meta" the shapes are made and nothing is drawn."""
+    device="meta" the shapes are made and nothing is drawn.
+
+    The stacked leaves are allocated once and filled period by period, in
+    the order the periods are drawn, so the peak holds one period beside
+    the model (qwen2-moe-a2.7b's 28 GB in bf16 would double if the
+    periods were made apart and then stacked)."""
     _check_text_decoder(cfg)
     dtype = layers.torch_dtype(cfg.dtype)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
     n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
-    periods = [{f"sub{j}": blocks.init_block(gen, cfg, kinds[j], mlp_kinds[j],
+
+    def period():
+        return {f"sub{j}": blocks.init_block(gen, cfg, kinds[j], mlp_kinds[j],
                                              dtype, device)
-                for j in range(plen)} for _ in range(n_periods)]
-    p = {"periods": _stack(periods)}
-    del periods                  # free the per-layer copies before embed
+                for j in range(plen)}
+    first = period()
+    stacked = map_params(lambda t: t.new_empty((n_periods,) + t.shape), first)
+    for i in range(n_periods):
+        made = first if i == 0 else period()
+        for dst, src in zip(leaves(stacked), leaves(made)):
+            dst[i].copy_(src)
+        del made
+    del first
+    p = {"periods": stacked}
     p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     p["embed"] = layers.kaiming(gen, (cfg.vocab_size, cfg.d_model), dtype,
                                 fan_in=cfg.d_model, device=device)
@@ -135,8 +142,9 @@ def unembed(params, x, cfg: ModelConfig):
 # forward
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Returns (logits [B,S,V], aux_loss scalar).
+def forward(params, batch, cfg: ModelConfig, tap=None):
+    """Returns (logits [B,S,V], aux_loss scalar).  `tap`: a
+    `models.moe.Tap` every MoE layer reports to.
 
     With `cfg.remat` and autograd on, each period runs under
     `torch.utils.checkpoint` (policy "full": nothing inside a period is
@@ -155,7 +163,7 @@ def forward(params, batch, cfg: ModelConfig):
     def period(x, aux, pp):
         for j in range(plen):
             x, a = blocks.run_block(pp[f"sub{j}"], x, cfg, kinds[j],
-                                    mlp_kinds[j], positions)
+                                    mlp_kinds[j], positions, tap)
             aux = aux + a
         return x, aux
 
@@ -170,11 +178,11 @@ def forward(params, batch, cfg: ModelConfig):
     return unembed(params, x, cfg), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, tap=None):
     """Scalar training loss (CE + router aux).  Returns (loss, metrics):
     the next-token cross entropy when `cfg.causal`, from an fp32
     log-softmax, as a masked mean, plus router_aux_coef · aux."""
-    logits, aux = forward(params, batch, cfg)
+    logits, aux = forward(params, batch, cfg, tap)
     _, labels, mask = embed_inputs(params, batch, cfg)
     if cfg.causal:
         logits, labels, mask = logits[:, :-1], labels[:, 1:], mask[:, 1:]
@@ -206,7 +214,7 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int, device=None):
         for j in range(plen)}}
 
 
-def decode_step(params, tokens, cache, cfg: ModelConfig):
+def decode_step(params, tokens, cache, cfg: ModelConfig, tap=None):
     """One decode step. tokens [B,1] (text-only decode).
 
     Returns (logits [B,1,V], cache), the cache updated in place with
@@ -219,14 +227,14 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
         for j in range(plen):
             c = {k: t[i] for k, t in cache["blocks"][f"sub{j}"].items()}
             x, _ = blocks.run_block_decode(pp[f"sub{j}"], x, c, pos, cfg,
-                                           kinds[j], mlp_kinds[j])
+                                           kinds[j], mlp_kinds[j], tap)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return unembed(params, x, cfg), cache
 
 
 def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
-            last_logits_only: bool = False):
+            last_logits_only: bool = False, tap=None):
     """Run the full prompt, building the decode cache.
 
     Returns (logits [B,S,V], or [B,1,V] with last_logits_only, the serving
@@ -261,9 +269,7 @@ def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
                     else:            # rotate so that slot = pos % W
                         ring.copy_(torch.roll(t[:, -take:], S % W, dims=1))
             x = x + h
-            if mlp_kinds[j] == "dense":
-                h = layers.rms_norm(x, p_blk["ln2"], cfg.norm_eps)
-                x = x + layers.run_mlp(p_blk["mlp"], h)
+            x, _ = blocks.mlp_sublayer(p_blk, x, cfg, mlp_kinds[j], tap)
     if last_logits_only:
         x = x[:, -1:]
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

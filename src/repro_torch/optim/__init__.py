@@ -1,8 +1,8 @@
 """Optimizers and learning-rate schedules, counterparts of `repro.optim`."""
 from .optimizers import (adam, adamw, apply_updates, clip_by_global_norm,
-                         global_norm, sgd)
+                         clip_scale, global_norm, sgd)
 from .schedules import constant, cosine_decay, linear_warmup_cosine
 
 __all__ = ["adam", "adamw", "sgd", "apply_updates", "global_norm",
-           "clip_by_global_norm", "constant", "cosine_decay",
+           "clip_by_global_norm", "clip_scale", "constant", "cosine_decay",
            "linear_warmup_cosine"]

@@ -46,10 +46,16 @@ def global_norm(tree):
                           for x in leaves(tree)))
 
 
+def clip_scale(tree, max_norm):
+    """(min(1, max_norm / norm), norm): the factor `clip_by_global_norm`
+    scales every leaf by."""
+    norm = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
 def clip_by_global_norm(tree, max_norm):
     """(tree scaled by min(1, max_norm / norm), norm)."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale, norm = clip_scale(tree, max_norm)
     return map_params(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
 

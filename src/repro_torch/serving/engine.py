@@ -18,20 +18,21 @@ from ..models import model as model_lib
 from ..models.config import ModelConfig
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, tap=None):
     """(params, tokens [B,1], cache) -> (logits [B,1,V], cache); the cache
     is updated in place."""
     def step(params, tokens, cache):
-        return model_lib.decode_step(params, tokens, cache, cfg)
+        return model_lib.decode_step(params, tokens, cache, cfg, tap)
     return step
 
 
-def make_prefill_fn(cfg: ModelConfig):
+def make_prefill_fn(cfg: ModelConfig, tap=None):
     """(params, batch, context_len=None, last_logits_only=False) ->
     (logits, cache)."""
     def fn(params, batch, context_len=None, last_logits_only=False):
         return model_lib.prefill(params, batch, cfg, context_len,
-                                 last_logits_only=last_logits_only)
+                                 last_logits_only=last_logits_only,
+                                 tap=tap)
     return fn
 
 
@@ -39,7 +40,7 @@ def make_prefill_fn(cfg: ModelConfig):
 def generate(params, cfg: ModelConfig, prompt_tokens, max_new_tokens: int,
              context_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             on_logits: Optional[Callable] = None):
+             on_logits: Optional[Callable] = None, tap=None):
     """Greedy (temperature <= 0) or sampled generation.
 
     prompt_tokens [B, S] on the params' device.  Returns [B, S +
@@ -47,11 +48,12 @@ def generate(params, cfg: ModelConfig, prompt_tokens, max_new_tokens: int,
     with `generator` (on the same device; the JAX package's
     `jax.random.categorical` stream cannot be replayed here).
     `on_logits(i, logits)`, if given, sees the logits [B,1,V] that pick
-    token i: the prefill's last (i = 0), then each decode step's."""
+    token i: the prefill's last (i = 0), then each decode step's.  `tap`:
+    a `models.moe.Tap` every MoE layer reports to."""
     B, S = prompt_tokens.shape
     ctx = context_len or (S + max_new_tokens)
-    prefill_fn = make_prefill_fn(cfg)
-    step_fn = make_serve_step(cfg)
+    prefill_fn = make_prefill_fn(cfg, tap)
+    step_fn = make_serve_step(cfg, tap)
     last, cache = prefill_fn(params, {"tokens": prompt_tokens}, ctx,
                              last_logits_only=True)
     out = [prompt_tokens]

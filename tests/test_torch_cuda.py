@@ -19,7 +19,10 @@ service, the LLM engine, the LLM trainer and the GAN trainer on the card
 are shown to launch the kernels and to agree with the CPU on the same
 inputs (the GAN trainer: B1 once an epoch, forward and backward; every
 registered problem on its kernels, with the conv generator's backward in
-full fp32).  Flash attention is held at head dim 80 on both routes.
+full fp32).  Flash attention is held at head dim 80 on both routes, and
+at GQA group 3 (granite-moe-3b-a800m's).  The MoE layer on the card is
+held against the CPU with capacity drops, and is bitwise repeatable in
+bf16.
 """
 import numpy as np
 import pytest
@@ -39,6 +42,7 @@ from repro_torch.kernels.ref import (blur2d_ref, flash_attention_ref,
                                      inverse_cdf_ref, mask_apply_ref,
                                      ssd_chunked_ref, ssd_scan_ref)
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.problems import get_problem
 from repro_torch.problems.imaging import SIGMA as IMAGING_SIGMA
 from repro_torch.serving import SolveService, generate
@@ -479,6 +483,31 @@ def test_flash_tc_refuses_what_tma_cannot_read(sm90_card):
     assert fa.counts.launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_gqa_group_3(sm90_card, dtype):
+    """granite-moe-3b-a800m's attention: 24 heads over 8 KV heads (group
+    3), head dim 64, causal, in both layouts against the plain version:
+    the kernel layout at ragged lengths, and the model layout at its
+    training shape q [8, 256, 8, 3, 64]."""
+    tol = FP32 if dtype == torch.float32 else BF16
+    for S in (1, 100, 256):
+        q, k, v = _qkv(2, 24, 8, S, 64, dtype, sm90_card, seed=S + 3)
+        o = fa.flash_attention(q, k, v, True, None)
+        torch.testing.assert_close(
+            o.float(), flash_attention_ref(q, k, v, True, None).float(), **tol)
+    g = torch.Generator().manual_seed(33)
+    q = torch.randn(8, 256, 8, 3, 64, generator=g).to(sm90_card, dtype)
+    k, v = (torch.randn(8, 256, 8, 64, generator=g).to(sm90_card, dtype)
+            for _ in range(2))
+    fa.counts.reset()
+    o = fa.flash_attention_model(q, k, v, True, None)
+    torch.cuda.synchronize()
+    route = "fma" if dtype == torch.float32 else "wgmma"
+    assert fa.counts.routes[route] == 1 and fa.counts.launches == 1
+    torch.testing.assert_close(o.float(), fa._plain_model(
+        q, k, v, True, None).float(), **tol)
+
+
 @pytest.mark.parametrize("window", [None, 8])
 def test_llm_engine_on_the_card_launches_flash(sm90_card, window):
     """The tinyllama smoke config in fp32: one B4 launch per layer and
@@ -499,6 +528,75 @@ def test_llm_engine_on_the_card_launches_flash(sm90_card, window):
         runs[str(dev)] = (out.cpu(), logits, fa.counts.launches,
                           fa.counts.plain_calls)
     (out_c, lg_c, l_c, p_c), (out_g, lg_g, l_g, p_g) = runs.values()
+    assert (l_c, p_c) == (0, cfg.num_layers)
+    assert (l_g, p_g) == (cfg.num_layers, 0)
+    assert torch.equal(out_c, out_g)
+    for a, b in zip(lg_g, lg_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ----------------------------------------------------------------------------
+# the MoE layer and the MoE engine
+
+
+def _moe_inputs(arch, dev, dtype=torch.float32, seed=0):
+    """A smoke config's MoE layer at capacity factor 1.25 with a router
+    biased towards experts 0 and 2, so that capacity drops entries: (cfg,
+    params, x [4, 64, D]) on `dev`."""
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    p = moe.init_moe(torch.Generator().manual_seed(seed), cfg, torch.float32,
+                     "cpu")
+    p["router"][:, [0, 2]] += 0.05
+    x = torch.randn(4, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(seed + 1)) + 0.5
+    router = p["router"]
+    p = M.map_params(lambda t: t.to(dev, dtype), p)
+    p["router"] = router.to(dev)                   # fp32 in a bf16 model
+    return cfg, p, x.to(dev, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+def test_moe_layer_on_the_card_matches_the_cpu(sm90_card, arch):
+    """fp32, TF32 off, with capacity drops: the same routing, y within
+    rtol 1e-4 / atol 1e-5 and aux within 1e-6 of the CPU's; in bf16 two
+    card runs are bitwise equal (no atomic adds, no row written twice)."""
+    outs = []
+    for dev in ("cpu", sm90_card):
+        cfg, p, x = _moe_inputs(arch, dev)
+        tap = moe.Tap(record=True)
+        y, aux = moe.run_moe(p, x, cfg, tap)
+        outs.append((y.cpu(), float(aux), tap.dropped,
+                     torch.sort(tap.routes[0][1]).values))
+    (y_c, a_c, d_c, i_c), (y_g, a_g, d_g, i_g) = outs
+    assert d_c == d_g > 0 and torch.equal(i_c, i_g)
+    torch.testing.assert_close(y_g, y_c, **FP32)
+    assert abs(a_g - a_c) <= 1e-6 * abs(a_c)
+    cfg, p, x = _moe_inputs(arch, sm90_card, torch.bfloat16)
+    cfg = cfg.replace(dtype="bfloat16")
+    runs = [moe.run_moe(p, x, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0][0].dtype == torch.bfloat16
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_moe_engine_on_the_card_launches_flash(sm90_card):
+    """qwen2-moe-smoke in fp32: one B4 launch per layer and prefill, no
+    plain call, the card's greedy tokens the CPU's."""
+    cfg = get_config("qwen2-moe-a2.7b", smoke=True).replace(dtype="float32")
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", sm90_card):
+        logits = []
+        fa.counts.reset()
+        out = generate(M.map_params(lambda t: t.to(dev), params), cfg,
+                       tok.to(dev), 6,
+                       on_logits=lambda i, lg: logits.append(lg.cpu()))
+        runs.append((out.cpu(), logits, fa.counts.launches,
+                     fa.counts.plain_calls))
+    (out_c, lg_c, l_c, p_c), (out_g, lg_g, l_g, p_g) = runs
     assert (l_c, p_c) == (0, cfg.num_layers)
     assert (l_g, p_g) == (cfg.num_layers, 0)
     assert torch.equal(out_c, out_g)

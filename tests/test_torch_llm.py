@@ -309,8 +309,9 @@ def test_unsupported_kinds_and_impls_raise():
     g = torch.Generator().manual_seed(0)
     assert set(blocks.init_block(g, cfg, "ssm", "none", torch.float32)) \
         == {"ln1", "ssm"}                      # the SSM mixer is ported
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        blocks.init_block(g, cfg, "attn", "moe", torch.float32)
+    moe_cfg = get_config("qwen2-moe-a2.7b", smoke=True)   # so is the MoE MLP
+    assert set(blocks.init_block(g, moe_cfg, "attn", "moe", torch.float32)) \
+        == {"ln1", "attn", "ln2", "moe"}
     params = M.init(g, cfg, "cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="queue A item 6"):
@@ -523,4 +524,4 @@ def test_serve_llm_cli_defaults_to_cuda():
         serve_llm.main(["--smoke"])
     with pytest.raises(SystemExit, match="not ported"):
         serve_llm.main(["--smoke", "--device", "cpu", "--arch",
-                        "qwen2-moe-a2.7b"])
+                        "jamba-1.5-large-398b"])

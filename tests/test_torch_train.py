@@ -430,7 +430,8 @@ def _flat(tree, prefix=""):
 
 
 STEP_CASES = [("mamba2-130m", "chunked"), ("mamba2-130m", "pallas"),
-              ("tinyllama-1.1b", "pallas")]
+              ("tinyllama-1.1b", "pallas"), ("qwen2-moe-a2.7b", "pallas"),
+              ("granite-moe-3b-a800m", "pallas")]
 
 
 @pytest.mark.parametrize("arch,impl", STEP_CASES)
@@ -479,6 +480,45 @@ def test_train_step_bf16_within_relative_norm():
         return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
     for key in w:
         assert rel(g[key], w[key]) <= 2 * rel(w[key], w32[key]), key
+
+
+@pytest.mark.parametrize("arch,optimizer,clip", [
+    ("granite-moe-3b-a800m", "adamw", 1.0), ("mamba2-130m", "adam", 0.0),
+    ("tinyllama-1.1b", "sgd", 1.0)])
+def test_leaf_by_leaf_step_is_the_whole_tree_update(arch, optimizer, clip):
+    """Two steps with weight decay: the step's leaf-by-leaf update is
+    bitwise the optimizer applied to the whole tree at once (clip by the
+    global norm, `update`, `apply_updates`); the donating step (the
+    Trainer's) writes the state it is given, the other leaves it as it
+    was."""
+    cfg = get_config(arch, smoke=True).replace(dtype="float32", num_layers=1)
+    tc = T.TrainConfig(lr=1e-3, warmup=2, total_steps=10, weight_decay=0.1,
+                       optimizer=optimizer, grad_clip=clip)
+    p0 = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batches = [make_batch(cfg, 2, 16, seed=i, device="cpu") for i in range(2)]
+    want = T.train_state_from_params(M.map_params(torch.clone, p0), tc)
+    optimizer_ = T._make_optimizer(tc)
+    for batch in batches:
+        _, _, grads = T._compute_grads(want["params"], batch, cfg, tc)
+        if clip:
+            grads, _ = opt.clip_by_global_norm(grads, clip)
+        upd, new_opt = optimizer_.update(grads, want["opt"], want["params"])
+        want = dict(want, params=opt.apply_updates(want["params"], upd),
+                    opt=new_opt, step=want["step"] + 1)
+    for donate in (False, True):
+        state = T.train_state_from_params(M.map_params(torch.clone, p0), tc)
+        step, _ = T.make_train_step(cfg, tc, donate=donate)
+        for batch in batches:
+            kept = M.map_params(torch.clone, state)
+            new, met = step(state, batch)
+            assert (new is state) == donate
+            if not donate:       # the state it was given is as it was
+                assert all(torch.equal(a, b) for a, b in
+                           zip(M.leaves(state), M.leaves(kept)))
+            state = new
+        assert int(state["step"]) == 2
+        assert all(torch.equal(a, b)
+                   for a, b in zip(M.leaves(state), M.leaves(want)))
 
 
 def test_trainer_runs_and_refuses_what_is_not_ported():
