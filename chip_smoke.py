@@ -12,7 +12,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      solve service's main-path shapes and at ragged, tiny and bf16 shapes:
      the sampler (B1) at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2, also at
      the GAN trainer's shapes u [8192, 100, C] (C 2 for proxy1d, 3 for
-     proxy2d, 4 for linear_blur), at C 1, 3 and 5 and on views that start
+     proxy2d, 4 for linear_blur) and one proc worker's u [1024, 100, 2]
+     (phases 34-35), at C 1, 3 and 5 and on views that start
      1 or 3 elements into their buffer, and through the 2-D entry at
      imaging training's readout noise u [512, 32]; the mask (B2) bitwise
      over a sweep of threads per block; the blur (B3) at rtol/atol 1e-6
@@ -232,7 +233,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
      the loss at rtol 1e-5, every gradient leaf (the router's included)
      within 1e-3 in relative norm, the card's new parameters against the
      CPU's optimizer on the card's gradients at rtol 1e-6 / atol 1e-9,
-     routing pinned as in phase 29.
+     routing pinned as in phase 29;
+ 34. the paper's GAN as 8 worker processes on the one card
+     (`runtime.launch.run_proc`, the proc runtime over the mmap mailbox
+     fabric): `PAPER`, proxy1d, 2 x 4, fp32 with TF32 off, 10 epochs,
+     lock-step, once in `rma_arar_arar` with h 2 (the outer ring due on
+     alternate epochs) and once in `conv_arar`: the stacked final state
+     (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise the per-rank
+     reference computed in this process on the card
+     (`lockstep_reference`); B1 launched 10 times and its backward run 10
+     times in every worker, no plain call; the gap to `train_stacked`'s
+     10 epochs printed;
+ 35. the paper's workflow: `PAPER` (`rma_arar_arar`, h 1000) as 8 worker
+     processes, 2 x 4, 200 epochs, once lock-step and once free-running
+     with rank r sleeping r x 1 ms an epoch: phase 22's bars on the
+     history (every state leaf finite, the ensemble in (0, 1), the last
+     d_loss (mean over ranks) below the first and its minimum below
+     1.42), B1 once an epoch in every worker with its backward and no
+     plain call; per-rank epoch p50/p99 and peak memory, generated
+     events/s, the wall time from spawn to result and the workers'
+     start-up, the summed B1 counts, beside phase 22's stacked epoch p50.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -241,7 +261,8 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it.  The last lines are the `kernels` JSON line, the card's
+read just after it; the worker processes of phases 34-35 count their own
+launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -274,6 +295,7 @@ BLUR_BIG_SHAPE = (16, 256, 256)   # large images: 8.4 MB, half BLUR_SHAPE's
 BLUR_ROWS = (None, 1, 3, 4, 32, 64, 1000)   # band heights (None: the plan)
 TRAIN_ICDF_SHAPE = (8192, 100, 2)   # u of the GAN trainer's PAPER preset:
                                     # 8 ranks x 1024 samples, 100 events
+PROC_ICDF_SHAPE = (1024, 100, 2)    # ... one rank's, a proc worker's call
 TRAIN_ICDF_C3 = (8192, 100, 3)      # ... for proxy2d (3 channels)
 TRAIN_ICDF_C4 = (8192, 100, 4)      # ... for linear_blur (4 channels)
 TRAIN_IMAGES = 512                  # imaging training: 8 ranks x 64 samples
@@ -330,6 +352,10 @@ AUX_RTOL = 1e-6                 # phase 29, the aux loss
 ROUTE_GAP = 1e-6                # a top-k choice may differ below this gap
 MOE_TRAIN_STEPS = 50            # phase 32
 MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")  # models.moe's
+PROC_BITWISE = (("rma_arar_arar", 2), ("conv_arar", 2))   # phase 34: mode, h
+PROC_BITWISE_EPOCHS = 10        # phase 34
+PROC_LAG_MS = 1.0               # phase 35's free run: rank r sleeps r ms
+PROC_TIMEOUT_S = 600            # a proc run, spawn to result
 
 
 def fail(msg):
@@ -1802,7 +1828,8 @@ def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
 def gan_phases(dev, all_counts):
     """Phases 22-24: the paper's GAN trained at full width (PAPER, R 8),
     one epoch on the card against the CPU, and a profile of PAPER epochs.
-    Returns B1's launches over the counted training runs."""
+    Returns B1's launches over the counted training runs and phase 22's
+    epoch p50 (ms) by ring mode."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED
@@ -1820,13 +1847,15 @@ def gan_phases(dev, all_counts):
     def healthy(d):
         return (d[-1] < d[0] and d.min() < GAN_D_MIN,
                 f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
-    launches = 0
+    launches, p50s = 0, {}
     for mode in GAN_MODES:
         expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
                       else (0, 0, 0, 0)) for k in all_counts}
-        got = train_and_check("22", f"GAN PAPER {mode}", dev, paper(mode),
-                              data, all_counts, expect, healthy)
+        got, p50 = train_and_check("22", f"GAN PAPER {mode}", dev,
+                                   paper(mode), data, all_counts, expect,
+                                   healthy)
         launches += got["inverse_cdf"][0]
+        p50s[mode] = p50
 
     # -- 23. one epoch on the card against the CPU ---------------------------
     for mode in GAN_MODES:
@@ -1855,7 +1884,7 @@ def gan_phases(dev, all_counts):
         print(f"[24] GAN PAPER: B1's share of the card's time "
               f"{100 * b1 / total:.2f}% ({b1 / n / 1e3:.4f} ms an epoch), of "
               f"the epoch's host-clock time {100 * b1 / wall_us:.2f}%")
-    return launches
+    return launches, p50s
 
 
 def problem_phases(dev, all_counts):
@@ -1890,7 +1919,7 @@ def problem_phases(dev, all_counts):
             expect[forward] = (GAN_EPOCHS, 0, 0, GAN_EPOCHS)
         elif forward == "blur2d":
             expect[forward] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
-        got = train_and_check("26", f"{name} for_problem(PAPER)", dev,
+        got, _ = train_and_check("26", f"{name} for_problem(PAPER)", dev,
                               for_problem(name, PAPER), data, all_counts,
                               expect, healthy)
         for k in launches:
@@ -1940,6 +1969,148 @@ def problem_phases(dev, all_counts):
     return launches
 
 
+def proc_phases(dev, all_counts, stacked_p50):
+    """Phases 34-35: the paper's GAN as R 8 worker processes on the card
+    (`runtime.launch.run_proc`, 2 x 4): lock-step runs bitwise their
+    per-rank reference, then PAPER for GAN_EPOCHS epochs lock-step and
+    free-running with phase 22's bars.  `stacked_p50` is phase 22's epoch
+    p50 by mode.  Returns B1's launches in the workers over the counted
+    runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import gan
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ensemble import ensemble_response
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+    from repro_torch.runtime.launch import (GAN_KERNELS, lockstep_reference,
+                                            run_proc)
+
+    R = GAN_OUTER * GAN_INNER
+    K, E = PAPER.n_param_samples, PAPER.events_per_sample
+    prob = get_problem("proxy1d")
+    data = prob.make_reference_data(torch.Generator(device=dev).manual_seed(
+        99), GAN_REF_EVENTS, device=dev)
+    launches = 0
+
+    def paper(mode, h):
+        return dataclasses.replace(
+            PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode, h=h))
+
+    def counted(label, wcfg, n_epochs, **kw):
+        """One run with every count set to 0 just before it: each worker
+        must launch B1 once an epoch, forward and backward (its backward
+        is PyTorch's closed form), and nothing else; the parent nothing."""
+        nonlocal launches
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        out = run_proc(wcfg, GAN_OUTER, GAN_INNER, n_epochs, data,
+                       seed=SEED, device=dev, timeout=PROC_TIMEOUT_S, **kw)
+        parent = [k for k, c in all_counts.items()
+                  if c.launches or c.plain_calls or c.backward_launches
+                  or c.backward_plain]
+        # ------------------------------------------------------------------
+        want = {k: [n_epochs, 0, 0, n_epochs] if k == "inverse_cdf"
+                else [0, 0, 0, 0] for k in GAN_KERNELS}
+        bad = {s["rank"]: s["counts"] for s in out["summaries"]
+               if s["counts"] != want}
+        if bad or parent:
+            fail(f"{label}: workers' (launches, plain calls, backward "
+                 f"launches, backward plain) {bad}, expected {want} in each; "
+                 f"the parent counted {parent}")
+        launches += out["counts"]["inverse_cdf"][0]
+        return out
+
+    # -- 34. lock-step, bitwise its per-rank reference -----------------------
+    for mode, h in PROC_BITWISE:
+        t0 = time.perf_counter()
+        wcfg = paper(mode, h)
+        label = f"[34] PAPER {mode} h {h}, {R} workers"
+        out = counted(label, wcfg, PROC_BITWISE_EPOCHS)
+        ref = lockstep_reference(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                                 PROC_BITWISE_EPOCHS, data, device=dev)
+        diff = {k: float((a - b).abs().max())
+                for (k, a), b in zip(tree_paths(out["state"]),
+                                     tree_leaves(ref))
+                if not torch.equal(a, b)}
+        if diff:
+            fail(f"{label}: the workers' final state is not bitwise the "
+                 f"per-rank reference: max |diff| by leaf {diff}")
+        stacked, _ = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                                     PROC_BITWISE_EPOCHS, data, device=dev)
+        gap = {top: max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(stacked[top]), tree_leaves(out["state"][top])))
+            for top in ("gen", "disc")}
+        print(f"{label} ({GAN_OUTER} x {GAN_INNER}) on one card, lock-step, "
+              f"{PROC_BITWISE_EPOCHS} epochs, fp32 (TF32 off): the final "
+              f"state (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise "
+              f"the per-rank reference computed in this process; B1 "
+              f"launched {PROC_BITWISE_EPOCHS} times and its backward "
+              f"{PROC_BITWISE_EPOCHS} times in each worker, no plain call; "
+              f"against train_stacked's {PROC_BITWISE_EPOCHS} epochs max "
+              f"|diff| gen {gap['gen']:.3e}, disc {gap['disc']:.3e} "
+              f"(batched against per-rank GEMMs); start-up "
+              f"{out['startup_s']:.1f} s, spawn to result "
+              f"{out['wall_s']:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+        del out, ref, stacked
+
+    # -- 35. the paper's workflow: 200 epochs, lock-step and free-running ---
+    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
+        ).manual_seed(7)).to(dev)
+    wcfg = PAPER
+    for label, kw in (
+            ("lock-step", {}),
+            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
+             {"lockstep": False,
+              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
+        t0 = time.perf_counter()
+        tag = f"[35] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, {label}"
+        out = counted(tag, wcfg, GAN_EPOCHS, **kw)
+        state, hist = out["state"], out["history"]
+        bad = [k for k, t in tree_paths(state)
+               if not bool(torch.isfinite(t.float()).all())]
+        p_hat, _ = ensemble_response(state["gen"], noise)
+        d = hist["d_loss"].mean(1).numpy()
+        if bad or not np.isfinite(d).all() or not (
+                0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
+                or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
+            fail(f"{tag}: non-finite leaves {bad[:4]}, ensemble in "
+                 f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss "
+                 f"first {d[0]}, last {d[-1]}, min {d.min()}: the bars are "
+                 f"finite state and d_loss, the ensemble in (0, 1), last < "
+                 f"first and min < {GAN_D_MIN}")
+        ms = hist["epoch_s"].numpy() * 1e3                   # [T, R]
+        p50 = np.percentile(ms, 50, axis=0)
+        print(f"{tag}: {R} workers ({GAN_OUTER} x {GAN_INNER}) on one card, "
+              f"{GAN_EPOCHS} epochs, fp32 (TF32 off); d_loss (mean over "
+              f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f} "
+              f"< {GAN_D_MIN}; every state leaf finite; ensemble in "
+              f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f}); final "
+              f"mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f}")
+        for s, a, b in zip(out["summaries"], p50,
+                           np.percentile(ms, 99, axis=0)):
+            print(f"{tag}: rank {s['rank']} on {s['device']}: epoch p50 "
+                  f"{a:.3f} ms, p99 {b:.3f} ms (host clock after "
+                  f"torch.cuda.synchronize), {s['wall_s']:.2f} s for its "
+                  f"epochs, peak memory "
+                  f"{s['peak_memory_bytes'] / 2**30:.3f} GiB")
+        print(f"{tag}: {K * E * (1e3 / p50).sum():,.0f} generated events/s "
+              f"(each rank's {K} x {E} events at its epoch p50, summed); "
+              f"spawn to result {out['wall_s']:.1f} s, start-up (spawn to "
+              f"the last worker through the run-start barrier) "
+              f"{out['startup_s']:.1f} s; B1 summed over the workers "
+              f"(launches, plain, backward launches, backward plain) "
+              f"{out['counts']['inverse_cdf']}; phase 22's stacked epoch "
+              f"p50 in the same run {stacked_p50[wcfg.sync.mode]:.3f} ms "
+              f"({R * K * E / stacked_p50[wcfg.sync.mode] * 1e3:,.0f} "
+              f"events/s); phase {time.perf_counter() - t0:.1f} s")
+        del out, state, hist
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
                     d_bar):
     """Train `wcfg` at R 8 (GAN_OUTER x GAN_INNER) for GAN_EPOCHS epochs
@@ -1949,7 +2120,8 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     finite, the ensemble lies in (0, 1), every recorded d_loss is finite
     and `d_bar(d_loss by recorded epoch)` gives (True, its text).  Prints
     the run, the d_loss trajectory, epoch p50/p99 (CUDA events), events/s,
-    peak memory and the final mean|r̂|; returns the counts."""
+    peak memory and the final mean|r̂|; returns the counts and the epoch
+    p50 (ms)."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core import workflow as W
@@ -2023,7 +2195,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
           f"batch, mean over ranks)")
     del state, hist
     torch.cuda.empty_cache()
-    return got
+    return got, p50
 
 
 @contextlib.contextmanager
@@ -2419,6 +2591,7 @@ def main():
              (TRAIN_ICDF_SHAPE, torch.float32, torch.float32, 0),
              (TRAIN_ICDF_SHAPE, torch.bfloat16, torch.bfloat16, 0),
              (TRAIN_ICDF_SHAPE, torch.float32, torch.float32, 1),
+             (PROC_ICDF_SHAPE, torch.float32, torch.float32, 0),
              (TRAIN_ICDF_SHAPE, torch.bfloat16, torch.float32, 3),
              ((8192, 100, 1), torch.float32, torch.float32, 0),
              (TRAIN_ICDF_C3, torch.float32, torch.float32, 0),
@@ -2768,7 +2941,8 @@ def main():
     launches["ssd_scan"] = train_phases(dev, all_counts)
 
     # -- 22-24. the paper's GAN training -------------------------------------
-    launches["inverse_cdf"] += gan_phases(dev, all_counts)
+    n, gan_p50 = gan_phases(dev, all_counts)
+    launches["inverse_cdf"] += n
 
     # -- 25. serve proxy2d and linear_blur -----------------------------------
     for name in PROBLEMS_SERVED:
@@ -2800,6 +2974,9 @@ def main():
 
     # -- 29-33. the MoE family -----------------------------------------------
     launches["flash_attention"] += moe_phases(dev, all_counts)
+
+    # -- 34-35. the GAN as worker processes (B1: the workers' launches) -----
+    launches["inverse_cdf"] += proc_phases(dev, all_counts, gan_p50)
 
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",

@@ -10,7 +10,8 @@ bf16 leaves are stored as their uint16 bit pattern, with "bfloat16" in
 `dtypes`; `read_step` widens them to fp32 by a 16-bit shift, which is
 exact (no `ml_dtypes` needed).  Only numpy and json are used.
 
-The writer (`save_checkpoint`, `latest_step`, `restore_latest`) keeps
+The writer (`save_checkpoint`, `latest_step`, `restore_latest`,
+`restore_checkpoint` for one given step) keeps
 that layout for the port's GAN training state, so the JAX package's
 `restore_latest` reads a port checkpoint into its own state template,
 and its solve service serves the generator in it.  The keys are the JAX
@@ -54,7 +55,9 @@ _SEP = "/"
 # what a process killed mid-save can leave behind: truncated or garbage
 # zip members, a half-written meta.json, missing files.  A structural
 # mismatch (no generator, wrong shapes) is not in this set and raises.
-_CORRUPT = (OSError, EOFError, zlib.error, zipfile.BadZipFile,
+# `restore_latest` and the proc runtime's resume negotiation skip a step
+# that raises one of these.
+CORRUPT_ERRORS = (OSError, EOFError, zlib.error, zipfile.BadZipFile,
             json.JSONDecodeError)
 
 
@@ -212,7 +215,7 @@ def load_generator_stack(directory: str, device=None
     for step in reversed(list_steps(directory)):
         try:
             arrays = read_step(directory, step)
-        except _CORRUPT as e:
+        except CORRUPT_ERRORS as e:
             warnings.warn(f"checkpoint step_{step} in {directory} failed to "
                           f"load ({type(e).__name__}: {e}); falling back to "
                           "the previous step")
@@ -269,10 +272,12 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _restore(directory: str, step: int, like_tree):
-    """One step into `like_tree`'s structure, each leaf with the like
-    leaf's dtype and device.  A missing key or a shape that differs from
-    the like leaf's raises (the caller's tree no longer matches)."""
+def restore_checkpoint(directory: str, step: int, like_tree):
+    """Step `step` under `directory` into `like_tree`'s structure, each
+    leaf with the like leaf's dtype and device (`like_tree`'s keys only:
+    a step may hold more).  A missing key or a shape that differs from the
+    like leaf's raises (the caller's tree no longer matches); a step a
+    killed process left half-written raises one of `CORRUPT_ERRORS`."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -305,8 +310,8 @@ def restore_latest(directory: str, like_tree):
     mismatch raises."""
     for step in reversed(list_steps(directory)):
         try:
-            return _restore(directory, step, like_tree), step
-        except _CORRUPT as e:
+            return restore_checkpoint(directory, step, like_tree), step
+        except CORRUPT_ERRORS as e:
             warnings.warn(f"checkpoint step_{step} in {directory} failed to "
                           f"load ({type(e).__name__}: {e}); falling back to "
                           "the previous step")

@@ -1,10 +1,13 @@
 """Communication backend of the gradient exchange — counterpart of
 `repro.core.ring` (`Comm` and `VmapComm`, lines 55–175).
 
-`VmapComm` simulates R = n_outer · n_inner ranks on one device: every
-tree exchanged carries a leading [R] axis ordered (outer, inner) row-major,
-and a ring transfer is a `torch.roll` along it.  Ring direction follows
-Algorithm 1: rank i receives from its predecessor i − 1.
+Every backend of the port is stacked-first: the trees it exchanges carry
+a leading rank axis.  `VmapComm` simulates R = n_outer · n_inner ranks on
+one device: the axis is [R], ordered (outer, inner) row-major, and a ring
+transfer is a `torch.roll` along it.  `runtime.proccomm.ProcComm` is one
+rank of R worker processes: the axis is [1], and a ring transfer crosses
+an mmap mailbox.  Ring direction follows Algorithm 1: rank i receives
+from its predecessor i − 1.
 
 The mesh backend (`ShardComm`, ranks on several cards) is ROADMAP.md
 queue A item 6; the overlap ship (`ship_outer`, `cond_ship`) and the
@@ -46,12 +49,14 @@ class Comm:
         raise NotImplementedError
 
     def inner_index(self, device=None):
-        """Per-rank inner-group index."""
+        """Inner-group index of each rank on the leading axis."""
         raise NotImplementedError
 
-    def mask_where(self, cond, a, b):
-        """Select `a` where `cond` else `b`, leafwise."""
-        raise NotImplementedError
+    def mask_where(self, cond_per_rank, a, b):
+        """Select a where cond (per-rank bool on the leading axis) else b,
+        leafwise."""
+        return tree_map(lambda x, y: torch.where(
+            cond_per_rank.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 @dataclasses.dataclass
@@ -90,8 +95,3 @@ class VmapComm(Comm):
 
     def inner_index(self, device=None):
         return torch.arange(self.n_inner, device=device).repeat(self.n_outer)
-
-    def mask_where(self, cond_per_rank, a, b):
-        """Select a where cond (per-rank bool [R]) else b, leafwise."""
-        return tree_map(lambda x, y: torch.where(
-            cond_per_rank.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)

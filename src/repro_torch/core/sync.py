@@ -2,8 +2,9 @@
 
 Counterpart of `repro.core.sync`: the strategy layer (`sync_gradients`,
 `_sync_core`, lines 494–647) and the schedule layer (`SyncSchedule`,
-`StaticSchedule`, `make_schedule`, lines 654–785), over the simulated
-ranks of `ring.VmapComm`.
+`StaticSchedule`, `make_schedule`, lines 654–785), over any stacked-first
+`ring.Comm`: the simulated ranks of `ring.VmapComm` or one worker process
+of `runtime.proccomm.ProcComm`.
 
     mode            ring payload      mailbox   outer ring   combine
     --------------  ----------------  --------  -----------  ----------
@@ -39,7 +40,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from .ring import Comm, VmapComm
+from .ring import Comm
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 MODES = ("ensemble", "allreduce", "conv_arar", "arar_arar", "rma_arar_arar",
@@ -269,19 +270,18 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
 
     `spec` is the cached FusionSpec of the fused path; when omitted it is
     rebuilt from `grads`/`mask`."""
-    stacked = isinstance(comm, VmapComm)
     fuse = cfg.fuse_tensors and mask is not None and cfg.mode in RING_MODES
     if fuse and spec is None:
-        example = tree_map(lambda x: x[0] if stacked else x, grads)
+        example = tree_map(lambda x: x[0], grads)
         spec = FusionSpec.build(
             example, mask, payload_dtype=payload_dtype_of(
                 cfg.payload_precision))
     if fuse and spec.total > 0:     # all-False mask: nothing rides the ring
         fsynced, fnew_mb = _sync_core(
-            comm, cfg, {"w": spec.flatten(grads, stacked)},
-            {"w": spec.flatten(mailbox, stacked)}, epoch, {"w": True})
-        synced = spec.unflatten(fsynced["w"], grads, stacked)
-        new_mailbox = spec.unflatten(fnew_mb["w"], mailbox, stacked)
+            comm, cfg, {"w": spec.flatten(grads, True)},
+            {"w": spec.flatten(mailbox, True)}, epoch, {"w": True})
+        synced = spec.unflatten(fsynced["w"], grads, True)
+        new_mailbox = spec.unflatten(fnew_mb["w"], mailbox, True)
     else:
         synced, new_mailbox = _sync_core(comm, cfg, grads, mailbox, epoch,
                                          mask)

@@ -30,6 +30,9 @@ Two halves:
   epoch, and backward once where the gradient reaches it.  An
   image-valued problem trains the conv generator (`models.convgen`).
 
+`train_proc` runs the same loop with each rank a worker process of its
+own (`runtime.launch`), the exchange crossing mmap mailboxes.
+
 The epoch's random draws (`make_draws`: generator noise, sampler
 uniforms, bootstrap indices) come from one `torch.Generator` on the run's
 device; `make_epoch_fn` takes them from the caller instead, which is how
@@ -273,19 +276,38 @@ def init_state(generator: torch.Generator, n_ranks: int,
     return tree_map(lambda *xs: torch.stack(xs), *states)
 
 
+def rank_rows(tree, rank: int):
+    """Rank `rank`'s rows of a stacked tree, each leaf [1, ...] and a
+    fresh contiguous copy: a proc worker's tensors own their storage, as
+    those of its in-process reference do (`runtime.launch
+    .lockstep_reference`)."""
+    return tree_map(lambda x: x[rank:rank + 1].clone(), tree)
+
+
 def init_run(generator: torch.Generator, n_ranks: int, wcfg: WorkflowConfig,
-             data, device=None):
+             data, device=None, rank: Optional[int] = None):
     """(stacked initial state, per-rank data [R, n_sub, obs]): each rank
     keeps a random `data_fraction` of the reference data (§VI-C2), a
-    permutation drawn from `generator` after the state's weights."""
+    permutation drawn from `generator` after the state's weights.
+
+    An int `rank` returns that rank's state and data with a leading [1]
+    (`rank_rows`), bitwise the rows of the stacked result, and leaves
+    `generator` where the stacked call leaves it.  Every rank is drawn
+    from the one generator in stacked order, so a rank cannot derive its
+    own draws as the JAX package's key split does (`init_run`, lines
+    166–178): the stacked result is built and its rows kept, O(R) work in
+    each proc worker."""
     dev = resolve_device(device)
     state = init_state(generator, n_ranks, wcfg, device=dev)
     n_sub = max(1, int(wcfg.data_fraction * data.shape[0]))
     data = data.to(dev)
-    split = [data[torch.randperm(data.shape[0], generator=generator,
-                                 device=generator.device).to(dev)[:n_sub]]
-             for _ in range(n_ranks)]
-    return state, torch.stack(split)
+    split = torch.stack([
+        data[torch.randperm(data.shape[0], generator=generator,
+                            device=generator.device).to(dev)[:n_sub]]
+        for _ in range(n_ranks)])
+    if rank is None:
+        return state, split
+    return rank_rows(state, rank), rank_rows(split, rank)
 
 
 EpochDraws = Dict[str, torch.Tensor]
@@ -298,7 +320,9 @@ def make_draws(generator: torch.Generator, wcfg: WorkflowConfig,
     the bootstrap's indices idx [R, K·E] into each rank's n_sub events
     (with replacement, §IV-B).  The JAX package draws the same
     distributions from each rank's key (`workflow.py:336`, `:315` and
-    `problems/__init__.py:121–125`)."""
+    `problems/__init__.py:121–125`).  A proc worker draws all R ranks'
+    and keeps its rows (`rank_rows`): at `PAPER` ~17 MB an epoch, made on
+    the card."""
     K, E = wcfg.n_param_samples, wcfg.events_per_sample
     dev = generator.device
     return {
@@ -460,3 +484,30 @@ def train_stacked(seed: int, wcfg: WorkflowConfig, n_outer: int,
                                       "problem": wcfg.problem})
     history = tree_map(lambda *xs: torch.stack(xs), *hist) if hist else {}
     return state, history
+
+
+def train_proc(seed: int, wcfg: WorkflowConfig, n_outer: int, n_inner: int,
+               n_epochs: int, data, **kw):
+    """R = n_outer·n_inner ranks as R worker processes on this host, the
+    counterpart of `repro.core.workflow.train_proc` (:740–768): each
+    worker holds one rank's state and runs its epochs, exchanging
+    generator gradients through the mmap mailboxes of `runtime`
+    (`ProcComm`) under the unchanged schedule layer.
+
+    `seed` seeds what `train_stacked` seeds: every worker rebuilds the
+    stacked initial state, data split and epoch draws from it and keeps
+    its own rows.  Keyword args pass through to `runtime.launch.run_proc`:
+    `device` (None: CUDA), `lockstep` (default True: a zero-jitter run is
+    bitwise `runtime.launch.lockstep_reference`), `jitter` (a
+    `runtime.JitterConfig`; implies free-running), `ckpt_every`/`resume`
+    (per-process checkpoints), `run_dir`, `timeout`.
+
+    Returns (state, history): `state` is the workers' final states stacked
+    into the `[R, ...]` layout, `history` maps each metric to `[T, R,
+    ...]` over every epoch run.  Use `run_proc` itself for the per-worker
+    summaries (devices, wall times, kernel counts)."""
+    from ..runtime.launch import run_proc
+    if kw.get("jitter") is not None and "lockstep" not in kw:
+        kw["lockstep"] = False         # jitter only bites when free-running
+    out = run_proc(wcfg, n_outer, n_inner, n_epochs, data, seed=seed, **kw)
+    return out["state"], out["history"]

@@ -20,13 +20,28 @@ Full-state checkpoints land in --checkpoint-dir every --ckpt-every
 epochs (the JAX store's layout) and --resume continues bitwise from the
 newest one.
 
+`--backend proc` runs the R ranks as R real worker processes
+(`core.workflow.train_proc`, `runtime/`) exchanging gradients through
+mmap mailboxes, all on the one device:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --backend proc \
+        --num-procs 2 --device cpu --epochs 12 --param-samples 16
+
+--num-procs overrides --ranks; the ring is (N / --inner) x --inner when
+--inner divides N, else 1 x N.  The run is lock-step (bitwise the
+per-rank computation in one process) unless --free-run or a --jitter-*
+flag lets the ranks drift apart.  --checkpoint-dir is then the run
+directory: per-process checkpoints under ckpt/rank_<r>, and --resume
+continues from the newest step every rank can load.  It ends with one
+line per rank (device, epochs, epoch p50, wall time) and the workers'
+summed kernel counts.
+
 The exchange schedules other than `sync` (--sync-schedule, --staleness,
 --max-staleness, --payload-precision, --ring-chunking, --disc-every,
---gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3,
-and `--backend proc` is item 7: they raise.  The run ends with the
-ensemble against the truth, the serving-path solve (`core.workflow
-.make_solver`) on the reference events, and the kernels' launches and
-plain calls.
+--gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3:
+they raise.  The run ends with the ensemble against the truth, the
+serving-path solve (`core.workflow.make_solver`) on the reference events,
+and the kernels' launches and plain calls.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -45,8 +61,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.imaging import blur_counts, mask_counts
 from repro_torch.kernels.inverse_cdf import counts as icdf_counts
 from repro_torch.problems import available, get_problem
-
-PROC_ITEM = "ROADMAP.md queue A item 7 (the proc runtime)"
 
 
 def report_final(problem, gen_stack, data, device):
@@ -81,6 +95,51 @@ def report_final(problem, gen_stack, data, device):
     return r_ens, r_sol
 
 
+def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
+    """The proc backend: one worker process a rank, then one line per rank
+    and the workers' summed kernel counts.  Returns the stacked state."""
+    from repro_torch.runtime import JitterConfig, run_proc
+    jitter = None
+    if args.jitter_rank_lag_ms > 0 or args.jitter_noise_ms > 0:
+        jitter = JitterConfig(seed=args.seed,
+                              rank_lag_ms=args.jitter_rank_lag_ms,
+                              noise_ms=args.jitter_noise_ms)
+    lockstep = not (args.free_run or jitter is not None)
+    print(f"backend=proc: {n_outer * n_inner} worker processes "
+          f"({n_outer} x {n_inner}), "
+          f"{'lock-step' if lockstep else 'free-running'}, jitter {jitter}",
+          flush=True)
+    out = run_proc(wcfg, n_outer, n_inner, args.epochs, data,
+                   seed=args.seed, lockstep=lockstep, jitter=jitter,
+                   run_dir=args.checkpoint_dir,
+                   ckpt_every=args.ckpt_every if args.checkpoint_dir else 0,
+                   resume=args.resume, device=dev)
+    for s in out["summaries"]:
+        n = s["n_epochs"] - s["start_epoch"]
+        p50 = (f"epoch p50 {1e3 * np.median(s['history']['epoch_s']):.2f} "
+               f"ms" if n else "no new epochs")
+        print(f"  rank {s['rank']} on {s['device']}: {n} epochs from "
+              f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s")
+    h = out["history"]
+    if len(h["d_loss"]):
+        print(f"last epoch: d_loss {float(h['d_loss'][-1].mean()):.3f} "
+              f"g_loss {float(h['g_loss'][-1].mean()):.3f} (mean over "
+              f"ranks); {out['wall_s']:.1f} s from spawn to result, "
+              f"start-up {out['startup_s']:.1f} s")
+    launches, plain, _, bwd_plain = out["counts"]["inverse_cdf"]
+    print(f"inverse-CDF sampler (B1), summed over the workers: {launches} "
+          f"kernel launches, {plain} plain calls, {bwd_plain} backward "
+          f"passes (closed form in PyTorch)")
+    if wcfg.problem_obj.param_shape is not None:
+        for name, tag in (("mask_apply", "mask (B2)"),
+                          ("blur2d", "blur (B3)")):
+            c = out["counts"][name]
+            print(f"{tag}, summed over the workers: {c[0]} kernel "
+                  f"launches, {c[1]} plain calls, {c[2] + c[3]} backward "
+                  f"passes")
+    return out["state"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=("paper", "reduced"),
@@ -110,16 +169,25 @@ def main(argv=None):
     ap.add_argument("--ring-chunking", type=int, default=0)
     ap.add_argument("--disc-every", type=int, default=1)
     ap.add_argument("--gen-every", type=int, default=1)
-    ap.add_argument("--backend", default="vmap")
+    ap.add_argument("--backend", choices=("vmap", "proc"), default="vmap",
+                    help="vmap: the ranks stacked in one process; proc: "
+                         "one worker process a rank")
+    ap.add_argument("--num-procs", type=int, default=None,
+                    help="proc backend: worker processes (overrides "
+                         "--ranks)")
+    ap.add_argument("--free-run", action="store_true",
+                    help="proc backend: no lock-step rendezvous; reads "
+                         "take the latest deposit (implied by --jitter-*)")
+    ap.add_argument("--jitter-rank-lag-ms", type=float, default=0.0,
+                    help="proc backend: rank r sleeps r * LAG ms an epoch")
+    ap.add_argument("--jitter-noise-ms", type=float, default=0.0,
+                    help="proc backend: a seeded uniform [0, NOISE) ms "
+                         "sleep an epoch")
     for flag in ("--metrics-out", "--trace-dir", "--profile-dir"):
         ap.add_argument(flag, default=None)
     ap.add_argument("--obs-metrics", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.backend != "vmap":
-        raise NotImplementedError(
-            f"--backend {args.backend}: the port simulates the ranks on one "
-            f"device; real worker processes are {PROC_ITEM}")
     later = [f for f, on in (
         ("--sync-schedule", args.sync_schedule != "sync"),
         ("--staleness", args.staleness != 1),
@@ -146,11 +214,14 @@ def main(argv=None):
         wcfg = dataclasses.replace(wcfg, n_param_samples=args.param_samples)
     wcfg = sagips_gan.for_problem(args.problem, wcfg)
     problem = get_problem(args.problem)
-    n_inner = min(args.inner, args.ranks)
-    if args.ranks % n_inner:
-        ap.error(f"--ranks {args.ranks} must be divisible by --inner "
-                 f"{n_inner}")
-    n_outer = args.ranks // n_inner
+    if args.backend == "proc":
+        R = args.num_procs or args.ranks
+        n_inner = args.inner if R % args.inner == 0 else R
+    else:
+        R, n_inner = args.ranks, min(args.inner, args.ranks)
+        if R % n_inner:
+            ap.error(f"--ranks {R} must be divisible by --inner {n_inner}")
+    n_outer = R // n_inner
     if dev.type == "cuda":          # the kernels' first-use build
         build.build_all(("inverse_cdf", "imaging")
                         if problem.param_shape else ("inverse_cdf",))
@@ -162,6 +233,10 @@ def main(argv=None):
           f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "
           f"disc_batch={wcfg.disc_batch} lr gen {wcfg.gen_lr} disc "
           f"{wcfg.disc_lr} on {dev}")
+    if args.backend == "proc":
+        state = proc_backend(args, wcfg, n_outer, n_inner, data, dev)
+        report_final(problem, state["gen"], data, dev)
+        return state
 
     report_every = max(args.epochs // 10, 1)
     chunk = args.chunk if args.chunk > 0 else report_every

@@ -22,7 +22,8 @@ registered problem on its kernels, with the conv generator's backward in
 full fp32).  Flash attention is held at head dim 80 on both routes, and
 at GQA group 3 (granite-moe-3b-a800m's).  The MoE layer on the card is
 held against the CPU with capacity drops, and is bitwise repeatable in
-bf16.
+bf16.  The proc runtime's 2 worker processes on the card are bitwise
+their per-rank reference, with B1 on its kernel in both.
 """
 import numpy as np
 import pytest
@@ -945,3 +946,30 @@ def test_gan_step_with_cpu_uniforms_raises_on_the_card(sm90_card):
     with pytest.raises(ValueError, match="is on cuda"):
         W.rank_grads(state, data, draws, wcfg)
     assert (counts.launches, counts.plain_calls) == (0, 0)
+
+
+# ----------------------------------------------------------------------------
+# the proc runtime
+
+
+def test_proc_runtime_on_the_card_is_bitwise_its_reference(sm90_card):
+    """2 worker processes on the card, lock-step, 3 epochs: the stacked
+    final state is bitwise the per-rank reference computed in this
+    process on the card, and B1 launched once an epoch in each worker,
+    forward and backward, with no plain call."""
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.runtime.launch import lockstep_reference, run_proc
+    wcfg = W.WorkflowConfig(sync=sync.SyncConfig(mode="rma_arar_arar", h=2),
+                            n_param_samples=16, events_per_sample=8,
+                            gen_lr=2e-4, disc_lr=5e-4)
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator().manual_seed(99), 2_000, device=sm90_card)
+    out = run_proc(wcfg, 1, 2, 3, data, seed=0, device=sm90_card,
+                   timeout=600)
+    ref = lockstep_reference(0, wcfg, 1, 2, 3, data, device=sm90_card)
+    for (k, a), b in zip(tree_paths(out["state"]), tree_leaves(ref)):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
+    assert out["counts"]["inverse_cdf"] == (6, 0, 0, 6)
+    assert [s["device"] for s in out["summaries"]] == \
+        [torch.cuda.get_device_name(0)] * 2

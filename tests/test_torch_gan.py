@@ -26,7 +26,7 @@ reference's own key-split order (`jax_draws`: `workflow.py:336`, `:315`,
                   on CPU tensors through B1's plain version
   checkpoints     the JAX store reads the port's checkpoint, both services
                   serve its generator, `resume` is bitwise
-  CLI             `python -m repro_torch.launch.train_gan`
+  CLI             `python -m repro_torch.launch.train_gan`, both backends
 
 The card's side (one epoch against the CPU, B1's counts) is in
 tests/test_torch_cuda.py and `chip_smoke.py` phases 22–24.
@@ -625,8 +625,19 @@ def test_train_gan_cli_on_the_cpu(capsys):
     assert "0 kernel launches, 12 plain calls, 12 backward passes" in out
     assert "final ensemble prediction vs truth" in out
     assert "serving-path solve" in out
-    for argv, item in ((["--backend", "proc"], "item 7"),
-                       (["--sync-schedule", "overlap"], "item 3"),
+    # the proc backend: 2 worker processes, one line each, B1's counts
+    # summed over them
+    train_gan.main(["--device", "cpu", "--backend", "proc", "--num-procs",
+                    "2", "--epochs", "3", "--param-samples", "8",
+                    "--events", "2000"])
+    out = capsys.readouterr().out
+    assert "2 worker processes (1 x 2), lock-step" in out
+    for r in (0, 1):
+        assert f"rank {r} on cpu: 3 epochs from 0, epoch p50" in out
+    assert ("summed over the workers: 0 kernel launches, 6 plain calls, 6 "
+            "backward passes") in out
+    assert "serving-path solve" in out
+    for argv, item in ((["--sync-schedule", "overlap"], "item 3"),
                        (["--disc-every", "2"], "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             train_gan.main(["--device", "cpu"] + argv)
