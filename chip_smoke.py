@@ -252,7 +252,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
      1.42), B1 once an epoch in every worker with its backward and no
      plain call; per-rank epoch p50/p99 and peak memory, generated
      events/s, the wall time from spawn to result and the workers'
-     start-up, the summed B1 counts, beside phase 22's stacked epoch p50.
+     start-up, the summed B1 counts, beside phase 22's stacked epoch p50;
+ 36. the bf16 ring payload (`payload_precision="bf16"`, fp32 master
+     state), stacked: `PAPER` at R 8 for 200 epochs in `rma_arar_arar`
+     (h 1000) and `conv_arar` with phase 22's bars and counts, each epoch
+     p50/p99 and events/s beside phase 22's fp32 p50 of the same run, the
+     generator-parameter and residual gaps to phase 22's fp32 run printed;
+     `for_problem("imaging_blur", PAPER)` at bf16 for 200 epochs with
+     phase 26's bars and counts (B1 on u [512, 32], B3 on [512, 32, 32]
+     and as its backward); one bf16 epoch card vs CPU as phase 23 (the
+     CPU's exchange of the card's gradients bitwise the card's).  Every
+     trained state must hold the mailbox's weights and the outer mailbox
+     in the payload's dtype and the master state in fp32 (phases 22, 26
+     and 34-35 check the same at fp32);
+ 37. the bf16 payload on the proc runtime: phase 34's bitwise runs at
+     bf16 (the deposit 101,632 B, half of fp32's, read off the ring's
+     window from rank 0 to rank 1) and phase 35's lock-step run at bf16, its epoch p50
+     a rank beside phase 35's fp32 one.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -261,8 +277,8 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35 count their own
-launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
+read just after it; the worker processes of phases 34-35 and 37 count
+their own launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -1828,8 +1844,9 @@ def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
 def gan_phases(dev, all_counts):
     """Phases 22-24: the paper's GAN trained at full width (PAPER, R 8),
     one epoch on the card against the CPU, and a profile of PAPER epochs.
-    Returns B1's launches over the counted training runs and phase 22's
-    epoch p50 (ms) by ring mode."""
+    Returns B1's launches over the counted training runs and, by ring
+    mode, phase 22's (epoch p50 in ms, final generator stack on the CPU,
+    final ensemble mean|r̂|)."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED
@@ -1847,15 +1864,15 @@ def gan_phases(dev, all_counts):
     def healthy(d):
         return (d[-1] < d[0] and d.min() < GAN_D_MIN,
                 f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
-    launches, p50s = 0, {}
+    launches, finals = 0, {}
     for mode in GAN_MODES:
         expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
                       else (0, 0, 0, 0)) for k in all_counts}
-        got, p50 = train_and_check("22", f"GAN PAPER {mode}", dev,
-                                   paper(mode), data, all_counts, expect,
-                                   healthy)
+        got, p50, final = train_and_check("22", f"GAN PAPER {mode}", dev,
+                                          paper(mode), data, all_counts,
+                                          expect, healthy)
         launches += got["inverse_cdf"][0]
-        p50s[mode] = p50
+        finals[mode] = (p50, final["gen"], final["residual"])
 
     # -- 23. one epoch on the card against the CPU ---------------------------
     for mode in GAN_MODES:
@@ -1884,21 +1901,22 @@ def gan_phases(dev, all_counts):
         print(f"[24] GAN PAPER: B1's share of the card's time "
               f"{100 * b1 / total:.2f}% ({b1 / n / 1e3:.4f} ms an epoch), of "
               f"the epoch's host-clock time {100 * b1 / wall_us:.2f}%")
-    return launches, p50s
+    return launches, finals
 
 
 def problem_phases(dev, all_counts):
     """Phases 26-28: proxy2d, linear_blur, imaging and imaging_blur
     trained at full width (`for_problem(name, PAPER)`, R 8), one epoch of
     three of them on the card against the CPU, and a profile of imaging
-    epochs.  Returns each kernel's launches over the counted runs."""
+    epochs.  Returns each kernel's launches over the counted runs and each
+    trained problem's epoch p50 (ms)."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
     from repro_torch.problems import get_problem
 
     launches = {k: 0 for k in all_counts}
-    datas = {}
+    datas, p50s = {}, {}
 
     # -- 26. train every other problem at full width -------------------------
     def healthy(d):
@@ -1919,9 +1937,9 @@ def problem_phases(dev, all_counts):
             expect[forward] = (GAN_EPOCHS, 0, 0, GAN_EPOCHS)
         elif forward == "blur2d":
             expect[forward] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
-        got, _ = train_and_check("26", f"{name} for_problem(PAPER)", dev,
-                              for_problem(name, PAPER), data, all_counts,
-                              expect, healthy)
+        got, p50s[name], _ = train_and_check(
+            "26", f"{name} for_problem(PAPER)", dev,
+            for_problem(name, PAPER), data, all_counts, expect, healthy)
         for k in launches:
             launches[k] += got[k][0]
 
@@ -1966,7 +1984,185 @@ def problem_phases(dev, all_counts):
         print(f"[28] imaging: the generator's convs take "
               f"{100 * conv / total:.1f}% of the card's time, B1-B3 "
               f"{100 * kern / total:.2f}%")
-    return launches
+    return launches, p50s
+
+
+def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
+    """One proc run of `wcfg` as R 8 worker processes (GAN_OUTER x
+    GAN_INNER) with every count set to 0 just before it: each worker must
+    launch B1 once an epoch, forward and backward (its backward is
+    PyTorch's closed form), and nothing else; the parent nothing."""
+    from repro_torch.runtime.launch import GAN_KERNELS, run_proc
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    out = run_proc(wcfg, GAN_OUTER, GAN_INNER, n_epochs, data, seed=SEED,
+                   device=dev, timeout=PROC_TIMEOUT_S, **kw)
+    parent = [k for k, c in all_counts.items()
+              if c.launches or c.plain_calls or c.backward_launches
+              or c.backward_plain]
+    # ----------------------------------------------------------------------
+    want = {k: [n_epochs, 0, 0, n_epochs] if k == "inverse_cdf"
+            else [0, 0, 0, 0] for k in GAN_KERNELS}
+    bad = {s["rank"]: s["counts"] for s in out["summaries"]
+           if s["counts"] != want}
+    if bad or parent:
+        fail(f"{label}: workers' (launches, plain calls, backward "
+             f"launches, backward plain) {bad}, expected {want} in each; "
+             f"the parent counted {parent}")
+    return out
+
+
+def check_dtypes(label, state, wcfg):
+    """Fails unless the master state (gen, disc and their Adam states) is
+    fp32 (int32 steps) and the mailbox's masked leaves and the flat outer
+    mailbox are in the payload's dtype, its biases fp32."""
+    import torch
+    from repro_torch.core import gan
+    from repro_torch.core.sync import payload_dtype_of
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    wire = payload_dtype_of(wcfg.sync.payload_precision)
+    bad = [f"{top}/{k} {t.dtype}" for top in ("gen", "gen_opt", "disc",
+                                              "disc_opt")
+           for k, t in tree_paths(state[top])
+           if t.dtype not in (torch.float32, torch.int32)]
+    mb = state["sync"]["mailbox"]
+    bad += [f"sync/mailbox/{k} {t.dtype}" for m, (k, t) in zip(
+        tree_leaves(gan.weight_mask(mb)), tree_paths(mb))
+        if t.dtype != (wire if m else torch.float32)]
+    if state["sync"]["outer_mailbox"].dtype != wire:
+        bad.append(f"sync/outer_mailbox {state['sync']['outer_mailbox'].dtype}")
+    if bad:
+        fail(f"{label}: leaves of the wrong dtype {bad[:6]} (master state "
+             f"fp32, the mailbox's weights and the outer mailbox {wire})")
+
+
+def proc_bitwise(tag, dev, wcfg, data, all_counts):
+    """Phases 34 and 37: PROC_BITWISE_EPOCHS lock-step epochs as 8
+    workers, the stacked final state bitwise `lockstep_reference` on the
+    card, its dtypes as the config says, the gap to `train_stacked`
+    printed, and the bytes a deposit read off the ring's window 0 -> 1.
+    Returns B1's launches in the workers."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import workflow as W
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.runtime.launch import lockstep_reference
+    from repro_torch.runtime.mailbox import _MBX_HDR
+
+    t0 = time.perf_counter()
+    R = GAN_OUTER * GAN_INNER
+    prec = wcfg.sync.payload_precision
+    label = (f"[{tag}] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, {prec} "
+             f"payload, {R} workers")
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_proc_")
+    try:
+        out = proc_counted(label, dev, wcfg, data, all_counts,
+                           PROC_BITWISE_EPOCHS, run_dir=run_dir)
+        channel = "all" if wcfg.sync.mode == "conv_arar" else "inner"
+        window = os.path.getsize(os.path.join(
+            run_dir, f"mbx_0to1_{channel}.bin")) - _MBX_HDR.size
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    ref = lockstep_reference(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                             PROC_BITWISE_EPOCHS, data, device=dev)
+    diff = {k: float((a.float() - b.float()).abs().max())
+            for (k, a), b in zip(tree_paths(out["state"]), tree_leaves(ref))
+            if a.dtype != b.dtype or not torch.equal(a, b)}
+    if diff:
+        fail(f"{label}: the workers' final state is not bitwise the "
+             f"per-rank reference: max |diff| by leaf {diff}")
+    check_dtypes(label, out["state"], wcfg)
+    spec = W.make_schedule(wcfg).spec
+    deposit = spec.total * spec.payload_dtype.itemsize
+    if window != deposit:
+        fail(f"{label}: the ring's window 0 -> 1 holds {window} B, a "
+             f"deposit of {spec.total} scalars in {spec.payload_dtype} is "
+             f"{deposit} B")
+    stacked, _ = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
+                                 PROC_BITWISE_EPOCHS, data, device=dev)
+    gap = {top: max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(stacked[top]), tree_leaves(out["state"][top])))
+        for top in ("gen", "disc")}
+    print(f"{label} ({GAN_OUTER} x {GAN_INNER}) on one card, lock-step, "
+          f"{PROC_BITWISE_EPOCHS} epochs, fp32 compute (TF32 off): the "
+          f"final state (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise "
+          f"the per-rank reference computed in this process, the "
+          f"mailbox's weights and the outer mailbox {spec.payload_dtype}, "
+          f"the master state fp32; {deposit:,} B a deposit ({spec.total:,} "
+          f"scalars, the ring's window 0 -> 1 as large); B1 launched "
+          f"{PROC_BITWISE_EPOCHS} times and its backward "
+          f"{PROC_BITWISE_EPOCHS} times in each worker, no plain call; "
+          f"against train_stacked's {PROC_BITWISE_EPOCHS} epochs max |diff| "
+          f"gen {gap['gen']:.3e}, disc {gap['disc']:.3e} (batched against "
+          f"per-rank GEMMs); start-up {out['startup_s']:.1f} s, spawn to "
+          f"result {out['wall_s']:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out["counts"]["inverse_cdf"][0]
+
+
+def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
+                  **kw):
+    """Phases 35 and 37: `wcfg` for GAN_EPOCHS epochs as 8 workers with
+    phase 22's bars on the history, per-rank epoch p50/p99 and peak
+    memory, events/s, start-up and wall time beside `stacked_p50` (ms).
+    Returns (B1's launches in the workers, each rank's epoch p50 in ms)."""
+    import torch
+    from repro_torch.core import gan
+    from repro_torch.core.ensemble import ensemble_response
+    from repro_torch.core.tree import tree_paths
+
+    t0 = time.perf_counter()
+    R = GAN_OUTER * GAN_INNER
+    K, E = wcfg.n_param_samples, wcfg.events_per_sample
+    prob = wcfg.problem_obj
+    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
+        ).manual_seed(7)).to(dev)
+    tag = (f"[{tag}] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, "
+           f"{wcfg.sync.payload_precision} payload, {label}")
+    out = proc_counted(tag, dev, wcfg, data, all_counts, GAN_EPOCHS, **kw)
+    state, hist = out["state"], out["history"]
+    bad = [k for k, t in tree_paths(state)
+           if not bool(torch.isfinite(t.float()).all())]
+    p_hat, _ = ensemble_response(state["gen"], noise)
+    d = hist["d_loss"].mean(1).numpy()
+    if bad or not np.isfinite(d).all() or not (
+            0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
+            or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
+        fail(f"{tag}: non-finite leaves {bad[:4]}, ensemble in "
+             f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss "
+             f"first {d[0]}, last {d[-1]}, min {d.min()}: the bars are "
+             f"finite state and d_loss, the ensemble in (0, 1), last < "
+             f"first and min < {GAN_D_MIN}")
+    check_dtypes(tag, state, wcfg)
+    ms = hist["epoch_s"].numpy() * 1e3                   # [T, R]
+    p50 = np.percentile(ms, 50, axis=0)
+    print(f"{tag}: {R} workers ({GAN_OUTER} x {GAN_INNER}) on one card, "
+          f"{GAN_EPOCHS} epochs, fp32 compute (TF32 off); d_loss (mean over "
+          f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f} "
+          f"< {GAN_D_MIN}; every state leaf finite; ensemble in "
+          f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f}); final "
+          f"mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f}")
+    for s, a, b in zip(out["summaries"], p50, np.percentile(ms, 99, axis=0)):
+        print(f"{tag}: rank {s['rank']} on {s['device']}: epoch p50 "
+              f"{a:.3f} ms, p99 {b:.3f} ms (host clock after "
+              f"torch.cuda.synchronize), {s['wall_s']:.2f} s for its "
+              f"epochs, peak memory "
+              f"{s['peak_memory_bytes'] / 2**30:.3f} GiB")
+    print(f"{tag}: {K * E * (1e3 / p50).sum():,.0f} generated events/s "
+          f"(each rank's {K} x {E} events at its epoch p50, summed); "
+          f"spawn to result {out['wall_s']:.1f} s, start-up (spawn to "
+          f"the last worker through the run-start barrier) "
+          f"{out['startup_s']:.1f} s; B1 summed over the workers "
+          f"(launches, plain, backward launches, backward plain) "
+          f"{out['counts']['inverse_cdf']}; phase 22's stacked epoch "
+          f"p50 in the same run {stacked_p50:.3f} ms "
+          f"({R * K * E / stacked_p50 * 1e3:,.0f} events/s); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = out["counts"]["inverse_cdf"][0]
+    del out, state, hist
+    torch.cuda.empty_cache()
+    return launches, p50
 
 
 def proc_phases(dev, all_counts, stacked_p50):
@@ -1975,139 +2171,124 @@ def proc_phases(dev, all_counts, stacked_p50):
     per-rank reference, then PAPER for GAN_EPOCHS epochs lock-step and
     free-running with phase 22's bars.  `stacked_p50` is phase 22's epoch
     p50 by mode.  Returns B1's launches in the workers over the counted
-    runs."""
+    runs and the lock-step run's epoch p50 by rank (ms)."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER
-    from repro_torch.core import gan
-    from repro_torch.core import workflow as W
-    from repro_torch.core.ensemble import ensemble_response
-    from repro_torch.core.tree import tree_leaves, tree_paths
     from repro_torch.problems import get_problem
     from repro_torch.runtime import JitterConfig
-    from repro_torch.runtime.launch import (GAN_KERNELS, lockstep_reference,
-                                            run_proc)
 
-    R = GAN_OUTER * GAN_INNER
-    K, E = PAPER.n_param_samples, PAPER.events_per_sample
-    prob = get_problem("proxy1d")
-    data = prob.make_reference_data(torch.Generator(device=dev).manual_seed(
-        99), GAN_REF_EVENTS, device=dev)
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
     launches = 0
-
-    def paper(mode, h):
-        return dataclasses.replace(
-            PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode, h=h))
-
-    def counted(label, wcfg, n_epochs, **kw):
-        """One run with every count set to 0 just before it: each worker
-        must launch B1 once an epoch, forward and backward (its backward
-        is PyTorch's closed form), and nothing else; the parent nothing."""
-        nonlocal launches
-        for cnt in all_counts.values():
-            cnt.reset()                # --- the counted main-path run ---
-        out = run_proc(wcfg, GAN_OUTER, GAN_INNER, n_epochs, data,
-                       seed=SEED, device=dev, timeout=PROC_TIMEOUT_S, **kw)
-        parent = [k for k, c in all_counts.items()
-                  if c.launches or c.plain_calls or c.backward_launches
-                  or c.backward_plain]
-        # ------------------------------------------------------------------
-        want = {k: [n_epochs, 0, 0, n_epochs] if k == "inverse_cdf"
-                else [0, 0, 0, 0] for k in GAN_KERNELS}
-        bad = {s["rank"]: s["counts"] for s in out["summaries"]
-               if s["counts"] != want}
-        if bad or parent:
-            fail(f"{label}: workers' (launches, plain calls, backward "
-                 f"launches, backward plain) {bad}, expected {want} in each; "
-                 f"the parent counted {parent}")
-        launches += out["counts"]["inverse_cdf"][0]
-        return out
-
     # -- 34. lock-step, bitwise its per-rank reference -----------------------
     for mode, h in PROC_BITWISE:
-        t0 = time.perf_counter()
-        wcfg = paper(mode, h)
-        label = f"[34] PAPER {mode} h {h}, {R} workers"
-        out = counted(label, wcfg, PROC_BITWISE_EPOCHS)
-        ref = lockstep_reference(SEED, wcfg, GAN_OUTER, GAN_INNER,
-                                 PROC_BITWISE_EPOCHS, data, device=dev)
-        diff = {k: float((a - b).abs().max())
-                for (k, a), b in zip(tree_paths(out["state"]),
-                                     tree_leaves(ref))
-                if not torch.equal(a, b)}
-        if diff:
-            fail(f"{label}: the workers' final state is not bitwise the "
-                 f"per-rank reference: max |diff| by leaf {diff}")
-        stacked, _ = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
-                                     PROC_BITWISE_EPOCHS, data, device=dev)
-        gap = {top: max(float((a - b).abs().max()) for a, b in zip(
-            tree_leaves(stacked[top]), tree_leaves(out["state"][top])))
-            for top in ("gen", "disc")}
-        print(f"{label} ({GAN_OUTER} x {GAN_INNER}) on one card, lock-step, "
-              f"{PROC_BITWISE_EPOCHS} epochs, fp32 (TF32 off): the final "
-              f"state (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise "
-              f"the per-rank reference computed in this process; B1 "
-              f"launched {PROC_BITWISE_EPOCHS} times and its backward "
-              f"{PROC_BITWISE_EPOCHS} times in each worker, no plain call; "
-              f"against train_stacked's {PROC_BITWISE_EPOCHS} epochs max "
-              f"|diff| gen {gap['gen']:.3e}, disc {gap['disc']:.3e} "
-              f"(batched against per-rank GEMMs); start-up "
-              f"{out['startup_s']:.1f} s, spawn to result "
-              f"{out['wall_s']:.1f} s; phase {time.perf_counter() - t0:.1f} s")
-        del out, ref, stacked
+        launches += proc_bitwise("34", dev, dataclasses.replace(
+            PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode, h=h)),
+            data, all_counts)
 
     # -- 35. the paper's workflow: 200 epochs, lock-step and free-running ---
-    noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
-        ).manual_seed(7)).to(dev)
-    wcfg = PAPER
+    p50 = {}
     for label, kw in (
             ("lock-step", {}),
             (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
              {"lockstep": False,
               "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
-        t0 = time.perf_counter()
-        tag = f"[35] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, {label}"
-        out = counted(tag, wcfg, GAN_EPOCHS, **kw)
-        state, hist = out["state"], out["history"]
-        bad = [k for k, t in tree_paths(state)
-               if not bool(torch.isfinite(t.float()).all())]
-        p_hat, _ = ensemble_response(state["gen"], noise)
-        d = hist["d_loss"].mean(1).numpy()
-        if bad or not np.isfinite(d).all() or not (
-                0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
-                or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
-            fail(f"{tag}: non-finite leaves {bad[:4]}, ensemble in "
-                 f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss "
-                 f"first {d[0]}, last {d[-1]}, min {d.min()}: the bars are "
-                 f"finite state and d_loss, the ensemble in (0, 1), last < "
-                 f"first and min < {GAN_D_MIN}")
-        ms = hist["epoch_s"].numpy() * 1e3                   # [T, R]
-        p50 = np.percentile(ms, 50, axis=0)
-        print(f"{tag}: {R} workers ({GAN_OUTER} x {GAN_INNER}) on one card, "
-              f"{GAN_EPOCHS} epochs, fp32 (TF32 off); d_loss (mean over "
-              f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f} "
-              f"< {GAN_D_MIN}; every state leaf finite; ensemble in "
-              f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f}); final "
-              f"mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f}")
-        for s, a, b in zip(out["summaries"], p50,
-                           np.percentile(ms, 99, axis=0)):
-            print(f"{tag}: rank {s['rank']} on {s['device']}: epoch p50 "
-                  f"{a:.3f} ms, p99 {b:.3f} ms (host clock after "
-                  f"torch.cuda.synchronize), {s['wall_s']:.2f} s for its "
-                  f"epochs, peak memory "
-                  f"{s['peak_memory_bytes'] / 2**30:.3f} GiB")
-        print(f"{tag}: {K * E * (1e3 / p50).sum():,.0f} generated events/s "
-              f"(each rank's {K} x {E} events at its epoch p50, summed); "
-              f"spawn to result {out['wall_s']:.1f} s, start-up (spawn to "
-              f"the last worker through the run-start barrier) "
-              f"{out['startup_s']:.1f} s; B1 summed over the workers "
-              f"(launches, plain, backward launches, backward plain) "
-              f"{out['counts']['inverse_cdf']}; phase 22's stacked epoch "
-              f"p50 in the same run {stacked_p50[wcfg.sync.mode]:.3f} ms "
-              f"({R * K * E / stacked_p50[wcfg.sync.mode] * 1e3:,.0f} "
-              f"events/s); phase {time.perf_counter() - t0:.1f} s")
-        del out, state, hist
-    torch.cuda.empty_cache()
+        n, p50[label] = proc_workflow("35", label, dev, PAPER, data,
+                                      all_counts,
+                                      stacked_p50[PAPER.sync.mode], **kw)
+        launches += n
+    return launches, p50["lock-step"]
+
+
+def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+    """Phases 36-37: the bf16 ring payload (`payload_precision="bf16"`) on
+    the card.  36: PAPER stacked at R 8 in both ring modes with phase 22's
+    bars and counts, beside phase 22's fp32 runs (`fp32`: mode -> (p50
+    ms, final generator on the CPU, final ensemble mean|r̂|)); imaging_blur
+    with phase 26's bars and counts beside its fp32 p50; one epoch card
+    vs CPU.  37: the proc runtime, lock-step bitwise its reference in
+    both modes and PAPER for GAN_EPOCHS epochs with phase 35's bars,
+    beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
+    kernel's launches over the counted runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.problems import get_problem
+
+    def bf16(wcfg, **sync):
+        return dataclasses.replace(wcfg, sync=dataclasses.replace(
+            wcfg.sync, payload_precision="bf16", **sync))
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+
+    # -- 36. stacked: PAPER in both ring modes, imaging_blur, card vs CPU ---
+    def healthy(d):
+        return (d[-1] < d[0] and d.min() < GAN_D_MIN,
+                f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
+    for mode in GAN_MODES:
+        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
+                      else (0, 0, 0, 0)) for k in all_counts}
+        wcfg = bf16(PAPER, mode=mode)
+        got, p50, final = train_and_check(
+            "36", f"GAN PAPER {mode} bf16 payload", dev, wcfg, data,
+            all_counts, expect, healthy)
+        launches["inverse_cdf"] += got["inverse_cdf"][0]
+        p50_32, gen_32, r_32 = fp32[mode]
+        gap = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(final["gen"]), tree_leaves(gen_32)))
+        print(f"[36] GAN PAPER {mode} bf16 payload: epoch p50 {p50:.3f} ms "
+              f"beside phase 22's fp32 {p50_32:.3f} ms in the same run "
+              f"({p50 / p50_32:.3f}x); after {GAN_EPOCHS} epochs from one "
+              f"seed, the generator parameters max |bf16 - fp32| {gap:.3e}, "
+              f"the ensemble's mean|r̂| {final['residual']:.4f} against "
+              f"{r_32:.4f} (|gap| {abs(final['residual'] - r_32):.4f}; "
+              f"printed, the bars are the healthy ones)")
+
+    def improving(d):
+        return (d.min() < d[0], f"min {d.min():.4f} < first {d[0]:.4f}")
+    name = "imaging_blur"
+    wcfg = bf16(for_problem(name, PAPER))
+    expect = {k: (0, 0, 0, 0) for k in all_counts}
+    expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0, 0)
+    expect["blur2d"] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
+    blur_data = get_problem(name).make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    got, p50, _ = train_and_check("36", f"{name} for_problem(PAPER) bf16 "
+                                  "payload", dev, wcfg, blur_data,
+                                  all_counts, expect, improving)
+    for k in launches:
+        launches[k] += got[k][0]
+    from repro_torch.core import workflow as W
+    spec = W.make_schedule(wcfg).spec
+    print(f"[36] {name} bf16 payload: epoch p50 {p50:.3f} ms beside phase "
+          f"26's fp32 {imaging_blur_p50:.3f} ms in the same run; "
+          f"{spec.total:,} scalars a rank, "
+          f"{spec.total * spec.payload_dtype.itemsize:,} B in bf16 "
+          f"({spec.total * 4:,} B in fp32)")
+    del blur_data
+    epoch_card_vs_cpu("36", "GAN rma_arar_arar bf16 payload", dev, bf16(
+        dataclasses.replace(PAPER, n_param_samples=REDUCED.n_param_samples,
+                            events_per_sample=REDUCED.events_per_sample),
+        mode="rma_arar_arar", h=1), pin_kinks=True)
+
+    # -- 37. the proc runtime at bf16 ----------------------------------------
+    for mode, h in PROC_BITWISE:
+        launches["inverse_cdf"] += proc_bitwise(
+            "37", dev, bf16(PAPER, mode=mode, h=h), data, all_counts)
+    n, p50 = proc_workflow("37", "lock-step", dev, bf16(PAPER), data,
+                           all_counts, fp32[PAPER.sync.mode][0])
+    launches["inverse_cdf"] += n
+    print(f"[37] PAPER {PAPER.sync.mode} bf16 payload, lock-step: epoch p50 "
+          f"a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
+          f"{np.median(p50):.3f}) beside phase 35's fp32 "
+          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (median "
+          f"{np.median(proc_p50):.3f}) in the same run")
     return launches
 
 
@@ -2120,13 +2301,15 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     finite, the ensemble lies in (0, 1), every recorded d_loss is finite
     and `d_bar(d_loss by recorded epoch)` gives (True, its text).  Prints
     the run, the d_loss trajectory, epoch p50/p99 (CUDA events), events/s,
-    peak memory and the final mean|r̂|; returns the counts and the epoch
-    p50 (ms)."""
+    peak memory and the final mean|r̂|; fails unless the state's dtypes
+    are as the config says (`check_dtypes`).  Returns the counts, the
+    epoch p50 (ms) and {"gen": the final generator stack on the CPU,
+    "residual": the final ensemble's mean|r̂|}."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core import workflow as W
     from repro_torch.core.ensemble import ensemble_response
-    from repro_torch.core.tree import tree_paths
+    from repro_torch.core.tree import tree_map, tree_paths
 
     R = GAN_OUTER * GAN_INNER
     K, E = wcfg.n_param_samples, wcfg.events_per_sample
@@ -2169,6 +2352,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
              f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss by "
              f"recorded epoch {d.tolist()}: the bars are finite state, the "
              f"ensemble in (0, 1), every recorded d_loss finite, {bar}")
+    check_dtypes(f"training {label}", state, wcfg)
     steps = np.array([a.elapsed_time(b)
                       for a, b in zip(events[:-1], events[1:])])
     p50 = float(np.percentile(steps, 50))
@@ -2178,7 +2362,8 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
           f"{E} events a rank an epoch, {gan.param_count(state['gen']) // R:,}"
           f" generator parameters a rank, h {wcfg.sync.h}, lr gen "
           f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {wcfg.sync.mode}, {GAN_EPOCHS} "
-          f"epochs from seed {SEED}, fp32 (TF32 off); kernel launches: "
+          f"epochs from seed {SEED}, fp32 compute (TF32 off), "
+          f"{wcfg.sync.payload_precision} ring payload; kernel launches: "
           f"{runs}; no plain call")
     print(f"[{tag}] {label}: d_loss (mean over ranks) at epochs 0, "
           f"{GAN_EVERY}, ...: " + " ".join(f"{v:.4f}" for v in d)
@@ -2193,9 +2378,11 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
           f"(ensemble of the {R} generators), "
           f"{float(hist['residuals'][-1].abs().mean()):.4f} (last epoch's "
           f"batch, mean over ranks)")
+    final = {"gen": tree_map(lambda t: t.cpu(), state["gen"]),
+             "residual": float(prob.mean_abs_residual(p_hat))}
     del state, hist
     torch.cuda.empty_cache()
-    return got, p50
+    return got, p50, final
 
 
 @contextlib.contextmanager
@@ -2250,7 +2437,7 @@ def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
     cpu_data = prob.make_reference_data(g, 5_000, device="cpu")
     state0, per_rank = W.init_run(g, 4, wcfg, cpu_data, "cpu")
     state0["sync"]["mailbox"] = tree_map(
-        lambda t: torch.randn(t.shape, generator=g),
+        lambda t: torch.randn(t.shape, generator=g).to(t.dtype),
         state0["sync"]["mailbox"])
     draws0 = W.make_draws(g, wcfg, 4, per_rank.shape[1])
     sched = W.make_schedule(wcfg)
@@ -2304,7 +2491,9 @@ def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
              f"{STEP_LOSS_RTOL}, {bar}, {UPDATE_TOL})")
     print(f"[{tag}] {label} one epoch card vs CPU (full width, K "
           f"{wcfg.n_param_samples}, E {wcfg.events_per_sample}, R 4 as 2 "
-          f"x 2, h 1, fp32, TF32 off, the same state with a non-zero "
+          f"x 2, h 1, fp32 compute with TF32 off, "
+          f"{wcfg.sync.payload_precision} ring payload, the same state with "
+          f"a non-zero "
           f"mailbox and the same draws): d_loss/g_loss within "
           f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst generator "
           f"gradient leaf {grad_rel:.3e} in relative norm (<= {bar})"
@@ -2941,7 +3130,7 @@ def main():
     launches["ssd_scan"] = train_phases(dev, all_counts)
 
     # -- 22-24. the paper's GAN training -------------------------------------
-    n, gan_p50 = gan_phases(dev, all_counts)
+    n, gan_fp32 = gan_phases(dev, all_counts)
     launches["inverse_cdf"] += n
 
     # -- 25. serve proxy2d and linear_blur -----------------------------------
@@ -2969,14 +3158,22 @@ def main():
         card_vs_cpu("25", name, stack, requests)
 
     # -- 26-28. every other problem trained ----------------------------------
-    for k, n in problem_phases(dev, all_counts).items():
+    problem_launches, problem_p50 = problem_phases(dev, all_counts)
+    for k, n in problem_launches.items():
         launches[k] = launches.get(k, 0) + n
 
     # -- 29-33. the MoE family -----------------------------------------------
     launches["flash_attention"] += moe_phases(dev, all_counts)
 
     # -- 34-35. the GAN as worker processes (B1: the workers' launches) -----
-    launches["inverse_cdf"] += proc_phases(dev, all_counts, gan_p50)
+    n, proc_p50 = proc_phases(dev, all_counts,
+                              {m: v[0] for m, v in gan_fp32.items()})
+    launches["inverse_cdf"] += n
+
+    # -- 36-37. the bf16 ring payload, stacked and as worker processes ------
+    for k, n in bf16_phases(dev, all_counts, gan_fp32,
+                            problem_p50["imaging_blur"], proc_p50).items():
+        launches[k] = launches.get(k, 0) + n
 
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",

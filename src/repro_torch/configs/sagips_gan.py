@@ -8,7 +8,7 @@ package's retuned batch shape and capped generator step.
 """
 import dataclasses
 
-from ..core.sync import SCHEDULE_ITEM, SyncConfig
+from ..core.sync import SyncConfig
 from ..core.workflow import WorkflowConfig
 
 # Tab. III settings
@@ -57,9 +57,12 @@ def for_problem(problem: str, base: WorkflowConfig = REDUCED
     return cfg
 
 
-def throughput(base: WorkflowConfig = REDUCED, disc_every: int = 2):
-    """The JAX package's throughput variant (bf16 ring payload, a
-    discriminator update every `disc_every` epochs): not ported yet."""
-    raise NotImplementedError(
-        f"the throughput preset (bf16 payload, disc_every={disc_every}) is "
-        f"not ported yet: {SCHEDULE_ITEM}")
+def throughput(base: WorkflowConfig = REDUCED, disc_every: int = 2
+               ) -> WorkflowConfig:
+    """The JAX package's throughput variant of a preset: the bf16 ring
+    payload against fp32 master state, and a discriminator update every
+    `disc_every` epochs.  The cadence is ROADMAP.md queue A item 3c, so
+    any `disc_every` but 1 raises from `WorkflowConfig`."""
+    return dataclasses.replace(
+        base, sync=dataclasses.replace(base.sync, payload_precision="bf16"),
+        disc_every=disc_every)

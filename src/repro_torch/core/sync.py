@@ -27,10 +27,21 @@ unfused runs are bitwise equal: the ring modes only roll and add.
 The outer ring's predicate (`epoch % h == 0`, inner index 0) stays on the
 device, so an epoch reads nothing back to the host.
 
+Payload precision (`SyncConfig.payload_precision`, the JAX package's lines
+108–119): the fused payload's wire dtype, 'fp32' or 'bf16'.  The cast
+happens once on each side: `FusionSpec.flatten` packs to the payload dtype
+(round to nearest even), and `FusionSpec.unflatten` casts back to each
+destination leaf's dtype: fp32 into the gradients, the wire dtype into a
+mailbox, so the RMA mailbox's masked leaves and the flat `outer_mailbox`
+STORE bf16 and a proc deposit ships half the bytes.  Every combine runs in
+the payload dtype (a bf16 add computes in fp32 and rounds, in torch as in
+XLA), so the exchange at bf16 is bitwise the JAX package's on the same
+payload.  Master parameters and the Adam state stay fp32.
+
 Not ported yet, each raising `NotImplementedError` from `SyncConfig`
 (ROADMAP.md queue A item 3): the depth-k mailbox (`staleness > 1`), the
-overlapped pod boundary (`overlap`), adaptive staleness (`adaptive`), the
-bf16 payload and the chunked ring.
+overlapped pod boundary (`overlap`), adaptive staleness (`adaptive`) and
+the chunked ring.
 """
 from __future__ import annotations
 
@@ -81,7 +92,7 @@ class SyncConfig:
     fuse_tensors: bool = True      # one fused ring payload per exchange
     overlap: bool = False          # queue A item 3
     adaptive: bool = False         # queue A item 3
-    payload_precision: str = "fp32"  # 'bf16': queue A item 3
+    payload_precision: str = "fp32"  # wire dtype of the fused payload
     ring_chunking: int = 0         # > 0: queue A item 3
 
     def __post_init__(self):
@@ -146,8 +157,6 @@ class SyncConfig:
             _later("the overlapped pod-boundary exchange (overlap=True)")
         if self.adaptive:
             _later("adaptive staleness (adaptive=True, AdaptiveSchedule)")
-        if self.payload_precision != "fp32":
-            _later("the bf16 ring payload (payload_precision='bf16')")
         if self.ring_chunking:
             _later("the chunked ring exchange (ring_chunking > 0)")
 
@@ -362,10 +371,17 @@ class StaticSchedule(SyncSchedule):
 
     SyncState = {"mailbox": <grads-shaped tree>, "outer_mailbox": <flat
     [R, D] payload>}, the JAX package's layout (the outer mailbox stays
-    zero until the overlap schedule of queue A item 3 writes it)."""
+    zero until the overlap schedule of queue A item 3 writes it).  The
+    mailbox's masked leaves are stored in the payload dtype, what the
+    ring deposits; unmasked leaves never ride it and keep their own."""
 
     def init_state(self, n_ranks: int, device=None):
-        return {"mailbox": init_mailbox(self.spec.zeros(n_ranks, device)),
+        example = self.spec.zeros(n_ranks, device)
+        if self.mask is not None:
+            example = tree_map(
+                lambda m, x: x.to(self.spec.payload_dtype) if m else x,
+                self.mask, example)
+        return {"mailbox": init_mailbox(example),
                 "outer_mailbox": self.spec.zero_payload(n_ranks, device)}
 
     def exchange(self, comm: Comm, grads, sync_state, epoch):

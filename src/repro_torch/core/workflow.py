@@ -170,8 +170,9 @@ def make_solver(problem, cfg: SolveConfig, draws: Draws) -> Solver:
 class WorkflowConfig:
     """The training loop's settings, as `repro.core.workflow.WorkflowConfig`
     (line 66) has them.  There is no `sampler_impl`: the device picks the
-    sampler's route.  Update cadences other than every epoch and the
-    telemetry channel (`obs`) raise: ROADMAP.md queue A item 3."""
+    sampler's route.  Update cadences other than every epoch (queue A
+    item 3c) and the telemetry channel (`obs`) raise: ROADMAP.md queue A
+    item 3."""
     sync: sync_lib.SyncConfig = sync_lib.SyncConfig()
     n_param_samples: int = pipeline.PARAM_SAMPLES       # Tab. III
     events_per_sample: int = pipeline.EVENTS_PER_SAMPLE
@@ -197,8 +198,8 @@ class WorkflowConfig:
         if self.disc_every != 1 or self.gen_every != 1:
             raise NotImplementedError(
                 f"update cadences disc_every={self.disc_every}, gen_every="
-                f"{self.gen_every} are not ported yet: "
-                f"{sync_lib.SCHEDULE_ITEM}")
+                f"{self.gen_every} are not ported yet: ROADMAP.md queue A "
+                f"item 3c (the schedule layer's update cadences)")
         if self.obs:
             raise NotImplementedError(
                 f"the telemetry channel (obs) is not ported yet: "

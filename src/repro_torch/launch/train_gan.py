@@ -36,8 +36,11 @@ continues from the newest step every rank can load.  It ends with one
 line per rank (device, epochs, epoch p50, wall time) and the workers'
 summed kernel counts.
 
-The exchange schedules other than `sync` (--sync-schedule, --staleness,
---max-staleness, --payload-precision, --ring-chunking, --disc-every,
+`--payload-precision bf16` sends the fused ring payload as bf16 against
+fp32 master state, on either backend (the ring modes with a fused
+payload only: `SyncConfig` refuses the rest with the JAX package's
+message).  The exchange schedules other than `sync` (--sync-schedule,
+--staleness, --max-staleness, --ring-chunking, --disc-every,
 --gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3:
 they raise.  The run ends with the ensemble against the truth, the
 serving-path solve (`core.workflow.make_solver`) on the reference events,
@@ -56,7 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import sagips_gan
 from repro_torch.core import gan, workflow
 from repro_torch.core.ensemble import ensemble_response
-from repro_torch.core.sync import MODES, SCHEDULE_ITEM
+from repro_torch.core.sync import MODES, PAYLOAD_PRECISIONS, SCHEDULE_ITEM
 from repro_torch.kernels import build
 from repro_torch.kernels.imaging import blur_counts, mask_counts
 from repro_torch.kernels.inverse_cdf import counts as icdf_counts
@@ -165,7 +168,9 @@ def main(argv=None):
     ap.add_argument("--sync-schedule", default="sync")
     ap.add_argument("--staleness", type=int, default=1)
     ap.add_argument("--max-staleness", type=int, default=None)
-    ap.add_argument("--payload-precision", default="fp32")
+    ap.add_argument("--payload-precision", choices=PAYLOAD_PRECISIONS,
+                    default="fp32",
+                    help="wire dtype of the fused ring payload")
     ap.add_argument("--ring-chunking", type=int, default=0)
     ap.add_argument("--disc-every", type=int, default=1)
     ap.add_argument("--gen-every", type=int, default=1)
@@ -192,7 +197,6 @@ def main(argv=None):
         ("--sync-schedule", args.sync_schedule != "sync"),
         ("--staleness", args.staleness != 1),
         ("--max-staleness", args.max_staleness is not None),
-        ("--payload-precision", args.payload_precision != "fp32"),
         ("--ring-chunking", args.ring_chunking != 0),
         ("--disc-every", args.disc_every != 1),
         ("--gen-every", args.gen_every != 1),
@@ -207,6 +211,7 @@ def main(argv=None):
             "reduced": sagips_gan.REDUCED}[args.preset]
     sync = dataclasses.replace(
         base.sync, fuse_tensors=not args.no_fuse,
+        payload_precision=args.payload_precision,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
     wcfg = dataclasses.replace(base, sync=sync, problem=args.problem)
@@ -229,7 +234,8 @@ def main(argv=None):
         torch.Generator(device=dev).manual_seed(99), args.events, device=dev)
     print(f"problem={args.problem} ({problem.n_params} params -> "
           f"{problem.obs_dim} observables) mode={wcfg.sync.mode} "
-          f"h={wcfg.sync.h} schedule=sync ranks={n_outer}x{n_inner} "
+          f"h={wcfg.sync.h} schedule=sync payload="
+          f"{wcfg.sync.payload_precision} ranks={n_outer}x{n_inner} "
           f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "
           f"disc_batch={wcfg.disc_batch} lr gen {wcfg.gen_lr} disc "
           f"{wcfg.disc_lr} on {dev}")

@@ -25,9 +25,15 @@ this one.  `workflow.train_proc` wraps it for the training loop.
 Where it differs from the JAX launcher: no `jax.distributed` and no
 process group — the mailbox fabric and the file `Barrier` are all the
 workers share.  `device=None` means CUDA; the runconfig carries the
-device, the CPU thread count (a CPU GEMM's bits may depend on it) and the
-TF32 flags, so a worker computes as its parent does.  On a CUDA run the
-parent builds the kernels before it spawns, so no worker runs `nvcc`;
+device, the CPU thread count and the TF32 flags, so a worker computes as
+its parent does.  A lock-step run on the CPU fixes the intra-op thread
+count at `LOCKSTEP_CPU_THREADS` in the workers (`torch.set_num_threads`
+and `MKL_NUM_THREADS`) and in `lockstep_reference` (`cpu_threads`, which
+restores the caller's count): threaded MKL GEMMs are not reproducible
+from run to run, so at another count a rank now and then differs from
+its reference by an ulp (`scripts/proc_lockstep_repeat.py` counts it).
+On a CUDA run the parent builds the kernels before it spawns, so no
+worker runs `nvcc`;
 each worker opens its own CUDA context on the card (R contexts
 time-slice it).  Workers are fresh interpreters, never forks.
 
@@ -36,6 +42,7 @@ per-rank computation in one process, exchanged through `VmapComm`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -49,6 +56,8 @@ RUNCONFIG = "runconfig.json"
 DATA_FILE = "data.npz"
 # the kernels a GAN epoch may launch, as the summaries count them
 GAN_KERNELS = ("inverse_cdf", "mask_apply", "blur2d")
+# intra-op threads of a lock-step CPU run, workers and reference alike
+LOCKSTEP_CPU_THREADS = 1
 
 
 # ----------------------------------------------------------------------------
@@ -70,6 +79,28 @@ def _kernel_counts():
     from ..kernels.imaging import blur_counts, mask_counts
     from ..kernels.inverse_cdf import counts
     return dict(zip(GAN_KERNELS, (counts, mask_counts, blur_counts)))
+
+
+def lockstep_threads(lockstep: bool, device) -> Optional[int]:
+    """The fixed intra-op thread count of a run on `device`, or None
+    where the run keeps the caller's: free-running and CUDA runs."""
+    if lockstep and device.type == "cpu":
+        return LOCKSTEP_CPU_THREADS
+    return None
+
+
+@contextlib.contextmanager
+def cpu_threads(n: Optional[int]):
+    """Inside, torch computes at `n` intra-op threads (None: unchanged);
+    the caller's count is restored on the way out."""
+    import torch
+    old = torch.get_num_threads()
+    if n is not None:
+        torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def _rank_like(wcfg, device):
@@ -139,6 +170,7 @@ def run_proc(wcfg, n_outer: int, n_inner: int, n_epochs: int, data, *,
     if dev.type == "cuda":          # one build for all workers
         build.build_all(("inverse_cdf", "imaging")
                         if wcfg.problem_obj.param_shape else ("inverse_cdf",))
+    threads = lockstep_threads(lockstep, dev)
     cfg = {
         "wcfg": wcfg_to_dict(wcfg),
         "n_outer": n_outer, "n_inner": n_inner, "n_epochs": n_epochs,
@@ -146,7 +178,7 @@ def run_proc(wcfg, n_outer: int, n_inner: int, n_epochs: int, data, *,
         "jitter": jitter.to_dict() if jitter is not None else None,
         "ckpt_every": ckpt_every, "resume_step": resume_step,
         "timeout": timeout, "device": str(dev),
-        "num_threads": torch.get_num_threads(),
+        "num_threads": threads or torch.get_num_threads(),
         "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                        "cudnn": torch.backends.cudnn.allow_tf32},
     }
@@ -162,6 +194,8 @@ def run_proc(wcfg, n_outer: int, n_inner: int, n_epochs: int, data, *,
     # while it waits starves the other workers (2 CPU workers on 8 cores
     # ran many times slower an epoch); the wait policy changes no result
     env.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+    if threads is not None:        # MKL reads it when it starts
+        env["MKL_NUM_THREADS"] = str(threads)
 
     t_spawn = time.time()
     procs, logs, failure = [], [], None
@@ -304,7 +338,8 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
     [1] rows, as its worker runs them, and the exchange runs through
     `VmapComm` on their [R] stack.  Returns the final `[R, ...]` state.
     (`train_stacked` computes all ranks in one batched call, which may
-    round differently.)"""
+    round differently.)  On the CPU it computes at the workers' fixed
+    thread count (`lockstep_threads`) and restores the caller's."""
     import torch
 
     from .. import resolve_device
@@ -314,28 +349,30 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
 
     dev = resolve_device(device)
     R = n_outer * n_inner
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    state, data_per_rank = workflow.init_run(generator, R, wcfg, data, dev)
-    n_sub = data_per_rank.shape[1]
-    per = [workflow.rank_rows(state, r) for r in range(R)]
-    datas = [workflow.rank_rows(data_per_rank, r) for r in range(R)]
     comm = VmapComm(n_outer, n_inner)
     schedule = workflow.make_schedule(wcfg)
 
     def stack(trees):
         return tree_map(lambda *xs: torch.cat(xs), *trees)
-    for _ in range(n_epochs):
-        draws = workflow.make_draws(generator, wcfg, R, n_sub)
-        outs = [workflow.rank_grads(per[r], datas[r],
-                                    workflow.rank_rows(draws, r), wcfg)
-                for r in range(R)]
-        ns, g = stack([o[0] for o in outs]), stack([o[1] for o in outs])
-        synced, new_sync = schedule.exchange(comm, g, ns["sync"],
-                                             ns["epoch"][0])
-        per = [workflow.rank_apply(
-            workflow.rank_rows(ns, r), workflow.rank_rows(synced, r),
-            workflow.rank_rows(new_sync, r), wcfg) for r in range(R)]
-    return stack(per)
+    with cpu_threads(lockstep_threads(True, dev)):
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        state, data_per_rank = workflow.init_run(generator, R, wcfg, data,
+                                                 dev)
+        n_sub = data_per_rank.shape[1]
+        per = [workflow.rank_rows(state, r) for r in range(R)]
+        datas = [workflow.rank_rows(data_per_rank, r) for r in range(R)]
+        for _ in range(n_epochs):
+            draws = workflow.make_draws(generator, wcfg, R, n_sub)
+            outs = [workflow.rank_grads(per[r], datas[r],
+                                        workflow.rank_rows(draws, r), wcfg)
+                    for r in range(R)]
+            ns, g = stack([o[0] for o in outs]), stack([o[1] for o in outs])
+            synced, new_sync = schedule.exchange(comm, g, ns["sync"],
+                                                 ns["epoch"][0])
+            per = [workflow.rank_apply(
+                workflow.rank_rows(ns, r), workflow.rank_rows(synced, r),
+                workflow.rank_rows(new_sync, r), wcfg) for r in range(R)]
+        return stack(per)
 
 
 # ----------------------------------------------------------------------------
@@ -433,6 +470,8 @@ def _worker_main(rank: int, run_dir: str) -> int:
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "lockstep": lockstep, "jitter": jitter.to_dict(),
         "t_ready": t_ready, "t_start": t_start, "wall_s": wall_s,
+        "num_threads": torch.get_num_threads(),
+        "mkl_num_threads": os.environ.get("MKL_NUM_THREADS"),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if cuda else None),
         "counts": {k: [c.launches, c.plain_calls, c.backward_launches,

@@ -32,7 +32,10 @@ Two modes, fixed per run:
 Bytes leave the device through `.cpu()` (a synchronizing copy) in
 `jax.tree.leaves` order (`core.tree`), so the wire format is the JAX
 package's; bytes that arrive are copied out of the mmap snapshot before
-`torch.from_numpy(...).to(device)`, never aliased.
+`torch.from_numpy(...).to(device)`, never aliased.  A bf16 leaf (the
+payload of `SyncConfig(payload_precision="bf16")`) crosses as its int16
+bits, never widened or re-rounded, and a window is sized from the bytes
+it carries: 2 a scalar at bf16 (`mailbox.payload_nbytes`).
 
 Rank layout matches `VmapComm`: global rank = outer * n_inner + inner
 (row-major), ring direction per Algorithm 1 (rank i receives from i-1).

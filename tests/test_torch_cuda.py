@@ -22,8 +22,9 @@ registered problem on its kernels, with the conv generator's backward in
 full fp32).  Flash attention is held at head dim 80 on both routes, and
 at GQA group 3 (granite-moe-3b-a800m's).  The MoE layer on the card is
 held against the CPU with capacity drops, and is bitwise repeatable in
-bf16.  The proc runtime's 2 worker processes on the card are bitwise
-their per-rank reference, with B1 on its kernel in both.
+bf16.  The exchange with the bf16 ring payload is bitwise the CPU's on
+the same gradients.  The proc runtime's 2 worker processes on the card
+are bitwise their per-rank reference, with B1 on its kernel in both.
 """
 import numpy as np
 import pytest
@@ -858,6 +859,43 @@ def test_gan_epoch_on_the_card_matches_the_cpu(sm90_card, mode):
     for a, b in zip(tree_leaves((ng["gen"], ng["gen_opt"])),
                     tree_leaves((want["gen"], want["gen_opt"]))):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["conv_arar", "arar_arar", "rma_arar_arar",
+                                  "dbtree"])
+def test_bf16_exchange_on_the_card_is_bitwise_the_cpus(sm90_card, mode):
+    """`payload_precision="bf16"`: the same fp32 gradients (at the
+    generator's widths, 2 x 4 ranks) exchanged by the schedule on the card
+    and on the CPU over 3 epochs (h 2: the outer ring due on alternate
+    ones, the mailbox carried): the synced gradients and the sync state
+    bitwise equal, the mailbox's masked leaves bf16 on both.  Each
+    combine is a bf16 add or scale, computed in fp32 and rounded on both
+    devices."""
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    wcfg = W.WorkflowConfig(sync=sync.SyncConfig(
+        mode=mode, h=2, payload_precision="bf16"))
+    rng = np.random.default_rng(7)
+    widths = gan.gen_widths()
+    grads = [[{"w": rng.standard_normal((8, a, b)).astype(np.float32),
+               "b": rng.standard_normal((8, b)).astype(np.float32)}
+              for a, b in zip(widths[:-1], widths[1:])] for _ in range(3)]
+    out = {}
+    for dev in ("cpu", sm90_card):
+        sched = W.make_schedule(wcfg)
+        st = sched.init_state(8, dev)
+        for e, g in enumerate(grads):
+            synced, st = sched.exchange(
+                VmapComm(2, 4), tree_map(lambda a: torch.from_numpy(a).to(
+                    dev), g), st, torch.tensor(e, device=dev))
+        out[str(dev)] = tree_map(lambda t: t.cpu(), (synced, st))
+    for (k, a), b in zip(tree_paths(out[str(sm90_card)]),
+                         tree_leaves(out["cpu"])):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    mb = out["cpu"][1]["mailbox"]
+    assert [layer["w"].dtype for layer in mb] == [torch.bfloat16] * 4
+    assert [layer["b"].dtype for layer in mb] == [torch.float32] * 4
 
 
 def test_gan_training_launches_b1_once_an_epoch(sm90_card):

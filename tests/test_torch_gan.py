@@ -15,7 +15,9 @@ reference's own key-split order (`jax_draws`: `workflow.py:336`, `:315`,
                   at (O, I) in {(1, 4), (2, 2), (2, 4)}, on epochs with the
                   outer ring due and not due: bitwise for the ring modes
                   (mailbox included), fp32 tolerance for the means of
-                  allreduce and dbtree; `FusionSpec` round trips on
+                  allreduce and dbtree; the fused ring modes again with
+                  the bf16 payload, bitwise (tests/test_torch_precision.py
+                  holds the rest of bf16); `FusionSpec` round trips on
                   explicit examples; `SyncConfig`'s errors
   optimizer       Adam with the [R] step of a stacked state
   training        one step (losses, generator gradients, the whole new
@@ -32,6 +34,7 @@ The card's side (one epoch against the CPU, B1's counts) is in
 tests/test_torch_cuda.py and `chip_smoke.py` phases 22–24.
 """
 import functools
+import itertools
 import os
 
 import numpy as np
@@ -268,17 +271,32 @@ def _grads(R, seed):
             for a, b in zip(widths[:-1], widths[1:])]
 
 
-@pytest.mark.parametrize("epoch", [0, 3], ids=["outer_due", "not_due"])
-@pytest.mark.parametrize("OI", [(1, 4), (2, 2), (2, 4)],
-                         ids=lambda oi: f"{oi[0]}x{oi[1]}")
-@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
-@pytest.mark.parametrize("mode", JS.MODES)
-def test_sync_gradients_match_jax(mode, fuse, OI, epoch):
+def _sync_cases():
+    """(mode, fuse, (O, I), epoch, payload) with the ids the fp32 cases
+    always had; the bf16 payload for the fused ring modes, which are the
+    ones `SyncConfig` takes it for."""
+    for mode, (fuse, f), oi, (epoch, e) in itertools.product(
+            JS.MODES, ((True, "fused"), (False, "unfused")),
+            ((1, 4), (2, 2), (2, 4)), ((0, "outer_due"), (3, "not_due"))):
+        ident = f"{mode}-{f}-{oi[0]}x{oi[1]}-{e}"
+        yield pytest.param(mode, fuse, oi, epoch, "fp32", id=ident)
+        if fuse and mode in JS.RING_MODES:
+            yield pytest.param(mode, fuse, oi, epoch, "bf16",
+                               id=f"{ident}-bf16")
+
+
+@pytest.mark.parametrize("mode,fuse,OI,epoch,payload", list(_sync_cases()))
+def test_sync_gradients_match_jax(mode, fuse, OI, epoch, payload):
+    """Bitwise for the ring modes (at bf16 too: pack, combine and unpack
+    round where XLA rounds; dbtree's bf16 sum and `/ R` as well), fp32
+    tolerance for the fp32 means of allreduce and dbtree."""
     O, I = OI
     R = O * I
     g, mb = _grads(R, 10 + R), _grads(R, 20 + R)
-    jcfg = JS.SyncConfig(mode=mode, h=3, fuse_tensors=fuse)
-    pcfg = sync.SyncConfig(mode=mode, h=3, fuse_tensors=fuse)
+    jcfg = JS.SyncConfig(mode=mode, h=3, fuse_tensors=fuse,
+                         payload_precision=payload)
+    pcfg = sync.SyncConfig(mode=mode, h=3, fuse_tensors=fuse,
+                           payload_precision=payload)
     jmask = JG.weight_mask(g)
     js, jmb = JS.sync_gradients(JaxVmapComm(O, I), jcfg,
                                 jax.tree.map(jnp.asarray, g),
@@ -288,14 +306,20 @@ def test_sync_gradients_match_jax(mode, fuse, OI, epoch):
                                   gan.weight_mask(g))
     for (path, got), want in zip(tree_paths({"s": ps, "m": pmb}),
                                  jax.tree.leaves({"s": js, "m": jmb})):
-        if mode in ("allreduce", "dbtree"):
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        if mode in ("allreduce", "dbtree") and payload == "fp32":
             np.testing.assert_allclose(_np(got), np.asarray(want),
                                        rtol=1e-6, atol=1e-6, err_msg=path)
         else:
             np.testing.assert_array_equal(_np(got), np.asarray(want),
                                           err_msg=path)
     if mode != "rma_arar_arar":       # only the RMA mode writes a mailbox
-        for a, b in zip(tree_leaves(pmb), tree_leaves(mb)):
+        # (an fp32 mailbox handed to the bf16 payload crosses its pack and
+        # unpack, as in JAX: a run's own mailbox is bf16 already)
+        rounded = tree_map(lambda m, b: _np(_t(b).to(torch.bfloat16).float())
+                           if m and payload == "bf16" else b,
+                           gan.weight_mask(g), mb)
+        for a, b in zip(tree_leaves(pmb), tree_leaves(rounded)):
             np.testing.assert_array_equal(_np(a), b)
 
 
@@ -379,9 +403,8 @@ def test_sync_config_errors_match_jax(kw):
     dict(staleness=2, mode="rma_arar_arar"),
     dict(overlap=True, mode="arar_arar"),
     dict(adaptive=True, mode="rma_arar_arar"),
-    dict(payload_precision="bf16", mode="conv_arar"),
     dict(ring_chunking=4096, mode="arar_arar")],
-    ids=["staleness", "overlap", "adaptive", "bf16", "chunking"])
+    ids=["staleness", "overlap", "adaptive", "chunking"])
 def test_schedule_features_raise_with_their_item(kw):
     JS.SyncConfig(**kw)                 # valid in the JAX package
     with pytest.raises(NotImplementedError, match="queue A item 3"):
@@ -394,7 +417,7 @@ def test_workflow_features_raise_with_their_item():
             workflow.WorkflowConfig(**kw)
     with pytest.raises(ValueError, match="cadences"):
         workflow.WorkflowConfig(disc_every=0)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(NotImplementedError, match="queue A item 3c"):
         sagips_gan.throughput()
     img = sagips_gan.for_problem("imaging")
     assert (img.n_param_samples, img.events_per_sample, img.gen_lr) == \

@@ -27,7 +27,8 @@ Units, each held against the JAX package on the same inputs:
 
 and the port's spawned runs, 2 worker processes at smoke size with
 `device="cpu"`: lock-step bitwise `lockstep_reference` at 1 x 2 and
-2 x 1; within 1e-6 of `train_stacked` (batched against per-rank GEMMs
+2 x 1, workers and reference at one fixed thread count (queue C item
+6); within 1e-6 of `train_stacked` (batched against per-rank GEMMs
 in the local discriminator, as tests/test_runtime.py pins for JAX); a
 per-process resume bitwise, with one rank's newest checkpoint corrupt; a
 free run with jitter that ends finite; the refusals.  The card's side is
@@ -60,7 +61,7 @@ from repro_torch.core import sync, workflow
 from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
 from repro_torch.obs import trace
 from repro_torch.problems import get_problem
-from repro_torch.runtime import mailbox
+from repro_torch.runtime import launch, mailbox
 from repro_torch.runtime.jitter import JitterConfig
 from repro_torch.runtime.launch import (lockstep_reference, run_proc,
                                         wcfg_from_dict, wcfg_to_dict)
@@ -442,6 +443,38 @@ def test_proc_lockstep_1x2_is_bitwise_its_reference(proc_run_1x2):
     assert out["history"]["d_loss"].shape == (3, 2)
     assert out["history"]["residuals"].shape == (3, 2, 6)
     assert out["startup_s"] < out["wall_s"]
+
+
+def test_lockstep_cpu_threads_are_fixed_and_restored(proc_run_1x2,
+                                                    monkeypatch):
+    """Queue C item 6: a lock-step CPU run's workers (their runconfig,
+    `torch.get_num_threads()` and `MKL_NUM_THREADS`) and
+    `lockstep_reference` compute at `LOCKSTEP_CPU_THREADS` intra-op
+    threads, and the caller's count is back after the reference.
+    Free-running and CUDA runs keep the caller's count."""
+    wcfg, out = proc_run_1x2
+    n = launch.LOCKSTEP_CPU_THREADS
+    assert n == 1
+    with open(os.path.join(out["run_dir"], "runconfig.json")) as f:
+        assert json.load(f)["num_threads"] == n
+    assert [(s["num_threads"], s["mkl_num_threads"])
+            for s in out["summaries"]] == [(n, str(n))] * 2
+    seen, real = [], workflow.rank_grads
+
+    def spy(*args):
+        seen.append(torch.get_num_threads())
+        return real(*args)
+    monkeypatch.setattr(workflow, "rank_grads", spy)
+    before = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        lockstep_reference(0, wcfg, 1, 2, 1, _data(), device="cpu")
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)
+    assert seen == [n, n]               # one rank_grads a rank
+    assert launch.lockstep_threads(False, torch.device("cpu")) is None
+    assert launch.lockstep_threads(True, torch.device("cuda")) is None
 
 
 def test_proc_lockstep_2x1_is_bitwise_its_reference():
