@@ -15,12 +15,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
      proxy2d, 4 for linear_blur) and one proc worker's u [1024, 100, 2]
      (phases 34-35), at C 1, 3 and 5 and on views that start
      1 or 3 elements into their buffer, and through the 2-D entry at
-     imaging training's readout noise u [512, 32]; the mask (B2) bitwise
+     imaging training's readout noise u [512, 32] (and one proc worker's
+     [64, 32]); the mask (B2) bitwise
      over a sweep of threads per block; the blur (B3) at rtol/atol 1e-6
      over a sweep of band heights (bitwise the same at each), also at
      [16, 256, 256] and [3, 130, 77] and on views 1 element into their
      buffer (the scalar path); B2 and B3 also at imaging training's
-     shapes (x [512, 1024] and [512, 32, 32]), forward and backward (the
+     shapes (x [512, 1024] and [512, 32, 32]; B3 also at one proc
+     worker's [64, 32, 32]), forward and backward (the
      backward against autograd through the plain version, at 1e-6);
   4. time each kernel, its plain version and, where one exists, the one
      PyTorch call that computes the same function, at the main-path shape
@@ -268,7 +270,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
  37. the bf16 payload on the proc runtime: phase 34's bitwise runs at
      bf16 (the deposit 101,632 B, half of fp32's, read off the ring's
      window from rank 0 to rank 1) and phase 35's lock-step run at bf16, its epoch p50
-     a rank beside phase 35's fp32 one.
+     a rank beside phase 35's fp32 one;
+ 38. the chunked ring (`SyncConfig(ring_chunking=N)`: the fused payload
+     crosses as ceil(bytes / N) segments, one `torch.roll` each), stacked:
+     `PAPER` at R 8 at 65,536 B (4 segments) for 200 epochs in both ring
+     modes with phase 22's bars and counts, each epoch p50 and events/s
+     beside phase 22's, the generator's gap to phase 22's printed; the
+     first 10 epochs of each mode bitwise an unchunked run from the same
+     seed; imaging_blur at 524,288 B (3 segments) with phase 26's bars
+     and counts; `PAPER` at bf16 and 65,536 B (2 segments) with phase
+     22's bars, beside phase 36's bf16 p50;
+ 39. the chunked ring on the proc runtime: phase 34's bitwise runs at
+     65,536 B (4 mmap windows a deposit, counted off the run directory),
+     each bitwise `lockstep_reference` and phase 34's unchunked state;
+     imaging_blur as 8 workers at 524,288 B (3 windows, 1,161,792 B a
+     deposit; a lock-step run on the card picks deterministic cuDNN
+     algorithms): 10 epochs bitwise `lockstep_reference`, then 200
+     lock-step epochs with phase 26's bars, B1 on u [64, 32] and B3 on
+     [64, 32, 32] and as its backward in every worker, epoch p50 a rank,
+     start-up and peak memory a worker; and a free-running imaging_blur
+     run with phase 35's lag, which must end finite.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -277,8 +298,8 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35 and 37 count
-their own launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
+read just after it; the worker processes of phases 34-35, 37 and 39
+count their own launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -318,6 +339,9 @@ TRAIN_IMAGES = 512                  # imaging training: 8 ranks x 64 samples
 TRAIN_READOUT_SHAPE = (TRAIN_IMAGES, 32)    # B1's u: the readout's noise
 TRAIN_MASK_SHAPE = (TRAIN_IMAGES, 1024)     # B2's x training imaging
 TRAIN_BLUR_SHAPE = (TRAIN_IMAGES, 32, 32)   # B3's x training imaging_blur
+PROC_IMAGES = 64                    # ... one rank's, a proc worker's calls
+PROC_READOUT_SHAPE = (PROC_IMAGES, 32)
+PROC_BLUR_SHAPE = (PROC_IMAGES, 32, 32)
 L2_ROTATION = 8                 # B2/B3 input sets cycled: 67 MB > the 50 MB L2
 SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
 RANKS = 16
@@ -372,6 +396,9 @@ PROC_BITWISE = (("rma_arar_arar", 2), ("conv_arar", 2))   # phase 34: mode, h
 PROC_BITWISE_EPOCHS = 10        # phase 34
 PROC_LAG_MS = 1.0               # phase 35's free run: rank r sleeps r ms
 PROC_TIMEOUT_S = 600            # a proc run, spawn to result
+RING_CHUNK = 65_536             # phases 38-39: PAPER's 50,816 scalars in 4
+IMAGE_RING_CHUNK = 524_288      # ... the conv generator's 290,448 in 3
+CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
 
 
 def fail(msg):
@@ -1861,16 +1888,13 @@ def gan_phases(dev, all_counts):
             PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode))
 
     # -- 22. train PAPER at full width in both ring modes --------------------
-    def healthy(d):
-        return (d[-1] < d[0] and d.min() < GAN_D_MIN,
-                f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
     launches, finals = 0, {}
     for mode in GAN_MODES:
         expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
                       else (0, 0, 0, 0)) for k in all_counts}
         got, p50, final = train_and_check("22", f"GAN PAPER {mode}", dev,
                                           paper(mode), data, all_counts,
-                                          expect, healthy)
+                                          expect, gan_healthy)
         launches += got["inverse_cdf"][0]
         finals[mode] = (p50, final["gen"], final["residual"])
 
@@ -1919,9 +1943,6 @@ def problem_phases(dev, all_counts):
     datas, p50s = {}, {}
 
     # -- 26. train every other problem at full width -------------------------
-    def healthy(d):
-        return (d.min() < d[0],
-                f"min {d.min():.4f} < first {d[0]:.4f}")
     for name in PROBLEMS_TRAINED:
         datas[name] = data = get_problem(name).make_reference_data(
             torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
@@ -1939,7 +1960,8 @@ def problem_phases(dev, all_counts):
             expect[forward] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
         got, p50s[name], _ = train_and_check(
             "26", f"{name} for_problem(PAPER)", dev,
-            for_problem(name, PAPER), data, all_counts, expect, healthy)
+            for_problem(name, PAPER), data, all_counts, expect,
+            gan_improving)
         for k in launches:
             launches[k] += got[k][0]
 
@@ -1987,12 +2009,29 @@ def problem_phases(dev, all_counts):
     return launches, p50s
 
 
+def proc_expect(wcfg, n_epochs):
+    """Each worker's (launches, plain calls, backward launches, backward
+    plain) by GAN kernel over `n_epochs`: B1 once an epoch with its
+    closed-form backward where the gradient reaches it (not the imaging
+    readout's noise), and B2 (backward in PyTorch) or B3 (backward B3)
+    once an epoch for the image problems, as phase 26 counts them."""
+    from repro_torch.runtime.launch import GAN_KERNELS
+    forward = TRAINED_FORWARD.get(wcfg.problem)
+    want = {k: [0, 0, 0, 0] for k in GAN_KERNELS}
+    want["inverse_cdf"] = [n_epochs, 0, 0,
+                           n_epochs if forward is None else 0]
+    if forward == "mask_apply":
+        want[forward] = [n_epochs, 0, 0, n_epochs]
+    elif forward == "blur2d":
+        want[forward] = [n_epochs, 0, n_epochs, 0]
+    return want
+
+
 def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
     """One proc run of `wcfg` as R 8 worker processes (GAN_OUTER x
     GAN_INNER) with every count set to 0 just before it: each worker must
-    launch B1 once an epoch, forward and backward (its backward is
-    PyTorch's closed form), and nothing else; the parent nothing."""
-    from repro_torch.runtime.launch import GAN_KERNELS, run_proc
+    count `proc_expect(wcfg, n_epochs)`; the parent nothing."""
+    from repro_torch.runtime.launch import run_proc
     for cnt in all_counts.values():
         cnt.reset()                    # --- the counted main-path run ---
     out = run_proc(wcfg, GAN_OUTER, GAN_INNER, n_epochs, data, seed=SEED,
@@ -2001,8 +2040,7 @@ def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
               if c.launches or c.plain_calls or c.backward_launches
               or c.backward_plain]
     # ----------------------------------------------------------------------
-    want = {k: [n_epochs, 0, 0, n_epochs] if k == "inverse_cdf"
-            else [0, 0, 0, 0] for k in GAN_KERNELS}
+    want = proc_expect(wcfg, n_epochs)
     bad = {s["rank"]: s["counts"] for s in out["summaries"]
            if s["counts"] != want}
     if bad or parent:
@@ -2010,6 +2048,12 @@ def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
              f"launches, backward plain) {bad}, expected {want} in each; "
              f"the parent counted {parent}")
     return out
+
+
+def preset_name(wcfg):
+    """`PAPER`, or `for_problem(name, PAPER)` for the other problems."""
+    return ("PAPER" if wcfg.problem == "proxy1d"
+            else f"{wcfg.problem} for_problem(PAPER)")
 
 
 def check_dtypes(label, state, wcfg):
@@ -2036,77 +2080,107 @@ def check_dtypes(label, state, wcfg):
              f"fp32, the mailbox's weights and the outer mailbox {wire})")
 
 
-def proc_bitwise(tag, dev, wcfg, data, all_counts):
-    """Phases 34 and 37: PROC_BITWISE_EPOCHS lock-step epochs as 8
+def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
+    """Phases 34, 37 and 39: PROC_BITWISE_EPOCHS lock-step epochs as 8
     workers, the stacked final state bitwise `lockstep_reference` on the
-    card, its dtypes as the config says, the gap to `train_stacked`
-    printed, and the bytes a deposit read off the ring's window 0 -> 1.
-    Returns B1's launches in the workers."""
+    card (and `twin`, a state on the CPU, where given), its dtypes as the
+    config says, the gap to `train_stacked` printed, and the bytes a
+    deposit read off the ring's windows 0 -> 1: one window, or one a
+    ring segment under `ring_chunking`.  Returns the workers' counts and
+    the final state on the CPU."""
+    import glob
     import shutil
     import tempfile
     import torch
     from repro_torch.core import workflow as W
-    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
     from repro_torch.runtime.launch import lockstep_reference
     from repro_torch.runtime.mailbox import _MBX_HDR
 
     t0 = time.perf_counter()
     R = GAN_OUTER * GAN_INNER
-    prec = wcfg.sync.payload_precision
-    label = (f"[{tag}] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, {prec} "
-             f"payload, {R} workers")
+    prec, chunk = wcfg.sync.payload_precision, wcfg.sync.ring_chunking
+    label = (f"[{tag}] {preset_name(wcfg)} {wcfg.sync.mode} h {wcfg.sync.h},"
+             f" {prec} payload{f', ring_chunking {chunk:,} B' if chunk else ''}"
+             f", {R} workers")
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_proc_")
     try:
         out = proc_counted(label, dev, wcfg, data, all_counts,
                            PROC_BITWISE_EPOCHS, run_dir=run_dir)
         channel = "all" if wcfg.sync.mode == "conv_arar" else "inner"
-        window = os.path.getsize(os.path.join(
-            run_dir, f"mbx_0to1_{channel}.bin")) - _MBX_HDR.size
+        files = sorted(glob.glob(os.path.join(
+            run_dir, f"mbx_0to1_{channel}w*.bin")), key=lambda p: int(
+            p.rsplit("w", 1)[1].split(".")[0])) or [os.path.join(
+            run_dir, f"mbx_0to1_{channel}.bin")]
+        windows = [os.path.getsize(f) - _MBX_HDR.size for f in files]
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     ref = lockstep_reference(SEED, wcfg, GAN_OUTER, GAN_INNER,
                              PROC_BITWISE_EPOCHS, data, device=dev)
-    diff = {k: float((a.float() - b.float()).abs().max())
-            for (k, a), b in zip(tree_paths(out["state"]), tree_leaves(ref))
-            if a.dtype != b.dtype or not torch.equal(a, b)}
-    if diff:
-        fail(f"{label}: the workers' final state is not bitwise the "
-             f"per-rank reference: max |diff| by leaf {diff}")
+    state = tree_map(lambda t: t.cpu(), out["state"])
+    for what, want in (("the per-rank reference", ref), ("phase 34's "
+                       "unchunked run", twin)):
+        if want is None:
+            continue
+        diff = {k: float((a.float() - b.float().cpu()).abs().max())
+                for (k, a), b in zip(tree_paths(state), tree_leaves(want))
+                if a.dtype != b.dtype or not torch.equal(a, b.cpu())}
+        if diff:
+            fail(f"{label}: the workers' final state is not bitwise {what}:"
+                 f" max |diff| by leaf {diff}")
     check_dtypes(label, out["state"], wcfg)
     spec = W.make_schedule(wcfg).spec
     deposit = spec.total * spec.payload_dtype.itemsize
-    if window != deposit:
-        fail(f"{label}: the ring's window 0 -> 1 holds {window} B, a "
+    if sum(windows) != deposit or len(windows) != spec.n_segments:
+        fail(f"{label}: the ring's windows 0 -> 1 hold {windows} B, a "
              f"deposit of {spec.total} scalars in {spec.payload_dtype} is "
-             f"{deposit} B")
+             f"{deposit} B in {spec.n_segments} segments")
     stacked, _ = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
                                  PROC_BITWISE_EPOCHS, data, device=dev)
     gap = {top: max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(stacked[top]), tree_leaves(out["state"][top])))
         for top in ("gen", "disc")}
+    also = " and phase 34's unchunked run" if twin is not None else ""
+    runs = ", ".join(f"{k} {n[0]} times (backward {n[2]} launches, {n[3]} "
+                     f"in PyTorch)" for k, n in
+                     proc_expect(wcfg, PROC_BITWISE_EPOCHS).items() if n[0])
     print(f"{label} ({GAN_OUTER} x {GAN_INNER}) on one card, lock-step, "
           f"{PROC_BITWISE_EPOCHS} epochs, fp32 compute (TF32 off): the "
           f"final state (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise "
-          f"the per-rank reference computed in this process, the "
-          f"mailbox's weights and the outer mailbox {spec.payload_dtype}, "
-          f"the master state fp32; {deposit:,} B a deposit ({spec.total:,} "
-          f"scalars, the ring's window 0 -> 1 as large); B1 launched "
-          f"{PROC_BITWISE_EPOCHS} times and its backward "
-          f"{PROC_BITWISE_EPOCHS} times in each worker, no plain call; "
-          f"against train_stacked's {PROC_BITWISE_EPOCHS} epochs max |diff| "
-          f"gen {gap['gen']:.3e}, disc {gap['disc']:.3e} (batched against "
-          f"per-rank GEMMs); start-up {out['startup_s']:.1f} s, spawn to "
-          f"result {out['wall_s']:.1f} s; phase "
-          f"{time.perf_counter() - t0:.1f} s")
-    return out["counts"]["inverse_cdf"][0]
+          f"the per-rank reference computed in this process{also}, the "
+          f"mailbox's weights and the outer mailbox "
+          f"{spec.payload_dtype}, the master state fp32; {deposit:,} B a "
+          f"deposit ({spec.total:,} scalars) in {len(windows)} window(s) "
+          f"0 -> 1 of {', '.join(f'{w:,}' for w in windows)} B; in each "
+          f"worker {runs}, no plain call; against train_stacked's "
+          f"{PROC_BITWISE_EPOCHS} epochs max |diff| gen {gap['gen']:.3e}, "
+          f"disc {gap['disc']:.3e} (batched against per-rank GEMMs); "
+          f"start-up {out['startup_s']:.1f} s, spawn to result "
+          f"{out['wall_s']:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    counts = out["counts"]
+    del out, stacked, ref
+    torch.cuda.empty_cache()
+    return counts, state
+
+
+def gan_healthy(d):
+    """Phase 22's bars on the d_loss (mean over ranks) by epoch."""
+    return (d[-1] < d[0] and d.min() < GAN_D_MIN,
+            f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
+
+
+def gan_improving(d):
+    """Phase 26's bar for the other problems."""
+    return (d.min() < d[0], f"min {d.min():.4f} < first {d[0]:.4f}")
 
 
 def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
-                  **kw):
-    """Phases 35 and 37: `wcfg` for GAN_EPOCHS epochs as 8 workers with
-    phase 22's bars on the history, per-rank epoch p50/p99 and peak
-    memory, events/s, start-up and wall time beside `stacked_p50` (ms).
-    Returns (B1's launches in the workers, each rank's epoch p50 in ms)."""
+                  d_bar=gan_healthy, **kw):
+    """Phases 35, 37 and 39: `wcfg` for GAN_EPOCHS epochs as 8 workers:
+    every state leaf and d_loss finite, the ensemble in (0, 1) and
+    `d_bar(d_loss by epoch)`; per-rank epoch p50/p99 and peak memory,
+    events/s, start-up and wall time beside `stacked_p50` (ms).  Returns
+    (the workers' counts, each rank's epoch p50 in ms)."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core.ensemble import ensemble_response
@@ -2118,29 +2192,30 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
     prob = wcfg.problem_obj
     noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
         ).manual_seed(7)).to(dev)
-    tag = (f"[{tag}] PAPER {wcfg.sync.mode} h {wcfg.sync.h}, "
-           f"{wcfg.sync.payload_precision} payload, {label}")
+    chunk = wcfg.sync.ring_chunking
+    tag = (f"[{tag}] {preset_name(wcfg)} {wcfg.sync.mode} h {wcfg.sync.h}, "
+           f"{wcfg.sync.payload_precision} payload"
+           f"{f', ring_chunking {chunk:,} B' if chunk else ''}, {label}")
     out = proc_counted(tag, dev, wcfg, data, all_counts, GAN_EPOCHS, **kw)
     state, hist = out["state"], out["history"]
     bad = [k for k, t in tree_paths(state)
            if not bool(torch.isfinite(t.float()).all())]
     p_hat, _ = ensemble_response(state["gen"], noise)
     d = hist["d_loss"].mean(1).numpy()
-    if bad or not np.isfinite(d).all() or not (
-            0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
-            or not (d[-1] < d[0] and d.min() < GAN_D_MIN):
+    ok, bar = d_bar(d) if np.isfinite(d).all() else (False, "")
+    if bad or not ok or not (
+            0 < float(p_hat.min()) and float(p_hat.max()) < 1):
         fail(f"{tag}: non-finite leaves {bad[:4]}, ensemble in "
              f"({float(p_hat.min())}, {float(p_hat.max())}), d_loss "
              f"first {d[0]}, last {d[-1]}, min {d.min()}: the bars are "
-             f"finite state and d_loss, the ensemble in (0, 1), last < "
-             f"first and min < {GAN_D_MIN}")
+             f"finite state and d_loss, the ensemble in (0, 1), {bar}")
     check_dtypes(tag, state, wcfg)
     ms = hist["epoch_s"].numpy() * 1e3                   # [T, R]
     p50 = np.percentile(ms, 50, axis=0)
     print(f"{tag}: {R} workers ({GAN_OUTER} x {GAN_INNER}) on one card, "
           f"{GAN_EPOCHS} epochs, fp32 compute (TF32 off); d_loss (mean over "
-          f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f} "
-          f"< {GAN_D_MIN}; every state leaf finite; ensemble in "
+          f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f}; "
+          f"{bar}; every state leaf finite; ensemble in "
           f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f}); final "
           f"mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f}")
     for s, a, b in zip(out["summaries"], p50, np.percentile(ms, 99, axis=0)):
@@ -2149,20 +2224,28 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
               f"torch.cuda.synchronize), {s['wall_s']:.2f} s for its "
               f"epochs, peak memory "
               f"{s['peak_memory_bytes'] / 2**30:.3f} GiB")
+    counted = ", ".join(f"{k} {tuple(n)}" for k, n in out["counts"].items()
+                        if any(n))
     print(f"{tag}: {K * E * (1e3 / p50).sum():,.0f} generated events/s "
           f"(each rank's {K} x {E} events at its epoch p50, summed); "
           f"spawn to result {out['wall_s']:.1f} s, start-up (spawn to "
           f"the last worker through the run-start barrier) "
-          f"{out['startup_s']:.1f} s; B1 summed over the workers "
-          f"(launches, plain, backward launches, backward plain) "
-          f"{out['counts']['inverse_cdf']}; phase 22's stacked epoch "
-          f"p50 in the same run {stacked_p50:.3f} ms "
+          f"{out['startup_s']:.1f} s; summed over the workers (launches, "
+          f"plain, backward launches, backward plain): {counted}; the "
+          f"stacked epoch p50 in the same run {stacked_p50:.3f} ms "
           f"({R * K * E / stacked_p50 * 1e3:,.0f} events/s); phase "
           f"{time.perf_counter() - t0:.1f} s")
-    launches = out["counts"]["inverse_cdf"][0]
+    counts = out["counts"]
     del out, state, hist
     torch.cuda.empty_cache()
-    return launches, p50
+    return counts, p50
+
+
+def add_launches(launches, counts):
+    """Add each kernel's launches in `counts` (kernel -> (launches, ...))
+    to `launches`."""
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n[0]
 
 
 def proc_phases(dev, all_counts, stacked_p50):
@@ -2170,8 +2253,9 @@ def proc_phases(dev, all_counts, stacked_p50):
     (`runtime.launch.run_proc`, 2 x 4): lock-step runs bitwise their
     per-rank reference, then PAPER for GAN_EPOCHS epochs lock-step and
     free-running with phase 22's bars.  `stacked_p50` is phase 22's epoch
-    p50 by mode.  Returns B1's launches in the workers over the counted
-    runs and the lock-step run's epoch p50 by rank (ms)."""
+    p50 by mode.  Returns each kernel's launches in the workers over the
+    counted runs, the lock-step run's epoch p50 by rank (ms) and the
+    bitwise runs' final states on the CPU by mode."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER
@@ -2181,12 +2265,13 @@ def proc_phases(dev, all_counts, stacked_p50):
     data = get_problem("proxy1d").make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
-    launches = 0
+    launches, states = {}, {}
     # -- 34. lock-step, bitwise its per-rank reference -----------------------
     for mode, h in PROC_BITWISE:
-        launches += proc_bitwise("34", dev, dataclasses.replace(
+        counts, states[mode] = proc_bitwise("34", dev, dataclasses.replace(
             PAPER, sync=dataclasses.replace(PAPER.sync, mode=mode, h=h)),
             data, all_counts)
+        add_launches(launches, counts)
 
     # -- 35. the paper's workflow: 200 epochs, lock-step and free-running ---
     p50 = {}
@@ -2195,11 +2280,11 @@ def proc_phases(dev, all_counts, stacked_p50):
             (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
              {"lockstep": False,
               "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
-        n, p50[label] = proc_workflow("35", label, dev, PAPER, data,
-                                      all_counts,
-                                      stacked_p50[PAPER.sync.mode], **kw)
-        launches += n
-    return launches, p50["lock-step"]
+        counts, p50[label] = proc_workflow("35", label, dev, PAPER, data,
+                                           all_counts,
+                                           stacked_p50[PAPER.sync.mode], **kw)
+        add_launches(launches, counts)
+    return launches, p50["lock-step"], states
 
 
 def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
@@ -2211,7 +2296,8 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     vs CPU.  37: the proc runtime, lock-step bitwise its reference in
     both modes and PAPER for GAN_EPOCHS epochs with phase 35's bars,
     beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
-    kernel's launches over the counted runs."""
+    kernel's launches over the counted runs and phase 36's PAPER epoch
+    p50 (ms) by mode."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
@@ -2221,23 +2307,21 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     def bf16(wcfg, **sync):
         return dataclasses.replace(wcfg, sync=dataclasses.replace(
             wcfg.sync, payload_precision="bf16", **sync))
-    launches = {k: 0 for k in all_counts}
+    launches, p50s = {k: 0 for k in all_counts}, {}
     data = get_problem("proxy1d").make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
 
     # -- 36. stacked: PAPER in both ring modes, imaging_blur, card vs CPU ---
-    def healthy(d):
-        return (d[-1] < d[0] and d.min() < GAN_D_MIN,
-                f"last < first and min {d.min():.4f} < {GAN_D_MIN}")
     for mode in GAN_MODES:
         expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
                       else (0, 0, 0, 0)) for k in all_counts}
         wcfg = bf16(PAPER, mode=mode)
         got, p50, final = train_and_check(
             "36", f"GAN PAPER {mode} bf16 payload", dev, wcfg, data,
-            all_counts, expect, healthy)
+            all_counts, expect, gan_healthy)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
+        p50s[mode] = p50
         p50_32, gen_32, r_32 = fp32[mode]
         gap = max(float((a - b).abs().max()) for a, b in zip(
             tree_leaves(final["gen"]), tree_leaves(gen_32)))
@@ -2249,8 +2333,6 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
               f"{r_32:.4f} (|gap| {abs(final['residual'] - r_32):.4f}; "
               f"printed, the bars are the healthy ones)")
 
-    def improving(d):
-        return (d.min() < d[0], f"min {d.min():.4f} < first {d[0]:.4f}")
     name = "imaging_blur"
     wcfg = bf16(for_problem(name, PAPER))
     expect = {k: (0, 0, 0, 0) for k in all_counts}
@@ -2261,7 +2343,7 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         device=dev)
     got, p50, _ = train_and_check("36", f"{name} for_problem(PAPER) bf16 "
                                   "payload", dev, wcfg, blur_data,
-                                  all_counts, expect, improving)
+                                  all_counts, expect, gan_improving)
     for k in launches:
         launches[k] += got[k][0]
     from repro_torch.core import workflow as W
@@ -2279,16 +2361,163 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
 
     # -- 37. the proc runtime at bf16 ----------------------------------------
     for mode, h in PROC_BITWISE:
-        launches["inverse_cdf"] += proc_bitwise(
-            "37", dev, bf16(PAPER, mode=mode, h=h), data, all_counts)
-    n, p50 = proc_workflow("37", "lock-step", dev, bf16(PAPER), data,
-                           all_counts, fp32[PAPER.sync.mode][0])
-    launches["inverse_cdf"] += n
+        counts, _ = proc_bitwise("37", dev, bf16(PAPER, mode=mode, h=h),
+                                 data, all_counts)
+        add_launches(launches, counts)
+    counts, p50 = proc_workflow("37", "lock-step", dev, bf16(PAPER), data,
+                                all_counts, fp32[PAPER.sync.mode][0])
+    add_launches(launches, counts)
     print(f"[37] PAPER {PAPER.sync.mode} bf16 payload, lock-step: epoch p50 "
           f"a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
           f"{np.median(p50):.3f}) beside phase 35's fp32 "
           f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (median "
           f"{np.median(proc_p50):.3f}) in the same run")
+    return launches, p50s
+
+
+def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
+                   proc_states, proc_p50):
+    """Phases 38-39: the chunked ring (`ring_chunking`) on the card.  38:
+    PAPER stacked at R 8 in both ring modes at RING_CHUNK with phase 22's
+    bars and counts beside phase 22's runs (`fp32`: mode -> (p50 ms, final
+    generator on the CPU, final mean|r̂|)), CHUNK_BITWISE_EPOCHS epochs of
+    each bitwise an unchunked run; imaging_blur at IMAGE_RING_CHUNK with
+    phase 26's bars and counts beside its p50 (`imaging_blur_p50`); PAPER
+    at bf16 and RING_CHUNK beside phase 36's (`bf16_p50` by mode).  39:
+    the proc runtime, phase 34's bitwise runs chunked, bitwise their
+    reference and phase 34's states (`proc_states` by mode);
+    imaging_blur as 8 workers, bitwise its reference, then GAN_EPOCHS
+    lock-step epochs with phase 26's bars beside its stacked p50, and a
+    free run with phase 35's lag (finite); PAPER's lock-step epoch a rank
+    is phase 35's (`proc_p50`).  Returns each kernel's launches over the
+    counted runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, for_problem
+    from repro_torch.core import workflow as W
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    def chunked(wcfg, chunk=RING_CHUNK, **sync):
+        return dataclasses.replace(wcfg, sync=dataclasses.replace(
+            wcfg.sync, ring_chunking=chunk, **sync))
+
+    def paper(mode, **sync):
+        return dataclasses.replace(PAPER, sync=dataclasses.replace(
+            PAPER.sync, mode=mode, **sync))
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    t0 = time.perf_counter()
+
+    # -- 38. stacked ----------------------------------------------------------
+    for mode in GAN_MODES:
+        wcfg = chunked(paper(mode))
+        nseg = W.make_schedule(wcfg).spec.n_segments
+        states = [W.train_stacked(SEED, c, GAN_OUTER, GAN_INNER,
+                                  CHUNK_BITWISE_EPOCHS, data, device=dev)[0]
+                  for c in (paper(mode), wcfg)]
+        diff = [k for (k, a), b in zip(tree_paths(states[1]),
+                                       tree_leaves(states[0]))
+                if not torch.equal(a, b)]
+        if diff or nseg != 4:
+            fail(f"[38] GAN PAPER {mode}, {nseg} segments: after "
+                 f"{CHUNK_BITWISE_EPOCHS} epochs the chunked state differs "
+                 f"from the unchunked one in {diff[:6]}")
+        print(f"[38] GAN PAPER {mode} at ring_chunking {RING_CHUNK:,} B "
+              f"({nseg} segments): {CHUNK_BITWISE_EPOCHS} epochs from seed "
+              f"{SEED} bitwise an unchunked run on the card (the whole "
+              f"state)")
+        del states
+        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
+                      else (0, 0, 0, 0)) for k in all_counts}
+        got, p50, final = train_and_check(
+            "38", f"GAN PAPER {mode} ring_chunking {RING_CHUNK:,} B", dev,
+            wcfg, data, all_counts, expect, gan_healthy)
+        launches["inverse_cdf"] += got["inverse_cdf"][0]
+        p50_32, gen_32, r_32 = fp32[mode]
+        gap = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(final["gen"]), tree_leaves(gen_32)))
+        R, K, E = GAN_OUTER * GAN_INNER, PAPER.n_param_samples, \
+            PAPER.events_per_sample
+        print(f"[38] GAN PAPER {mode} chunked: epoch p50 {p50:.3f} ms "
+              f"({R * K * E / p50 * 1e3:,.0f} events/s) beside phase 22's "
+              f"unchunked {p50_32:.3f} ms ({R * K * E / p50_32 * 1e3:,.0f} "
+              f"events/s) in the same run ({p50 / p50_32:.3f}x); after "
+              f"{GAN_EPOCHS} epochs the generator max |chunked - phase 22| "
+              f"{gap:.3e}, mean|r̂| {final['residual']:.4f} against "
+              f"{r_32:.4f}")
+
+    name = "imaging_blur"
+    wcfg = chunked(for_problem(name, PAPER), IMAGE_RING_CHUNK)
+    spec = W.make_schedule(wcfg).spec
+    if spec.n_segments != 3:
+        fail(f"[38] {name}: {spec.n_segments} segments at "
+             f"{IMAGE_RING_CHUNK} B, expected 3")
+    expect = {k: (0, 0, 0, 0) for k in all_counts}
+    expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0, 0)
+    expect["blur2d"] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
+    blur_data = get_problem(name).make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    got, blur_p50, _ = train_and_check(
+        "38", f"{name} for_problem(PAPER) ring_chunking "
+        f"{IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data, all_counts, expect,
+        gan_improving)
+    for k in launches:
+        launches[k] += got[k][0]
+    print(f"[38] {name} chunked: epoch p50 {blur_p50:.3f} ms beside phase "
+          f"26's unchunked {imaging_blur_p50:.3f} ms in the same run; "
+          f"{spec.total:,} scalars a rank ({spec.total * 4:,} B) in "
+          f"{spec.n_segments} segments of at most {IMAGE_RING_CHUNK:,} B")
+
+    wcfg = chunked(paper("rma_arar_arar"), payload_precision="bf16")
+    nseg = W.make_schedule(wcfg).spec.n_segments
+    expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
+                  else (0, 0, 0, 0)) for k in all_counts}
+    got, p50, _ = train_and_check(
+        "38", f"GAN PAPER rma_arar_arar bf16 payload, ring_chunking "
+        f"{RING_CHUNK:,} B ({nseg} segments)", dev, wcfg, data, all_counts,
+        expect, gan_healthy)
+    if nseg != 2:
+        fail(f"[38] bf16 at {RING_CHUNK} B: {nseg} segments, expected 2")
+    launches["inverse_cdf"] += got["inverse_cdf"][0]
+    print(f"[38] GAN PAPER rma_arar_arar bf16 chunked: epoch p50 {p50:.3f} "
+          f"ms beside phase 36's bf16 unchunked "
+          f"{bf16_p50['rma_arar_arar']:.3f} ms in the same run; phase 38 "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 39. the proc runtime ---------------------------------------------------
+    t0 = time.perf_counter()
+    for mode, h in PROC_BITWISE:
+        counts, _ = proc_bitwise("39", dev, chunked(paper(mode, h=h)), data,
+                                 all_counts, twin=proc_states[mode])
+        add_launches(launches, counts)
+    wcfg = chunked(for_problem(name, PAPER), IMAGE_RING_CHUNK)
+    counts, _ = proc_bitwise("39", dev, dataclasses.replace(
+        wcfg, sync=dataclasses.replace(wcfg.sync, h=2)), blur_data,
+        all_counts)
+    add_launches(launches, counts)
+    p50 = {}
+    for label, kw in (
+            ("lock-step", {}),
+            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
+             {"lockstep": False,
+              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
+        counts, p50[label] = proc_workflow(
+            "39", label, dev, wcfg, blur_data, all_counts, blur_p50,
+            d_bar=gan_improving if label == "lock-step" else
+            (lambda d: (True, "finite")), **kw)
+        add_launches(launches, counts)
+    lock = p50["lock-step"]
+    print(f"[39] {name} as 8 workers at ring_chunking {IMAGE_RING_CHUNK:,} "
+          f"B, lock-step: epoch p50 a rank {np.min(lock):.3f}-"
+          f"{np.max(lock):.3f} ms (median {np.median(lock):.3f}) beside "
+          f"PAPER's unchunked fp32 {np.min(proc_p50):.3f}-"
+          f"{np.max(proc_p50):.3f} ms (phase 35, same run); phase 39 "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2717,6 +2946,11 @@ def main():
     from repro_torch.serving import SolveService
 
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
+
+    def clock(phases):
+        print(f"[t] phases {phases} done, {time.perf_counter() - t_script:.1f}"
+              f" s into the script", flush=True)
     # fp32 matmuls in full fp32 (TF32 off, PyTorch's default), as the CPU
     # comparison needs.  cuDNN's TF32 flag is left as it stands: the conv
     # generator switches it off around its own call, and phase 8 checks
@@ -2817,20 +3051,23 @@ def main():
         if shape == MAIN_SHAPE and udtype == torch.float32:
             max_err["inverse_cdf"] = err
     # the imaging readout's call in training: the 2-D entry on the noise
-    # channel of u [512, 32, 2], mu = k = 0, s = SIGMA
-    u = torch.rand(TRAIN_READOUT_SHAPE + (2,), generator=g).to(dev)
-    u = u[..., 1].contiguous()
-    zeros = torch.zeros(TRAIN_IMAGES, device=dev)
-    s = torch.full((TRAIN_IMAGES,), IMAGING_SIGMA, device=dev)
-    y = inverse_cdf(u, zeros, s, zeros)
-    torch.cuda.synchronize()
-    ok, err = close(y, inverse_cdf_ref(u, zeros, s, zeros), **FP32)
-    if not ok or y.shape != u.shape:
-        fail(f"inverse_cdf kernel disagrees with its plain version at the "
-             f"imaging readout's u{list(u.shape)} (max {err:.3e})")
-    print(f"[3] inverse_cdf u{list(u.shape)} float32 through the 2-D entry "
-          f"(imaging training's readout noise, s {IMAGING_SIGMA}): max "
-          f"|kernel - plain| = {err:.3e} (rtol 1e-4, atol 1e-5) ok")
+    # channel of u [512, 32, 2], mu = k = 0, s = SIGMA; [64, 32] in one
+    # proc worker (phase 39)
+    for shape in (TRAIN_READOUT_SHAPE, PROC_READOUT_SHAPE):
+        u = torch.rand(shape + (2,), generator=g).to(dev)
+        u = u[..., 1].contiguous()
+        zeros = torch.zeros(shape[0], device=dev)
+        s = torch.full((shape[0],), IMAGING_SIGMA, device=dev)
+        y = inverse_cdf(u, zeros, s, zeros)
+        torch.cuda.synchronize()
+        ok, err = close(y, inverse_cdf_ref(u, zeros, s, zeros), **FP32)
+        if not ok or y.shape != u.shape:
+            fail(f"inverse_cdf kernel disagrees with its plain version at "
+                 f"the imaging readout's u{list(u.shape)} (max {err:.3e})")
+        print(f"[3] inverse_cdf u{list(u.shape)} float32 through the 2-D "
+              f"entry (imaging training's readout noise, s "
+              f"{IMAGING_SIGMA}): max |kernel - plain| = {err:.3e} (rtol "
+              f"1e-4, atol 1e-5) ok")
 
     for shape, dtype, mdtype in [(MASK_SHAPE, torch.float32, torch.float32),
                                  (MASK_SHAPE, torch.bfloat16, torch.float32),
@@ -2858,6 +3095,7 @@ def main():
     for shape, dtype, offset in [(BLUR_SHAPE, torch.float32, 0),
                                  (BLUR_SHAPE, torch.bfloat16, 0),
                                  (TRAIN_BLUR_SHAPE, torch.float32, 0),
+                                 (PROC_BLUR_SHAPE, torch.float32, 0),
                                  (BLUR_BIG_SHAPE, torch.float32, 0),
                                  (BLUR_BIG_SHAPE, torch.bfloat16, 0),
                                  (BLUR_BIG_SHAPE, torch.float32, 1),
@@ -2896,7 +3134,8 @@ def main():
     for name, fn, ref, shape in (
             ("mask_apply", lambda x: kimaging.mask_apply(x, m.float()),
              lambda x: mask_apply_ref(x, m.float()), TRAIN_MASK_SHAPE),
-            ("blur2d", kimaging.blur2d, blur2d_ref, TRAIN_BLUR_SHAPE)):
+            ("blur2d", kimaging.blur2d, blur2d_ref, TRAIN_BLUR_SHAPE),
+            ("blur2d", kimaging.blur2d, blur2d_ref, PROC_BLUR_SHAPE)):
         x = torch.randn(shape, generator=g).to(dev)
         ct = torch.randn(shape, generator=g).to(dev)
         cnt = all_counts[name]
@@ -2917,6 +3156,7 @@ def main():
 
     # -- 4. time at the main-path shapes -------------------------------------
     timing = time_phase(dev, strict=True)
+    clock("1-4")
 
     # -- the served paths ----------------------------------------------------
     def make_requests(problem):
@@ -3119,20 +3359,24 @@ def main():
         card_vs_cpu("9", name, stack, requests)
         profile("10", svc, name, requests, lat)
 
+    clock("5-10")
     # -- 11-15. flash attention and the LLM engine ---------------------------
     max_err["flash_attention"], timing["flash_attention"] = flash_phases(dev)
     launches["flash_attention"] = llm_phases(dev, all_counts)
 
+    clock("11-15")
     # -- 16-21. the SSD scan, gradients, and LLM training --------------------
     max_err["ssd_scan"], ssd_timing = ssd_phases(dev)
     timing["ssd_scan"] = ssd_timing["training"]
     grad_phase(dev, all_counts)
     launches["ssd_scan"] = train_phases(dev, all_counts)
 
+    clock("16-21")
     # -- 22-24. the paper's GAN training -------------------------------------
     n, gan_fp32 = gan_phases(dev, all_counts)
     launches["inverse_cdf"] += n
 
+    clock("22-24")
     # -- 25. serve proxy2d and linear_blur -----------------------------------
     for name in PROBLEMS_SERVED:
         problem = get_problem(name)
@@ -3162,19 +3406,32 @@ def main():
     for k, n in problem_launches.items():
         launches[k] = launches.get(k, 0) + n
 
+    clock("25-28")
     # -- 29-33. the MoE family -----------------------------------------------
     launches["flash_attention"] += moe_phases(dev, all_counts)
 
+    clock("29-33")
     # -- 34-35. the GAN as worker processes (B1: the workers' launches) -----
-    n, proc_p50 = proc_phases(dev, all_counts,
-                              {m: v[0] for m, v in gan_fp32.items()})
-    launches["inverse_cdf"] += n
+    n, proc_p50, proc_states = proc_phases(
+        dev, all_counts, {m: v[0] for m, v in gan_fp32.items()})
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
 
+    clock("34-35")
     # -- 36-37. the bf16 ring payload, stacked and as worker processes ------
-    for k, n in bf16_phases(dev, all_counts, gan_fp32,
-                            problem_p50["imaging_blur"], proc_p50).items():
-        launches[k] = launches.get(k, 0) + n
+    n, bf16_p50 = bf16_phases(dev, all_counts, gan_fp32,
+                              problem_p50["imaging_blur"], proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
 
+    clock("36-37")
+    # -- 38-39. the chunked ring, stacked and as worker processes -----------
+    n = chunked_phases(dev, all_counts, gan_fp32, bf16_p50,
+                       problem_p50["imaging_blur"], proc_states, proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("38-39")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

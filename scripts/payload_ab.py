@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Time the GAN epoch and its exchange with the fp32 and the bf16 ring
-payload in turns, on one card.
+"""Time the GAN epoch and its exchange in two variants of the ring payload
+in turns, on one card: fp32 against bf16 (`--lane payload`, the default),
+or the fp32 payload unchunked against chunked (`--lane chunked`).
 
     PYTHONPATH=src python scripts/payload_ab.py [--problem imaging_blur]
+    PYTHONPATH=src python scripts/payload_ab.py --lane chunked \
+        [--problem imaging_blur] [--ring-chunking BYTES]
     PYTHONPATH=src python scripts/payload_ab.py --device cpu --epochs 4
 
 Each turn trains `PAPER` (or `for_problem(name, PAPER)`) stacked at R 8 as
 2 x 4 in `rma_arar_arar` from one seed, after a 2-epoch warm-up, and
 reads its epoch p50 and p99 from CUDA events at each epoch's end; the
-turns run in the order of `--turns` (default fp32, bf16, bf16, fp32), so
-a drift of the card shows as a gap between the two runs of one payload.
-Then `StaticSchedule.exchange` alone on random gradients at the
-generator's widths: its time a call (CUDA events over 200 calls, after
-warm-up) for each payload.  On the CPU the host clock stands in, and
-the numbers are not the card's.
+turns run in the order of `--turns` (default: A, B, B, A of the lane's
+two variants), so a drift of the card shows as a gap between the two
+runs of one variant.  The chunked lane cuts the payload into segments of
+`--ring-chunking` bytes (default 65,536, and 524,288 for the image
+problems: 4 and 3 segments).  Then `StaticSchedule.exchange` alone on
+random gradients at the generator's widths: its time a call (CUDA events
+over 200 calls, after warm-up) for each variant.  On the card the first
+line names it and its power limit (nvidia-smi); on the CPU the host
+clock stands in, and the numbers are not the card's.
 """
 import argparse
 import dataclasses
 import os
+import subprocess
 import sys
 import time
 
@@ -31,7 +38,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problem", default="proxy1d")
     ap.add_argument("--epochs", type=int, default=200)
-    ap.add_argument("--turns", default="fp32,bf16,bf16,fp32")
+    ap.add_argument("--lane", choices=("payload", "chunked"),
+                    default="payload")
+    ap.add_argument("--ring-chunking", type=int, default=None,
+                    help="the chunked lane's segment size in bytes")
+    ap.add_argument("--turns", default=None,
+                    help="comma-separated variants (default A,B,B,A)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -64,37 +76,56 @@ def main(argv=None) -> int:
                 return self.ev.elapsed_time(later.ev)
             return (later.t - self.t) * 1e3
 
-    def wcfg_of(prec):
+    problem = get_problem(args.problem)
+    chunk = args.ring_chunking or (524_288 if problem.param_shape
+                                   else 65_536)
+    variants = ({"fp32": ("fp32", 0), "bf16": ("bf16", 0)}
+                if args.lane == "payload" else
+                {"unchunked": ("fp32", 0), "chunked": ("fp32", chunk)})
+    a, b = variants
+    turns = (args.turns or f"{a},{b},{b},{a}").split(",")
+
+    def wcfg_of(variant):
+        prec, ring_chunking = variants[variant]
         base = for_problem(args.problem, PAPER)
         return dataclasses.replace(base, sync=dataclasses.replace(
-            base.sync, payload_precision=prec))
+            base.sync, payload_precision=prec, ring_chunking=ring_chunking))
 
-    data = get_problem(args.problem).make_reference_data(
+    data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), 50_000, device=dev)
-    name = (torch.cuda.get_device_name(dev) if cuda else "cpu (host clock: "
-            "not the card's numbers)")
+    if cuda:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        name = f"{torch.cuda.get_device_name(dev)} ({smi})"
+    else:
+        name = "cpu (host clock: not the card's numbers)"
     print(f"{args.problem} for_problem(PAPER), R 8 as 2 x 4, rma_arar_arar, "
-          f"{args.epochs} epochs a turn, on {name}", flush=True)
+          f"{args.epochs} epochs a turn, lane {args.lane}: "
+          + ", ".join(f"{v} = {p} payload, ring_chunking {c}"
+                      for v, (p, c) in variants.items())
+          + f", on {name}", flush=True)
     epochs = {}
-    for prec in args.turns.split(","):
-        wcfg = wcfg_of(prec)
+    for variant in turns:
+        wcfg = wcfg_of(variant)
         W.train_stacked(1, wcfg, 2, 4, 2, data, device=dev)     # warm-up
         marks = []
         W.train_stacked(0, wcfg, 2, 4, args.epochs, data, device=dev,
                         on_epoch=lambda e, m: marks.append(Clock()))
         ms = np.array([a.ms_to(b) for a, b in zip(marks[:-1], marks[1:])])
-        epochs.setdefault(prec, []).append(float(np.percentile(ms, 50)))
-        print(f"turn {prec}: epoch p50 {np.percentile(ms, 50):.3f} ms, p99 "
-              f"{np.percentile(ms, 99):.3f} ms over {len(ms)} epochs",
+        epochs.setdefault(variant, []).append(float(np.percentile(ms, 50)))
+        print(f"turn {variant}: epoch p50 {np.percentile(ms, 50):.3f} ms, "
+              f"p99 {np.percentile(ms, 99):.3f} ms over {len(ms)} epochs",
               flush=True)
-    for prec, p50s in epochs.items():
-        print(f"{prec}: epoch p50 by turn "
+    for variant, p50s in epochs.items():
+        print(f"{variant}: epoch p50 by turn "
               + ", ".join(f"{v:.3f}" for v in p50s) + " ms")
 
     # the exchange alone, on random gradients at the generator's widths
     g = torch.Generator(device="cpu").manual_seed(5)
-    for prec in ("fp32", "bf16"):
-        sched = W.make_schedule(wcfg_of(prec))
+    for variant in variants:
+        sched = W.make_schedule(wcfg_of(variant))
         grads = tree_map(lambda t: torch.randn((8,) + tuple(t.shape),
                                                generator=g).to(dev),
                          sched.spec.zeros(None))
@@ -104,14 +135,15 @@ def main(argv=None) -> int:
         for _ in range(20):
             _, st = sched.exchange(comm, grads, st, epoch)
         n = 200
-        a = Clock()
+        t0 = Clock()
         for _ in range(n):
             _, st = sched.exchange(comm, grads, st, epoch)
-        b = Clock()
+        t1 = Clock()
         payload = sched.spec.total * sched.spec.payload_dtype.itemsize
-        print(f"exchange alone, {prec} payload ({sched.spec.total:,} scalars "
-              f"a rank, {payload:,} B): {a.ms_to(b) / n:.4f} ms a call "
-              f"(mean of {n}, back to back)")
+        print(f"exchange alone, {variant} ({sched.spec.total:,} scalars a "
+              f"rank, {payload:,} B in {sched.spec.n_segments} segment(s)): "
+              f"{t0.ms_to(t1) / n:.4f} ms a call (mean of {n}, back to "
+              f"back)")
     return 0
 
 

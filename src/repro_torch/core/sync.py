@@ -38,10 +38,21 @@ the payload dtype (a bf16 add computes in fp32 and rounds, in torch as in
 XLA), so the exchange at bf16 is bitwise the JAX package's on the same
 payload.  Master parameters and the Adam state stay fp32.
 
+Chunked ring (`SyncConfig.ring_chunking`, the JAX package's lines
+121–141): a segment size in bytes, 0 for one unsegmented payload.
+`FusionSpec.split_payload` cuts the flat payload into ceil(D · itemsize
+/ ring_chunking) last-axis segments, counted in payload-dtype elements
+(bf16 fits twice the elements in a segment), and the exchange runs on
+their tuple: every `Comm` transfer maps over a tuple leaf by leaf, so
+each segment is its own `torch.roll` on `VmapComm` and its own mmap
+window on `ProcComm` (`window_bytes`).  Storage stays flat: the
+segments are joined before the unpack, so mailboxes and checkpoints do
+not depend on chunking, and a chunked exchange is bitwise the unchunked
+one (the ring modes only roll and add elementwise).
+
 Not ported yet, each raising `NotImplementedError` from `SyncConfig`
 (ROADMAP.md queue A item 3): the depth-k mailbox (`staleness > 1`), the
-overlapped pod boundary (`overlap`), adaptive staleness (`adaptive`) and
-the chunked ring.
+overlapped pod boundary (`overlap`) and adaptive staleness (`adaptive`).
 """
 from __future__ import annotations
 
@@ -93,7 +104,7 @@ class SyncConfig:
     overlap: bool = False          # queue A item 3
     adaptive: bool = False         # queue A item 3
     payload_precision: str = "fp32"  # wire dtype of the fused payload
-    ring_chunking: int = 0         # > 0: queue A item 3
+    ring_chunking: int = 0         # ring segment size in bytes (0: one)
 
     def __post_init__(self):
         # the JAX package's validation, message for message ...
@@ -157,8 +168,6 @@ class SyncConfig:
             _later("the overlapped pod-boundary exchange (overlap=True)")
         if self.adaptive:
             _later("adaptive staleness (adaptive=True, AdaptiveSchedule)")
-        if self.ring_chunking:
-            _later("the chunked ring exchange (ring_chunking > 0)")
 
 
 # ----------------------------------------------------------------------------
@@ -186,12 +195,15 @@ class FusionSpec:
     slots: Tuple[_LeafSlot, ...]
     total: int                     # D = sum of masked per-rank leaf sizes
     payload_dtype: Any = torch.float32
+    chunk_bytes: int = 0           # ring segment size in bytes (0: one)
 
     @classmethod
-    def build(cls, example, mask, payload_dtype=None) -> "FusionSpec":
+    def build(cls, example, mask, payload_dtype=None,
+              chunk_bytes: int = 0) -> "FusionSpec":
         """`example` is a per-rank tree of tensors (shapes and dtypes are
         read; a "meta" tensor will do) and `mask` a matching bool tree.
-        `payload_dtype` None takes the masked leaves' dtype."""
+        `payload_dtype` None takes the masked leaves' dtype;
+        `chunk_bytes` is `SyncConfig.ring_chunking`."""
         slots, off = [], 0
         for m, g in zip(tree_leaves(mask), tree_leaves(example)):
             n = math.prod(g.shape)
@@ -205,7 +217,7 @@ class FusionSpec:
             for dt in masked[1:]:
                 payload_dtype = torch.promote_types(payload_dtype, dt)
         return cls(tree_unflatten(example, slots), tuple(slots), off,
-                   payload_dtype)
+                   payload_dtype, int(chunk_bytes))
 
     def zero_payload(self, n_ranks: Optional[int] = None, device=None):
         """Zero flat payload: [D], or stacked [n_ranks, D]."""
@@ -239,6 +251,38 @@ class FusionSpec:
             else:
                 out.append(g)
         return tree_unflatten(tree, out)
+
+    # -- chunked ring segments (SyncConfig.ring_chunking) --------------------
+
+    def _per_segment(self) -> int:
+        """Payload-dtype elements a segment."""
+        return max(1, self.chunk_bytes // self.payload_dtype.itemsize)
+
+    @property
+    def n_segments(self) -> int:
+        """1 unchunked or empty, else ceil(D / elements a segment)."""
+        if self.chunk_bytes <= 0 or self.total == 0:
+            return 1
+        return -(-self.total // self._per_segment())
+
+    def segment_bounds(self) -> Tuple[Tuple[int, int], ...]:
+        """Half-open (start, end) element bounds of the segments, covering
+        [0, D); the last one holds the remainder."""
+        if self.n_segments == 1:
+            return ((0, self.total),)
+        per = self._per_segment()
+        return tuple((a, min(a + per, self.total))
+                     for a in range(0, self.total, per))
+
+    def split_payload(self, vec):
+        """Flat payload [..., D] -> tuple of last-axis segment views."""
+        return tuple(vec[..., a:b] for a, b in self.segment_bounds())
+
+    def join_payload(self, segs):
+        """Inverse of `split_payload`: the flat [..., D] payload."""
+        if len(segs) == 1:
+            return segs[0]
+        return torch.cat(segs, dim=-1)
 
 
 def _comb(a, b, combine):
@@ -284,11 +328,20 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
         example = tree_map(lambda x: x[0], grads)
         spec = FusionSpec.build(
             example, mask, payload_dtype=payload_dtype_of(
-                cfg.payload_precision))
+                cfg.payload_precision), chunk_bytes=cfg.ring_chunking)
     if fuse and spec.total > 0:     # all-False mask: nothing rides the ring
+        fg, fmb = spec.flatten(grads, True), spec.flatten(mailbox, True)
+        nseg = spec.n_segments
+        if nseg > 1:
+            # the chunked ring: a tuple of segments, each its own transfer;
+            # unchunked keeps the bare payload, not a 1-tuple
+            fg, fmb = spec.split_payload(fg), spec.split_payload(fmb)
         fsynced, fnew_mb = _sync_core(
-            comm, cfg, {"w": spec.flatten(grads, True)},
-            {"w": spec.flatten(mailbox, True)}, epoch, {"w": True})
+            comm, cfg, {"w": fg}, {"w": fmb}, epoch,
+            {"w": (True,) * nseg if nseg > 1 else True})
+        if nseg > 1:                # storage stays flat
+            fsynced = {"w": spec.join_payload(fsynced["w"])}
+            fnew_mb = {"w": spec.join_payload(fnew_mb["w"])}
         synced = spec.unflatten(fsynced["w"], grads, True)
         new_mailbox = spec.unflatten(fnew_mb["w"], mailbox, True)
     else:

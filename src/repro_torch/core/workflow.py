@@ -236,7 +236,8 @@ def make_schedule(wcfg: WorkflowConfig) -> sync_lib.SyncSchedule:
     mask = gan.weight_mask(example)
     spec = sync_lib.FusionSpec.build(
         example, mask,
-        payload_dtype=sync_lib.payload_dtype_of(wcfg.sync.payload_precision))
+        payload_dtype=sync_lib.payload_dtype_of(wcfg.sync.payload_precision),
+        chunk_bytes=wcfg.sync.ring_chunking)
     return sync_lib.make_schedule(wcfg.sync, mask, spec)
 
 

@@ -37,14 +37,22 @@ line per rank (device, epochs, epoch p50, wall time) and the workers'
 summed kernel counts.
 
 `--payload-precision bf16` sends the fused ring payload as bf16 against
-fp32 master state, on either backend (the ring modes with a fused
-payload only: `SyncConfig` refuses the rest with the JAX package's
-message).  The exchange schedules other than `sync` (--sync-schedule,
---staleness, --max-staleness, --ring-chunking, --disc-every,
---gen-every, the metrics and trace sinks) are ROADMAP.md queue A item 3:
-they raise.  The run ends with the ensemble against the truth, the
-serving-path solve (`core.workflow.make_solver`) on the reference events,
-and the kernels' launches and plain calls.
+fp32 master state, and `--ring-chunking BYTES` sends it as
+ceil(payload / BYTES) segments (one `torch.roll` each stacked, one mmap
+window each with `--backend proc`), on either backend and with every
+--problem (the ring modes with a fused payload only: `SyncConfig`
+refuses the rest with the JAX package's message):
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
+        --problem imaging_blur --ranks 4 --epochs 4 --param-samples 8 \
+        --ring-chunking 524288
+
+The exchange schedules other than `sync` (--sync-schedule,
+--staleness, --max-staleness, --disc-every, --gen-every, the metrics
+and trace sinks) are ROADMAP.md queue A item 3: they raise.  The run
+ends with the ensemble against the truth, the serving-path solve
+(`core.workflow.make_solver`) on the reference events, and the kernels'
+launches and plain calls.
 """
 from __future__ import annotations
 
@@ -171,7 +179,8 @@ def main(argv=None):
     ap.add_argument("--payload-precision", choices=PAYLOAD_PRECISIONS,
                     default="fp32",
                     help="wire dtype of the fused ring payload")
-    ap.add_argument("--ring-chunking", type=int, default=0)
+    ap.add_argument("--ring-chunking", type=int, default=0,
+                    help="ring segment size in bytes (0: one payload)")
     ap.add_argument("--disc-every", type=int, default=1)
     ap.add_argument("--gen-every", type=int, default=1)
     ap.add_argument("--backend", choices=("vmap", "proc"), default="vmap",
@@ -197,7 +206,6 @@ def main(argv=None):
         ("--sync-schedule", args.sync_schedule != "sync"),
         ("--staleness", args.staleness != 1),
         ("--max-staleness", args.max_staleness is not None),
-        ("--ring-chunking", args.ring_chunking != 0),
         ("--disc-every", args.disc_every != 1),
         ("--gen-every", args.gen_every != 1),
         ("--metrics-out", args.metrics_out), ("--trace-dir", args.trace_dir),
@@ -212,6 +220,7 @@ def main(argv=None):
     sync = dataclasses.replace(
         base.sync, fuse_tensors=not args.no_fuse,
         payload_precision=args.payload_precision,
+        ring_chunking=args.ring_chunking,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
     wcfg = dataclasses.replace(base, sync=sync, problem=args.problem)
@@ -232,10 +241,13 @@ def main(argv=None):
                         if problem.param_shape else ("inverse_cdf",))
     data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), args.events, device=dev)
+    spec = workflow.make_schedule(wcfg).spec
     print(f"problem={args.problem} ({problem.n_params} params -> "
           f"{problem.obs_dim} observables) mode={wcfg.sync.mode} "
           f"h={wcfg.sync.h} schedule=sync payload="
-          f"{wcfg.sync.payload_precision} ranks={n_outer}x{n_inner} "
+          f"{wcfg.sync.payload_precision} ring_chunking="
+          f"{wcfg.sync.ring_chunking} ({spec.n_segments} segments) "
+          f"ranks={n_outer}x{n_inner} "
           f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "
           f"disc_batch={wcfg.disc_batch} lr gen {wcfg.gen_lr} disc "
           f"{wcfg.disc_lr} on {dev}")

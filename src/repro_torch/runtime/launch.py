@@ -25,13 +25,19 @@ this one.  `workflow.train_proc` wraps it for the training loop.
 Where it differs from the JAX launcher: no `jax.distributed` and no
 process group — the mailbox fabric and the file `Barrier` are all the
 workers share.  `device=None` means CUDA; the runconfig carries the
-device, the CPU thread count and the TF32 flags, so a worker computes as
+device, the CPU thread count, the TF32 flags and cuDNN's deterministic
+flag, so a worker computes as
 its parent does.  A lock-step run on the CPU fixes the intra-op thread
 count at `LOCKSTEP_CPU_THREADS` in the workers (`torch.set_num_threads`
 and `MKL_NUM_THREADS`) and in `lockstep_reference` (`cpu_threads`, which
 restores the caller's count): threaded MKL GEMMs are not reproducible
 from run to run, so at another count a rank now and then differs from
 its reference by an ulp (`scripts/proc_lockstep_repeat.py` counts it).
+A lock-step run on the card restricts cuDNN to deterministic algorithms
+(`torch.backends.cudnn.deterministic`) in the workers and in
+`lockstep_reference` (`cudnn_deterministic`, which restores the
+caller's flag): a backward algorithm that accumulates with atomics would
+let the image problems' conv generator differ by an ulp from run to run.
 On a CUDA run the parent builds the kernels before it spawns, so no
 worker runs `nvcc`;
 each worker opens its own CUDA context on the card (R contexts
@@ -87,6 +93,26 @@ def lockstep_threads(lockstep: bool, device) -> Optional[int]:
     if lockstep and device.type == "cpu":
         return LOCKSTEP_CPU_THREADS
     return None
+
+
+def lockstep_cudnn_deterministic(lockstep: bool, device) -> bool:
+    """Whether a run on `device` restricts cuDNN to deterministic
+    algorithms: lock-step CUDA runs do, the others keep the caller's."""
+    return lockstep and device.type == "cuda"
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool):
+    """Inside, cuDNN picks deterministic algorithms when `on` (False:
+    unchanged); the caller's flag is restored on the way out."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    if on:
+        torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 @contextlib.contextmanager
@@ -181,6 +207,9 @@ def run_proc(wcfg, n_outer: int, n_inner: int, n_epochs: int, data, *,
         "num_threads": threads or torch.get_num_threads(),
         "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                        "cudnn": torch.backends.cudnn.allow_tf32},
+        "cudnn_deterministic": (
+            lockstep_cudnn_deterministic(lockstep, dev)
+            or torch.backends.cudnn.deterministic),
     }
     with open(os.path.join(run_dir, RUNCONFIG), "w") as f:
         json.dump(cfg, f, indent=1)
@@ -339,7 +368,9 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
     `VmapComm` on their [R] stack.  Returns the final `[R, ...]` state.
     (`train_stacked` computes all ranks in one batched call, which may
     round differently.)  On the CPU it computes at the workers' fixed
-    thread count (`lockstep_threads`) and restores the caller's."""
+    thread count (`lockstep_threads`), on the card with the workers'
+    deterministic cuDNN (`lockstep_cudnn_deterministic`), and restores
+    the caller's settings."""
     import torch
 
     from .. import resolve_device
@@ -354,7 +385,8 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
 
     def stack(trees):
         return tree_map(lambda *xs: torch.cat(xs), *trees)
-    with cpu_threads(lockstep_threads(True, dev)):
+    with cpu_threads(lockstep_threads(True, dev)), cudnn_deterministic(
+            lockstep_cudnn_deterministic(True, dev)):
         generator = torch.Generator(device=dev).manual_seed(seed)
         state, data_per_rank = workflow.init_run(generator, R, wcfg, data,
                                                  dev)
@@ -397,6 +429,7 @@ def _worker_main(rank: int, run_dir: str) -> int:
     torch.set_num_threads(cfg["num_threads"])
     torch.backends.cuda.matmul.allow_tf32 = cfg["allow_tf32"]["matmul"]
     torch.backends.cudnn.allow_tf32 = cfg["allow_tf32"]["cudnn"]
+    torch.backends.cudnn.deterministic = cfg["cudnn_deterministic"]
     wcfg = wcfg_from_dict(cfg["wcfg"])
     n_outer, n_inner = cfg["n_outer"], cfg["n_inner"]
     R = n_outer * n_inner
@@ -412,7 +445,7 @@ def _worker_main(rank: int, run_dir: str) -> int:
     n_sub = data_local.shape[1]
     schedule = workflow.make_schedule(wcfg)
     comm = ProcComm(n_outer, n_inner, rank, run_dir, lockstep=lockstep,
-                    timeout=timeout)
+                    timeout=timeout, window_bytes=wcfg.sync.ring_chunking)
     barrier = Barrier(run_dir, rank, R, timeout=timeout)
 
     start = 0

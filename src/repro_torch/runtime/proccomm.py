@@ -29,20 +29,30 @@ Two modes, fixed per run:
       returns the warmup value (zeros for float leaves, -1 for integer
       leaves — the mailbox tag convention).
 
-Bytes leave the device through `.cpu()` (a synchronizing copy) in
-`jax.tree.leaves` order (`core.tree`), so the wire format is the JAX
-package's; bytes that arrive are copied out of the mmap snapshot before
-`torch.from_numpy(...).to(device)`, never aliased.  A bf16 leaf (the
-payload of `SyncConfig(payload_precision="bf16")`) crosses as its int16
-bits, never widened or re-rounded, and a window is sized from the bytes
-it carries: 2 a scalar at bf16 (`mailbox.payload_nbytes`).
+A payload is serialized once: its leaves' bytes, in `jax.tree.leaves`
+order (`core.tree`), are joined on their device and leave it in one
+`.cpu()` (a synchronizing copy), so the wire format is the JAX package's
+and a tuple of ring segments costs one D2H copy, not one a segment;
+bytes that arrive are copied out of the mmap snapshot and go to the
+device in one copy, never aliased.  A bf16 leaf (the payload of
+`SyncConfig(payload_precision="bf16")`) crosses as its raw bits, never
+widened or re-rounded, and a window is sized from the bytes it carries:
+2 a scalar at bf16 (`mailbox.payload_nbytes`).
+
+Chunked windows (`window_bytes`, `SyncConfig.ring_chunking`, the JAX
+package's lines 89–99 and 138–185): 0 keeps one window a channel; > 0
+splits every serialized payload into ceil(bytes / window_bytes) mmap
+windows, each its own mailbox `{channel}w{i}` (the bare channel name
+when there is one window, so unchunked runs keep their file layout).
+Every window is written before any is read, lock-step runs rendezvous
+window by window, and a free-running read that meets a window with no
+deposit yet returns the warmup value.
 
 Rank layout matches `VmapComm`: global rank = outer * n_inner + inner
 (row-major), ring direction per Algorithm 1 (rank i receives from i-1).
 `recv_hypercube` (the dbtree mode) is unsupported, as in the JAX package:
 a log2(R)-stage barrier tree has no free-running reading.  The overlap
-ship (`ship_outer`) and the chunked windows (`window_bytes`) come with
-their schedules, ROADMAP.md queue A item 3.
+ship (`ship_outer`) comes with its schedule, ROADMAP.md queue A item 3f.
 """
 from __future__ import annotations
 
@@ -60,34 +70,39 @@ from .mailbox import Board, Mailbox
 DEFAULT_TIMEOUT_S = 180.0
 
 
-def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype a leaf crosses the wire as: bf16 as its int16 bits
-    (numpy has no bf16), every other dtype as itself."""
-    return torch.int16 if dtype == torch.bfloat16 else dtype
-
-
 def tree_to_bytes(tree) -> bytes:
     """Concatenate the leaves (`jax.tree.leaves` order) as raw
-    little-endian bytes — the wire format of every mailbox payload."""
-    return b"".join(
-        leaf.detach().cpu().contiguous().view(_wire_dtype(leaf.dtype))
-        .numpy().tobytes() for leaf in tree_leaves(tree))
+    little-endian bytes — the wire format of every mailbox payload.  The
+    leaves are joined where they lie and cross to the host in one copy."""
+    parts = [leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+             for leaf in tree_leaves(tree)]
+    if not parts:
+        return b""
+    flat = parts[0] if len(parts) == 1 else torch.cat(
+        [p.to(parts[0].device) for p in parts])
+    return flat.cpu().numpy().tobytes()
 
 
 def bytes_to_tree(buf: bytes, like):
     """Inverse of `tree_to_bytes` against `like`'s structure, shapes,
-    dtypes and devices.  Each leaf is copied out of `buf` first."""
+    dtypes and devices.  The bytes are copied out of `buf`, and reach the
+    first leaf's device in one copy."""
+    leaves = tree_leaves(like)
+    nbytes = [leaf.numel() * leaf.element_size() for leaf in leaves]
+    if sum(nbytes) != len(buf):
+        raise ValueError(f"payload of {len(buf)} bytes for a tree of "
+                         f"{sum(nbytes)}")
+    if not leaves:
+        return tree_unflatten(like, [])
+    raw = torch.from_numpy(np.frombuffer(buf, dtype=np.uint8).copy()).to(
+        leaves[0].device)
     out, off = [], 0
-    for leaf in tree_leaves(like):
-        wire = _wire_dtype(leaf.dtype)
-        np_dtype = torch.empty(0, dtype=wire).numpy().dtype
-        arr = np.frombuffer(buf, dtype=np_dtype, count=leaf.numel(),
-                            offset=off).copy()
-        out.append(torch.from_numpy(arr).view(leaf.dtype)
-                   .reshape(leaf.shape).to(leaf.device))
-        off += arr.nbytes
-    if off != len(buf):
-        raise ValueError(f"payload of {len(buf)} bytes for a tree of {off}")
+    for leaf, n in zip(leaves, nbytes):
+        part = raw[off:off + n].to(leaf.device)
+        if off % leaf.element_size():     # a view needs an aligned start
+            part = part.clone()
+        out.append(part.view(leaf.dtype).reshape(leaf.shape))
+        off += n
     return tree_unflatten(like, out)
 
 
@@ -107,10 +122,12 @@ class ProcComm(Comm):
     """One worker process's view of the ring; see the module docstring."""
 
     def __init__(self, n_outer: int, n_inner: int, rank: int, run_dir: str,
-                 lockstep: bool = True, timeout: float = DEFAULT_TIMEOUT_S):
+                 lockstep: bool = True, timeout: float = DEFAULT_TIMEOUT_S,
+                 window_bytes: int = 0):
         self.n_outer, self.n_inner = n_outer, n_inner
         self.rank, self.run_dir = rank, run_dir
         self.lockstep, self.timeout = lockstep, timeout
+        self.window_bytes = int(window_bytes)   # 0: one window a channel
         self._epoch = 0
         self._out = {}                 # channel -> Mailbox (to successor)
         self._in = {}                  # channel -> Mailbox (from predecessor)
@@ -155,28 +172,45 @@ class ProcComm(Comm):
         header's tag)."""
         self._epoch = int(epoch)
 
+    def _windows(self, nbytes: int):
+        """Half-open byte spans of one payload's windows: one span when
+        `window_bytes` is 0 or at least the payload, else the chunks."""
+        w = self.window_bytes
+        if w <= 0 or w >= nbytes:
+            return [(0, nbytes)]
+        return [(a, min(a + w, nbytes)) for a in range(0, nbytes, w)]
+
     def _transfer(self, channel: str, tree):
         """Deposit `tree` toward my successor, return the predecessor's
-        deposit (lock-step: the matching entry; free-run: the latest)."""
+        deposit (lock-step: the matching entry; free-run: the latest).
+        Every window is written before any is read; a free-running read
+        may take windows of adjacent deposits, each consistent."""
         succ, pred = self._peers(channel)
         payload = tree_to_bytes(tree)
+        spans = self._windows(len(payload))
+        names = [channel] if len(spans) == 1 else \
+            [f"{channel}w{i}" for i in range(len(spans))]
         with _span(f"exchange.{channel}", cat="wire", epoch=self._epoch,
-                   bytes=len(payload)):
-            out = self._out.get(channel)
-            if out is None:
-                out = self._out[channel] = Mailbox.for_writer(
-                    self._mbx_path(self.rank, succ, channel), len(payload),
-                    self.timeout)
-            out.write(payload, self._epoch, self.lockstep)
-            inc = self._in.get(channel)
-            if inc is None:
-                inc = self._in[channel] = Mailbox.for_reader(
-                    self._mbx_path(pred, self.rank, channel), len(payload),
-                    self.timeout)
-            got = inc.read(self.lockstep)
-            if got is None:            # free-run, producer not started yet
-                return warmup_like(tree)
-            return bytes_to_tree(got[0], tree)
+                   bytes=len(payload), windows=len(spans)):
+            for ch, (a, b) in zip(names, spans):
+                out = self._out.get(ch)
+                if out is None:
+                    out = self._out[ch] = Mailbox.for_writer(
+                        self._mbx_path(self.rank, succ, ch), b - a,
+                        self.timeout)
+                out.write(payload[a:b], self._epoch, self.lockstep)
+            parts = []
+            for ch, (a, b) in zip(names, spans):
+                inc = self._in.get(ch)
+                if inc is None:
+                    inc = self._in[ch] = Mailbox.for_reader(
+                        self._mbx_path(pred, self.rank, ch), b - a,
+                        self.timeout)
+                got = inc.read(self.lockstep)
+                if got is None:        # free-run, producer not started yet
+                    return warmup_like(tree)
+                parts.append(got[0])
+            return bytes_to_tree(b"".join(parts), tree)
 
     # -- Comm surface --------------------------------------------------------
 

@@ -468,9 +468,12 @@ def test_throughput_preset_matches_jax():
         assert dataclasses.asdict(p.sync) == dataclasses.asdict(j.sync)
         assert (p.disc_every, p.n_param_samples, p.gen_lr) == \
             (j.disc_every, j.n_param_samples, j.gen_lr)
-    # 3d, 3f, 3g and 3b still raise
-    for kw in (dict(staleness=2), dict(overlap=True), dict(adaptive=True),
-               dict(ring_chunking=4096)):
+    # 3d, 3f and 3g still raise; 3b (the chunked ring) takes the JAX config
+    for kw in (dict(staleness=2), dict(overlap=True), dict(adaptive=True)):
         with pytest.raises(NotImplementedError, match="queue A item 3"):
             sync.SyncConfig(mode="rma_arar_arar", payload_precision="bf16",
                             **kw)
+    kw = dict(mode="rma_arar_arar", payload_precision="bf16",
+              ring_chunking=4096)
+    assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
+        dataclasses.asdict(JS.SyncConfig(**kw))
