@@ -289,7 +289,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
      lock-step epochs with phase 26's bars, B1 on u [64, 32] and B3 on
      [64, 32, 32] and as its backward in every worker, epoch p50 a rank,
      start-up and peak memory a worker; and a free-running imaging_blur
-     run with phase 35's lag, which must end finite.
+     run of 50 epochs with phase 35's lag, which must end finite;
+ 40. the update cadences (`disc_every`, `gen_every`: the discriminator
+     updates on epochs e with e % disc_every == 0, the generator with its
+     exchange and Adam step on e % gen_every == 0; a skipped half launches
+     nothing), stacked: `throughput(PAPER)` (the bf16 payload and
+     disc_every 2) in `rma_arar_arar` and `PAPER` at disc_every 2,
+     gen_every 3 in `conv_arar`, 200 epochs each, with phase 22's bars
+     read on the recorded epochs where the discriminator ran (the skipped
+     halves' losses must be NaN), imaging_blur at (2, 3) with phase 26's
+     bars; B1 (and B3) launched once on each epoch where a half runs and
+     backward on the generator's epochs, no plain call; the epoch p50 of
+     each combination of halves and the mean epoch beside phase 22's
+     (26's) p50; one epoch card vs CPU for each skipped combination
+     (disc only, gen only, neither) as phase 23, the signs pinned, the
+     skipped state unchanged; 4 `throughput(PAPER)` epochs under one
+     profiler, each in a range of its own: device ops and GEMMs of due
+     and off epochs, an off epoch must launch fewer GEMMs;
+ 41. the update cadences on the proc runtime: `PAPER` at (2, 3) as 8
+     workers, 10 lock-step epochs in `rma_arar_arar` h 2, bitwise
+     `lockstep_reference`; `throughput(PAPER)` for 200 lock-step epochs
+     with phase 35's bars read on the discriminator's epochs, the
+     workers' B1 counts as phase 40 counts them, epoch p50 a rank by the
+     halves that ran, start-up; a free run of 50 epochs with phase 35's
+     lag, which must end finite.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -298,7 +321,7 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35, 37 and 39
+read just after it; the worker processes of phases 34-35, 37, 39 and 41
 count their own launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
@@ -399,6 +422,19 @@ PROC_TIMEOUT_S = 600            # a proc run, spawn to result
 RING_CHUNK = 65_536             # phases 38-39: PAPER's 50,816 scalars in 4
 IMAGE_RING_CHUNK = 524_288      # ... the conv generator's 290,448 in 3
 CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
+PROC_FREE_EPOCHS = 50           # free runs whose bar is "finite" (39, 41)
+CADENCE = (2, 3)                # phases 40-41: disc_every, gen_every (the
+#                                 JAX package's fp32_cadence row)
+CADENCE_PROFILED = 4            # phase 40's profiled epochs
+FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
+              (False, True): "gen only", (False, False): "neither"}
+
+
+def gemm_kernel(low):
+    """Whether a kernel (its lower-case name) is a GEMM of cuBLAS or
+    CUTLASS, as every profile here groups them."""
+    return any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                  "sm90_"))
 
 
 def fail(msg):
@@ -860,9 +896,7 @@ def llm_phases(dev, all_counts):
             busy[e.name] = busy.get(e.name, 0.0) + us
             low = e.name.lower()
             grp = ("B4 flash_kernel" if "flash_kernel" in low else
-                   "GEMM (cuBLAS/CUTLASS)" if any(
-                       w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                          "sm90_")) else
+                   "GEMM (cuBLAS/CUTLASS)" if gemm_kernel(low) else
                    "other (elementwise, norms, copies, softmax, argmax)")
             groups[grp] = groups.get(grp, 0.0) + us
         total = sum(busy.values())
@@ -1230,9 +1264,7 @@ def train_phases(dev, all_counts):
             busy[e.name] = busy.get(e.name, 0.0) + us
             low = e.name.lower()
             grp = ("B5 ssd_kernel" if "ssd_kernel" in low else
-                   "GEMM (cuBLAS/CUTLASS)" if any(
-                       w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                          "sm90_")) else
+                   "GEMM (cuBLAS/CUTLASS)" if gemm_kernel(low) else
                    "other (elementwise, reductions, copies, the plain "
                    "backward of B5)")
             groups[grp] = groups.get(grp, 0.0) + us
@@ -1890,11 +1922,9 @@ def gan_phases(dev, all_counts):
     # -- 22. train PAPER at full width in both ring modes --------------------
     launches, finals = 0, {}
     for mode in GAN_MODES:
-        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
-                      else (0, 0, 0, 0)) for k in all_counts}
-        got, p50, final = train_and_check("22", f"GAN PAPER {mode}", dev,
-                                          paper(mode), data, all_counts,
-                                          expect, gan_healthy)
+        got, p50, final = train_and_check(
+            "22", f"GAN PAPER {mode}", dev, paper(mode), data, all_counts,
+            gan_expect(paper(mode), GAN_EPOCHS, all_counts), gan_healthy)
         launches += got["inverse_cdf"][0]
         finals[mode] = (p50, final["gen"], final["residual"])
 
@@ -1909,9 +1939,7 @@ def gan_phases(dev, all_counts):
     # -- 24. profile PAPER epochs --------------------------------------------
     def group(low):
         return ("B1 icdf_kernel" if "icdf_kernel" in low else
-                "GEMM (cuBLAS/CUTLASS)" if any(
-                    w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                       "sm90_")) else
+                "GEMM (cuBLAS/CUTLASS)" if gemm_kernel(low) else
                 "the exchange's rolls" if "roll" in low else
                 "reductions" if "reduce" in low else
                 "other (elementwise: activations, losses, Adam, B1's "
@@ -1947,21 +1975,10 @@ def problem_phases(dev, all_counts):
         datas[name] = data = get_problem(name).make_reference_data(
             torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
             device=dev)
-        # forward launches: B1, and B2 or B3 for the image problems;
-        # backward: B1's closed form where the gradient reaches it (not
-        # the imaging readout's noise), B2's in PyTorch, B3 as B3
-        forward = TRAINED_FORWARD[name]
-        expect = {k: (0, 0, 0, 0) for k in all_counts}
-        expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0,
-                                 GAN_EPOCHS if forward is None else 0)
-        if forward == "mask_apply":
-            expect[forward] = (GAN_EPOCHS, 0, 0, GAN_EPOCHS)
-        elif forward == "blur2d":
-            expect[forward] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
+        wcfg = for_problem(name, PAPER)
         got, p50s[name], _ = train_and_check(
-            "26", f"{name} for_problem(PAPER)", dev,
-            for_problem(name, PAPER), data, all_counts, expect,
-            gan_improving)
+            "26", f"{name} for_problem(PAPER)", dev, wcfg, data, all_counts,
+            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
         for k in launches:
             launches[k] += got[k][0]
 
@@ -1987,9 +2004,7 @@ def problem_phases(dev, all_counts):
                 "conv forward (cuDNN)" if any(
                     w in low for w in ("fprop", "convolve", "conv2d",
                                        "cudnn", "implicit")) else
-                "GEMM (cuBLAS/CUTLASS)" if any(
-                    w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                       "sm90_")) else
+                "GEMM (cuBLAS/CUTLASS)" if gemm_kernel(low) else
                 "the exchange's rolls" if "roll" in low else
                 "reductions" if "reduce" in low else
                 "other (elementwise: activations, upsampling, losses, "
@@ -2009,22 +2024,33 @@ def problem_phases(dev, all_counts):
     return launches, p50s
 
 
-def proc_expect(wcfg, n_epochs):
-    """Each worker's (launches, plain calls, backward launches, backward
-    plain) by GAN kernel over `n_epochs`: B1 once an epoch with its
-    closed-form backward where the gradient reaches it (not the imaging
-    readout's noise), and B2 (backward in PyTorch) or B3 (backward B3)
-    once an epoch for the image problems, as phase 26 counts them."""
-    from repro_torch.runtime.launch import GAN_KERNELS
+def gan_expect(wcfg, n_epochs, kernels):
+    """Each of `kernels`' (launches, plain calls, backward launches,
+    backward plain) over epochs 0..n_epochs-1 of `wcfg`, the one count
+    of every GAN run here: B1 once on each epoch where a half runs, its
+    closed-form backward on the generator's epochs where the gradient
+    reaches it (not the imaging readout's noise), and B2 (backward in
+    PyTorch) or B3 (backward B3) the same way for the image problems
+    (`workflow.due_counts`; at the every-epoch cadence, once an epoch);
+    every other kernel 0."""
+    from repro_torch.core.workflow import due_counts
+    n_half, n_gen = due_counts(wcfg, n_epochs)
     forward = TRAINED_FORWARD.get(wcfg.problem)
-    want = {k: [0, 0, 0, 0] for k in GAN_KERNELS}
-    want["inverse_cdf"] = [n_epochs, 0, 0,
-                           n_epochs if forward is None else 0]
+    want = {k: (0, 0, 0, 0) for k in kernels}
+    want["inverse_cdf"] = (n_half, 0, 0, n_gen if forward is None else 0)
     if forward == "mask_apply":
-        want[forward] = [n_epochs, 0, 0, n_epochs]
+        want[forward] = (n_half, 0, 0, n_gen)
     elif forward == "blur2d":
-        want[forward] = [n_epochs, 0, n_epochs, 0]
+        want[forward] = (n_half, 0, n_gen, 0)
     return want
+
+
+def proc_expect(wcfg, n_epochs):
+    """Each worker's counts by GAN kernel over `n_epochs` (`gan_expect`),
+    as lists, the way the workers' summaries hold them."""
+    from repro_torch.runtime.launch import GAN_KERNELS
+    return {k: list(v) for k, v in
+            gan_expect(wcfg, n_epochs, GAN_KERNELS).items()}
 
 
 def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
@@ -2051,9 +2077,14 @@ def proc_counted(label, dev, wcfg, data, all_counts, n_epochs, **kw):
 
 
 def preset_name(wcfg):
-    """`PAPER`, or `for_problem(name, PAPER)` for the other problems."""
-    return ("PAPER" if wcfg.problem == "proxy1d"
+    """`PAPER`, or `for_problem(name, PAPER)` for the other problems, and
+    the update cadence where it is not every epoch."""
+    name = ("PAPER" if wcfg.problem == "proxy1d"
             else f"{wcfg.problem} for_problem(PAPER)")
+    if (wcfg.disc_every, wcfg.gen_every) != (1, 1):
+        name += (f" at disc_every {wcfg.disc_every}, gen_every "
+                 f"{wcfg.gen_every}")
+    return name
 
 
 def check_dtypes(label, state, wcfg):
@@ -2175,11 +2206,14 @@ def gan_improving(d):
 
 
 def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
-                  d_bar=gan_healthy, **kw):
-    """Phases 35, 37 and 39: `wcfg` for GAN_EPOCHS epochs as 8 workers:
-    every state leaf and d_loss finite, the ensemble in (0, 1) and
-    `d_bar(d_loss by epoch)`; per-rank epoch p50/p99 and peak memory,
-    events/s, start-up and wall time beside `stacked_p50` (ms).  Returns
+                  d_bar=gan_healthy, n_epochs=None, **kw):
+    """Phases 35, 37, 39 and 41: `wcfg` for `n_epochs` (None:
+    GAN_EPOCHS) epochs as 8 workers: every state leaf and d_loss finite,
+    the ensemble in (0, 1) and `d_bar(d_loss by epoch)` (under an update
+    cadence, by the discriminator's epochs: `disc_due_losses`); per-rank
+    epoch p50/p99 (and under a cadence, p50 by the halves that ran) and
+    peak memory, events/s, start-up and wall time beside `stacked_p50`
+    (ms).  Returns
     (the workers' counts, each rank's epoch p50 in ms)."""
     import torch
     from repro_torch.core import gan
@@ -2187,6 +2221,7 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
     from repro_torch.core.tree import tree_paths
 
     t0 = time.perf_counter()
+    n_epochs = n_epochs or GAN_EPOCHS
     R = GAN_OUTER * GAN_INNER
     K, E = wcfg.n_param_samples, wcfg.events_per_sample
     prob = wcfg.problem_obj
@@ -2196,12 +2231,12 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
     tag = (f"[{tag}] {preset_name(wcfg)} {wcfg.sync.mode} h {wcfg.sync.h}, "
            f"{wcfg.sync.payload_precision} payload"
            f"{f', ring_chunking {chunk:,} B' if chunk else ''}, {label}")
-    out = proc_counted(tag, dev, wcfg, data, all_counts, GAN_EPOCHS, **kw)
+    out = proc_counted(tag, dev, wcfg, data, all_counts, n_epochs, **kw)
     state, hist = out["state"], out["history"]
     bad = [k for k, t in tree_paths(state)
            if not bool(torch.isfinite(t.float()).all())]
     p_hat, _ = ensemble_response(state["gen"], noise)
-    d = hist["d_loss"].mean(1).numpy()
+    d, _ = disc_due_losses(tag, wcfg, range(n_epochs), hist)
     ok, bar = d_bar(d) if np.isfinite(d).all() else (False, "")
     if bad or not ok or not (
             0 < float(p_hat.min()) and float(p_hat.max()) < 1):
@@ -2212,17 +2247,26 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
     check_dtypes(tag, state, wcfg)
     ms = hist["epoch_s"].numpy() * 1e3                   # [T, R]
     p50 = np.percentile(ms, 50, axis=0)
+    cadenced = (wcfg.disc_every, wcfg.gen_every) != (1, 1)
+    on = (f" on the discriminator's epochs (disc_every {wcfg.disc_every}, "
+          f"gen_every {wcfg.gen_every}; the skipped halves' losses NaN)"
+          if cadenced else "")
     print(f"{tag}: {R} workers ({GAN_OUTER} x {GAN_INNER}) on one card, "
-          f"{GAN_EPOCHS} epochs, fp32 compute (TF32 off); d_loss (mean over "
-          f"ranks) first {d[0]:.4f}, last {d[-1]:.4f}, min {d.min():.4f}; "
+          f"{n_epochs} epochs, fp32 compute (TF32 off); d_loss (mean over "
+          f"ranks){on} first {d[0]:.4f}, last {d[-1]:.4f}, min "
+          f"{d.min():.4f}; "
           f"{bar}; every state leaf finite; ensemble in "
           f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f}); final "
           f"mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f}")
-    for s, a, b in zip(out["summaries"], p50, np.percentile(ms, 99, axis=0)):
+    for r, (s, a, b) in enumerate(zip(out["summaries"], p50,
+                                      np.percentile(ms, 99, axis=0))):
+        halves = ("; " + flags_text(p50_by_flags(wcfg, range(n_epochs),
+                                                  ms[:, r]))
+                  if cadenced else "")
         print(f"{tag}: rank {s['rank']} on {s['device']}: epoch p50 "
               f"{a:.3f} ms, p99 {b:.3f} ms (host clock after "
-              f"torch.cuda.synchronize), {s['wall_s']:.2f} s for its "
-              f"epochs, peak memory "
+              f"torch.cuda.synchronize){halves}, {s['wall_s']:.2f} s for "
+              f"its epochs, peak memory "
               f"{s['peak_memory_bytes'] / 2**30:.3f} GiB")
     counted = ", ".join(f"{k} {tuple(n)}" for k, n in out["counts"].items()
                         if any(n))
@@ -2314,12 +2358,11 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
 
     # -- 36. stacked: PAPER in both ring modes, imaging_blur, card vs CPU ---
     for mode in GAN_MODES:
-        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
-                      else (0, 0, 0, 0)) for k in all_counts}
         wcfg = bf16(PAPER, mode=mode)
         got, p50, final = train_and_check(
             "36", f"GAN PAPER {mode} bf16 payload", dev, wcfg, data,
-            all_counts, expect, gan_healthy)
+            all_counts, gan_expect(wcfg, GAN_EPOCHS, all_counts),
+            gan_healthy)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
         p50s[mode] = p50
         p50_32, gen_32, r_32 = fp32[mode]
@@ -2335,15 +2378,14 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
 
     name = "imaging_blur"
     wcfg = bf16(for_problem(name, PAPER))
-    expect = {k: (0, 0, 0, 0) for k in all_counts}
-    expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0, 0)
-    expect["blur2d"] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
     got, p50, _ = train_and_check("36", f"{name} for_problem(PAPER) bf16 "
                                   "payload", dev, wcfg, blur_data,
-                                  all_counts, expect, gan_improving)
+                                  all_counts,
+                                  gan_expect(wcfg, GAN_EPOCHS, all_counts),
+                                  gan_improving)
     for k in launches:
         launches[k] += got[k][0]
     from repro_torch.core import workflow as W
@@ -2431,11 +2473,10 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
               f"{SEED} bitwise an unchunked run on the card (the whole "
               f"state)")
         del states
-        expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
-                      else (0, 0, 0, 0)) for k in all_counts}
         got, p50, final = train_and_check(
             "38", f"GAN PAPER {mode} ring_chunking {RING_CHUNK:,} B", dev,
-            wcfg, data, all_counts, expect, gan_healthy)
+            wcfg, data, all_counts, gan_expect(wcfg, GAN_EPOCHS, all_counts),
+            gan_healthy)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
         p50_32, gen_32, r_32 = fp32[mode]
         gap = max(float((a - b).abs().max()) for a, b in zip(
@@ -2456,16 +2497,13 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     if spec.n_segments != 3:
         fail(f"[38] {name}: {spec.n_segments} segments at "
              f"{IMAGE_RING_CHUNK} B, expected 3")
-    expect = {k: (0, 0, 0, 0) for k in all_counts}
-    expect["inverse_cdf"] = (GAN_EPOCHS, 0, 0, 0)
-    expect["blur2d"] = (GAN_EPOCHS, 0, GAN_EPOCHS, 0)
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
     got, blur_p50, _ = train_and_check(
         "38", f"{name} for_problem(PAPER) ring_chunking "
-        f"{IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data, all_counts, expect,
-        gan_improving)
+        f"{IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data, all_counts,
+        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
     for k in launches:
         launches[k] += got[k][0]
     print(f"[38] {name} chunked: epoch p50 {blur_p50:.3f} ms beside phase "
@@ -2475,12 +2513,10 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
 
     wcfg = chunked(paper("rma_arar_arar"), payload_precision="bf16")
     nseg = W.make_schedule(wcfg).spec.n_segments
-    expect = {k: ((GAN_EPOCHS, 0, 0, GAN_EPOCHS) if k == "inverse_cdf"
-                  else (0, 0, 0, 0)) for k in all_counts}
     got, p50, _ = train_and_check(
         "38", f"GAN PAPER rma_arar_arar bf16 payload, ring_chunking "
         f"{RING_CHUNK:,} B ({nseg} segments)", dev, wcfg, data, all_counts,
-        expect, gan_healthy)
+        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
     if nseg != 2:
         fail(f"[38] bf16 at {RING_CHUNK} B: {nseg} segments, expected 2")
     launches["inverse_cdf"] += got["inverse_cdf"][0]
@@ -2506,10 +2542,11 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
             (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
              {"lockstep": False,
               "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
+        locked = label == "lock-step"
         counts, p50[label] = proc_workflow(
             "39", label, dev, wcfg, blur_data, all_counts, blur_p50,
-            d_bar=gan_improving if label == "lock-step" else
-            (lambda d: (True, "finite")), **kw)
+            d_bar=gan_improving if locked else (lambda d: (True, "finite")),
+            n_epochs=None if locked else PROC_FREE_EPOCHS, **kw)
         add_launches(launches, counts)
     lock = p50["lock-step"]
     print(f"[39] {name} as 8 workers at ring_chunking {IMAGE_RING_CHUNK:,} "
@@ -2519,6 +2556,39 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
           f"{np.max(proc_p50):.3f} ms (phase 35, same run); phase 39 "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def disc_due_losses(label, wcfg, epochs, hist):
+    """The d_loss (mean over ranks) of the recorded epochs `epochs` on
+    which the discriminator ran, and those epochs: what the bars read.
+    Fails unless, on every recorded epoch whose half the cadence skipped
+    (`workflow.due`), that half's loss is NaN for every rank, and g_loss
+    is finite on the generator's epochs."""
+    from repro_torch.core.workflow import due
+    flags = np.array([due(wcfg, e) for e in epochs], bool).reshape(-1, 2)
+    d, g = (hist[k].float().cpu().numpy() for k in ("d_loss", "g_loss"))
+    if not (np.isnan(d[~flags[:, 0]]).all()
+            and np.isnan(g[~flags[:, 1]]).all()
+            and np.isfinite(g[flags[:, 1]]).all()):
+        fail(f"{label}: at disc_every {wcfg.disc_every}, gen_every "
+             f"{wcfg.gen_every} a skipped half's loss is not NaN, or g_loss "
+             f"is not finite where the generator ran (epochs {epochs})")
+    return d.mean(1)[flags[:, 0]], [e for e, f in zip(epochs, flags) if f[0]]
+
+
+def p50_by_flags(wcfg, epochs, ms):
+    """{(disc_due, gen_due): (p50, count)} of `ms` [T, ...] over epochs
+    `epochs` (axis 0), one entry a flag combination that occurs."""
+    from repro_torch.core.workflow import due
+    flags = [due(wcfg, e) for e in epochs]
+    return {f: (float(np.percentile(ms[np.array([x == f for x in flags])],
+                                    50)), flags.count(f))
+            for f in FLAG_NAMES if f in flags}
+
+
+def flags_text(by_flags):
+    return ", ".join(f"{FLAG_NAMES[f]} p50 {v:.3f} ms ({n} epochs)"
+                     for f, (v, n) in by_flags.items())
 
 
 def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
@@ -2533,7 +2603,11 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     peak memory and the final mean|r̂|; fails unless the state's dtypes
     are as the config says (`check_dtypes`).  Returns the counts, the
     epoch p50 (ms) and {"gen": the final generator stack on the CPU,
-    "residual": the final ensemble's mean|r̂|}."""
+    "residual": the final ensemble's mean|r̂|, "mean": the mean epoch
+    (ms), "by_flags": `p50_by_flags` of the epochs}.  Under an update
+    cadence the bars read the discriminator's recorded epochs
+    (`disc_due_losses`), and the epoch p50 of each combination of
+    halves that ran is printed beside the mean."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core import workflow as W
@@ -2573,7 +2647,9 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     bad = [k for k, t in tree_paths(state)
            if not bool(torch.isfinite(t.float()).all())]
     p_hat, _ = ensemble_response(state["gen"], noise)
-    d = hist["d_loss"].mean(1).cpu().numpy()
+    d, d_epochs = disc_due_losses(f"training {label}", wcfg, [
+        e for e in range(GAN_EPOCHS)
+        if e % GAN_EVERY == 0 or e == GAN_EPOCHS - 1], hist)
     ok, bar = d_bar(d) if np.isfinite(d).all() else (False, "")
     if bad or not (0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
             or not ok:
@@ -2585,6 +2661,10 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     steps = np.array([a.elapsed_time(b)
                       for a, b in zip(events[:-1], events[1:])])
     p50 = float(np.percentile(steps, 50))
+    by_flags = p50_by_flags(wcfg, range(1, GAN_EPOCHS), steps)
+    last_batch = next(r for r in reversed(hist["residuals"])
+                      if not bool(r.isnan().all()))
+    cadenced = (wcfg.disc_every, wcfg.gen_every) != (1, 1)
     runs = ", ".join(f"{k} {n[0]} (backward {n[2]} launches, {n[3]} in "
                      f"PyTorch)" for k, n in got.items() if n[0])
     print(f"[{tag}] {label}: {R} ranks ({GAN_OUTER} x {GAN_INNER}), {K} x "
@@ -2594,8 +2674,11 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
           f"epochs from seed {SEED}, fp32 compute (TF32 off), "
           f"{wcfg.sync.payload_precision} ring payload; kernel launches: "
           f"{runs}; no plain call")
-    print(f"[{tag}] {label}: d_loss (mean over ranks) at epochs 0, "
-          f"{GAN_EVERY}, ...: " + " ".join(f"{v:.4f}" for v in d)
+    at = (f"the discriminator's recorded epochs {d_epochs} (the skipped "
+          f"halves' losses NaN, g_loss finite where the generator ran)"
+          if cadenced else f"epochs 0, {GAN_EVERY}, ...")
+    print(f"[{tag}] {label}: d_loss (mean over ranks) at {at}: "
+          + " ".join(f"{v:.4f}" for v in d)
           + f"; all finite, {bar}; every state leaf finite; ensemble in "
           f"({float(p_hat.min()):.4f}, {float(p_hat.max()):.4f})")
     print(f"[{tag}] {label}: epoch p50 {p50:.3f} ms, p99 "
@@ -2605,10 +2688,16 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"final mean|r̂| {float(prob.mean_abs_residual(p_hat)):.4f} "
           f"(ensemble of the {R} generators), "
-          f"{float(hist['residuals'][-1].abs().mean()):.4f} (last epoch's "
-          f"batch, mean over ranks)")
+          f"{float(last_batch.abs().mean()):.4f} (the last recorded batch "
+          f"a half ran on, mean over ranks)")
+    if cadenced:
+        print(f"[{tag}] {label}: at disc_every {wcfg.disc_every}, gen_every "
+              f"{wcfg.gen_every} the epochs are bimodal: "
+              f"{flags_text(by_flags)}; mean epoch {steps.mean():.3f} ms "
+              f"({R * K * E / steps.mean() * 1e3:,.0f} events/s)")
     final = {"gen": tree_map(lambda t: t.cpu(), state["gen"]),
-             "residual": float(prob.mean_abs_residual(p_hat))}
+             "residual": float(prob.mean_abs_residual(p_hat)),
+             "mean": float(steps.mean()), "by_flags": by_flags}
     del state, hist
     torch.cuda.empty_cache()
     return got, p50, final
@@ -2644,23 +2733,34 @@ def leaky_kinks(record, signs=None):
         gan.F, convgen.F = saved
 
 
-def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
+def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False,
+                      flags=(True, True)):
     """One epoch on the card and on the CPU from the same state (a
-    non-zero RMA mailbox) and draws, 4 ranks as 2 x 2 (phases 23 and 27):
-    losses at rtol STEP_LOSS_RTOL, each generator gradient leaf within
-    STEP_GRAD_REL in relative norm, the CPU's exchange of the card's
-    gradients bitwise the card's, and the card's new generator and Adam
-    state against the CPU's optimizer on the card's synced gradients.
+    non-zero RMA mailbox) and draws, 4 ranks as 2 x 2 (phases 23, 27, 36
+    and 40): losses at rtol STEP_LOSS_RTOL, each generator gradient leaf
+    within STEP_GRAD_REL in relative norm, the CPU's exchange of the
+    card's gradients bitwise the card's, and the card's new generator and
+    Adam state against the CPU's optimizer on the card's synced gradients.
 
     `pin_kinks` holds the gradient leaves at KINK_GRAD_REL instead,
     against the CPU's gradients at the card's Leaky ReLU signs
     (`leaky_kinks`), and reports the gap without pinning and the number
-    of pre-activations whose sign differs between the card and the CPU."""
+    of pre-activations whose sign differs between the card and the CPU.
+
+    `flags` (disc_due, gen_due) runs `rank_grads` with those halves, as a
+    cadenced epoch does (phase 40).  A skipped half's loss must be NaN on
+    both, its state unchanged on the card (the discriminator and its Adam
+    state; or the generator, its Adam state and the sync state, the epoch
+    counter advanced), and an epoch with neither half must run no Leaky
+    ReLU and report NaN parameters.  Without the generator there is no
+    exchange and the gradient held is the discriminator's: its first Adam
+    moment after one step from zero, 0.1 x the gradient."""
     import torch
     from repro_torch.core import workflow as W
     from repro_torch.core.ring import VmapComm
     from repro_torch.core.tree import tree_leaves, tree_map
 
+    ud, ug = flags
     prob = wcfg.problem_obj
     g = torch.Generator().manual_seed(SEED + 23)
     cpu_data = prob.make_reference_data(g, 5_000, device="cpu")
@@ -2675,63 +2775,101 @@ def epoch_card_vs_cpu(tag, label, dev, wcfg, pin_kinks=False):
         move = lambda tree: tree_map(lambda t: t.to(d_), tree)  # noqa
         with leaky_kinks([]) as pre[str(d_)]:
             part, grads, met = W.rank_grads(move(state0), per_rank.to(d_),
-                                            move(draws0), wcfg)
-        synced, ns = sched.exchange(VmapComm(2, 2), grads, part["sync"],
-                                    part["epoch"][0])
-        new = W.rank_apply(part, synced, ns, wcfg)
+                                            move(draws0), wcfg, ud, ug)
+        if ug:
+            synced, ns = sched.exchange(VmapComm(2, 2), grads, part["sync"],
+                                        part["epoch"][0])
+            new = W.rank_apply(part, synced, ns, wcfg)
+        else:
+            synced, new = {}, W.bump_epoch(part)
         out[str(d_)] = tree_map(lambda t: t.cpu(),
                                 (part, grads, met, synced, new))
     (pc, gc, mc, sc, nc), (pg, gg, mg, sg, ng) = out["cpu"], out[str(dev)]
-    loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
-                   for k in ("d_loss", "g_loss")
-                   for a, b in zip(mg[k], mc[k]))
-    def worst(grads):
-        return max(float((a - b).norm() / b.norm())
-                   for a, b in zip(tree_leaves(gg), tree_leaves(grads)))
-    grad_rel = unpinned = worst(gc)
+    ran = {"d_loss": ud, "g_loss": ug}
+    loss_rel = max([abs(float(a) - float(b)) / abs(float(b))
+                    for k in ran if ran[k]
+                    for a, b in zip(mg[k], mc[k])] or [0.0])
+
+    def held(part, grads):
+        return grads if ug else part["disc_opt"]["mu"]
+
+    def worst(a, b):
+        return max(float((x - y).norm() / y.norm())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    grad_rel = unpinned = worst(held(pg, gg), held(pc, gc)) \
+        if ud or ug else 0.0
     bar = STEP_GRAD_REL
-    if pin_kinks:
+    if pin_kinks and (ud or ug):
         signs = [t.cpu() > 0 for t in pre[str(dev)]]
         flips = sum(int((a != (b > 0)).sum())
                     for a, b in zip(signs, pre["cpu"]))
         with leaky_kinks([], signs):
-            _, gp, _ = W.rank_grads(state0, per_rank, draws0, wcfg)
-        grad_rel, bar = worst(gp), KINK_GRAD_REL
-    s2, ns2 = sched.exchange(VmapComm(2, 2), gg, pg["sync"], pg["epoch"][0])
-    ring_same = all(torch.equal(a, b) for a, b in zip(
-        tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))))
-    want = W.rank_apply(pg, sg, ns2, wcfg)
-    pairs = list(zip(tree_leaves((ng["gen"], ng["gen_opt"])),
-                     tree_leaves((want["gen"], want["gen_opt"]))))
-    update_ok = all(torch.allclose(a.float(), b.float(), **UPDATE_TOL)
-                    for a, b in pairs)
-    update_err = max(float((a.float() - b.float()).abs().max())
-                     for a, b in pairs)
+            pp, gp, _ = W.rank_grads(state0, per_rank, draws0, wcfg, ud, ug)
+        grad_rel, bar = worst(held(pg, gg), held(pp, gp)), KINK_GRAD_REL
+    ring_same, update_ok, update_err = True, True, 0.0
+    if ug:
+        s2, ns2 = sched.exchange(VmapComm(2, 2), gg, pg["sync"],
+                                 pg["epoch"][0])
+        ring_same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((s2, ns2)), tree_leaves((sg, ng["sync"]))))
+        want = W.rank_apply(pg, sg, ns2, wcfg)
+        pairs = list(zip(tree_leaves((ng["gen"], ng["gen_opt"])),
+                         tree_leaves((want["gen"], want["gen_opt"]))))
+        update_ok = all(torch.allclose(a.float(), b.float(), **UPDATE_TOL)
+                        for a, b in pairs)
+        update_err = max(float((a.float() - b.float()).abs().max())
+                         for a, b in pairs)
+    # the skipped halves: NaN losses, unchanged state, no forward at all
+    frozen = ([] if ud else ["disc", "disc_opt"]) + \
+        ([] if ug else ["gen", "gen_opt", "sync"])
+    moved = [k for k in frozen if not all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ng[k]), tree_leaves(state0[k])))]
+    if not ug and not torch.equal(ng["epoch"], state0["epoch"] + 1):
+        moved.append("epoch")
+    skipped_ok = not moved and all(
+        bool(m[k].isnan().all()) for m in (mg, mc) for k in ran
+        if not ran[k])
+    if not (ud or ug):
+        skipped_ok = skipped_ok and not pre[str(dev)] and bool(
+            mg["pred_params"].isnan().all())
     disc_err = max(float((a - b).abs().max()) for a, b in
                    zip(tree_leaves(ng["disc"]), tree_leaves(nc["disc"])))
     pinned = (f" at the card's Leaky ReLU signs ({flips} of the CPU's "
-              f"differ; {unpinned:.3e} without pinning)" if pin_kinks else "")
+              f"differ; {unpinned:.3e} without pinning)"
+              if pin_kinks and (ud or ug) else "")
+    which = ("generator gradient leaf" if ug else
+             "discriminator gradient leaf (its first Adam moment)" if ud
+             else "gradient leaf (none: neither half ran)")
     if loss_rel > STEP_LOSS_RTOL or grad_rel > bar \
-            or not ring_same or not update_ok:
+            or not ring_same or not update_ok or not skipped_ok:
         fail(f"phase {tag} {label}: losses off by {loss_rel:.3e} (rel), "
-             f"worst gradient leaf {grad_rel:.3e} in relative norm{pinned}, "
+             f"worst {which} {grad_rel:.3e} in relative norm{pinned}, "
              f"the exchange bitwise the CPU's: {ring_same}, the generator's "
              f"update off the CPU's optimizer by {update_err:.3e} (bars "
-             f"{STEP_LOSS_RTOL}, {bar}, {UPDATE_TOL})")
+             f"{STEP_LOSS_RTOL}, {bar}, {UPDATE_TOL}); halves "
+             f"{FLAG_NAMES[flags]}: skipped state that moved {moved}, "
+             f"the skipped losses NaN and nothing run where nothing is due: "
+             f"{skipped_ok}")
+    halves = ("" if flags == (True, True) else
+              f"; {FLAG_NAMES[flags]} (the skipped half's loss NaN on both, "
+              f"{', '.join(frozen)} unchanged on the card"
+              f"{', the epoch counter advanced' if not ug else ''}"
+              f"{'' if ud or ug else ', no Leaky ReLU run, NaN parameters'})")
+    ring = ("; the CPU's exchange of the card's gradients bitwise the "
+            f"card's; the card's new generator and Adam state against the "
+            f"CPU's optimizer on the card's synced gradients: max |diff| "
+            f"{update_err:.3e} ({UPDATE_TOL})" if ug else
+            "; no exchange and no generator step")
     print(f"[{tag}] {label} one epoch card vs CPU (full width, K "
           f"{wcfg.n_param_samples}, E {wcfg.events_per_sample}, R 4 as 2 "
           f"x 2, h 1, fp32 compute with TF32 off, "
           f"{wcfg.sync.payload_precision} ring payload, the same state with "
           f"a non-zero "
-          f"mailbox and the same draws): d_loss/g_loss within "
-          f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst generator "
-          f"gradient leaf {grad_rel:.3e} in relative norm (<= {bar})"
-          f"{pinned}; the CPU's exchange of the card's gradients "
-          f"bitwise the card's; the card's new generator and Adam state "
-          f"against the CPU's optimizer on the card's synced gradients: "
-          f"max |diff| {update_err:.3e} ({UPDATE_TOL}); the new "
-          f"discriminator against the CPU's own step: max |diff| "
-          f"{disc_err:.3e} (reported)")
+          f"mailbox and the same draws): losses that ran within "
+          f"{loss_rel:.2e} (rel, <= {STEP_LOSS_RTOL}), worst {which} "
+          f"{grad_rel:.3e} in relative norm (<= {bar}){pinned}{ring}; the "
+          f"new discriminator against the CPU's own step: max |diff| "
+          f"{disc_err:.3e} (reported){halves}")
 
 
 def profile_epochs(tag, label, dev, wcfg, data, group, seed):
@@ -2750,18 +2888,196 @@ def profile_epochs(tag, label, dev, wcfg, data, group, seed):
     state, per_rank = W.init_run(g, R, wcfg, data, dev)
     draws = [W.make_draws(g, wcfg, R, per_rank.shape[1])
              for _ in range(GAN_PROFILED + 1)]
-    state, _ = epoch(state, per_rank, draws[0])      # warm, not profiled
+    state, _ = epoch(state, per_rank, draws[0], 0)   # warm, not profiled
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for dr in draws[1:]:
-            state, _ = epoch(state, per_rank, dr)
+        for e, dr in enumerate(draws[1:], 1):
+            state, _ = epoch(state, per_rank, dr, e)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = report_profile(tag, label, prof, wall_us, GAN_PROFILED, "epoch",
                          lambda low, op: group(low))
     return None if out is None else (*out, wall_us)
+
+
+
+
+def profile_cadence(tag, label, dev, wcfg, data):
+    """Phase 40: CADENCE_PROFILED epochs of `wcfg` at R 8 after one warm
+    epoch under one profiler, each epoch in a range of its own with the
+    card idle at its start and end: its halves (`workflow.due`), device
+    ops, card time and GEMM launches and time, each kernel counted in
+    the epoch whose range holds the op that launched it.  The profiler's
+    first epoch is not reported: late in the whole script the profiler
+    dropped device events at its start (an off epoch read 0.5 ms busy
+    beside 9.6 in the next).  Fails unless
+    an epoch without the discriminator launches fewer GEMMs than one
+    with it (the card's evidence that the skipped half is not launched).
+    Prints "not measured" when the profiler records no device events."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile as tprofile,
+                                record_function)
+    from repro_torch.core import workflow as W
+
+    R = GAN_OUTER * GAN_INNER
+    epoch = W.make_epoch_fn(GAN_OUTER, GAN_INNER, wcfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    state, per_rank = W.init_run(g, R, wcfg, data, dev)
+    draws = [W.make_draws(g, wcfg, R, per_rank.shape[1])
+             for _ in range(CADENCE_PROFILED + 2)]
+    state, _ = epoch(state, per_rank, draws[0], 0)   # warm, not profiled
+    wall = {}
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        state, _ = epoch(state, per_rank, draws[1], 1)   # not reported
+        for e in range(2, CADENCE_PROFILED + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(f"cadence epoch {e}"):
+                state, _ = epoch(state, per_rank, draws[e], e)
+            torch.cuda.synchronize()
+            wall[e] = (time.perf_counter() - t0) * 1e3
+    kind = torch.autograd.DeviceType
+    events = prof.events()
+    spans = {int(ev.name.rsplit(" ", 1)[1]): ev.time_range for ev in events
+             if ev.device_type == kind.CPU
+             and ev.name.startswith("cadence epoch ")}
+    kernels = {e: [] for e in spans}
+    for ev in events:
+        if ev.device_type == kind.CPU and ev.kernels:
+            for e, span in spans.items():
+                if span.start <= ev.time_range.start <= span.end:
+                    kernels[e] += ev.kernels
+    on_card = sum(ev.time_range.elapsed_us() for ev in events
+                  if ev.device_type == kind.CUDA
+                  and not ev.name.startswith("cadence epoch "))
+    if not on_card:
+        print(f"[{tag}] {label}: the profiler recorded no device events: "
+              f"the due and off epochs' device ops are not measured")
+        return None
+    rows = {}
+    for e, ks in kernels.items():
+        gemms = [k for k in ks if gemm_kernel(k.name.lower())]
+        rows[e] = (W.due(wcfg, e), len(ks), len(gemms),
+                   sum(k.duration for k in ks) / 1e3,
+                   sum(k.duration for k in gemms) / 1e3)
+        print(f"[{tag}] {label} epoch {e} ({FLAG_NAMES[rows[e][0]]}): "
+              f"{rows[e][1]} device ops, card busy {rows[e][3]:.3f} ms, "
+              f"{rows[e][2]} GEMM launches taking {rows[e][4]:.3f} ms, "
+              f"{wall[e]:.3f} ms on the host clock under the profiler")
+    traced = sum(r[3] for r in rows.values()) * 1e3
+    print(f"[{tag}] {label}: {100 * traced / on_card:.1f}% of the card's "
+          f"time in the profile (the unreported first epoch's too) traced "
+          f"to a reported epoch's launching ops")
+    with_d = [r[2] for r in rows.values() if r[0][0]]
+    without = [r[2] for r in rows.values() if not r[0][0]]
+    if with_d and without and not max(without) < min(with_d):
+        fail(f"[{tag}] {label}: an epoch without the discriminator launched "
+             f"{max(without)} GEMMs, one with it {min(with_d)}: the skipped "
+             f"half's GEMMs still run")
+    return rows
+
+
+def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+    """Phases 40-41: the update cadences (`disc_every`, `gen_every`) on
+    the card.  40: `throughput(PAPER)` (bf16 payload, disc_every 2) in
+    `rma_arar_arar` and PAPER at CADENCE in `conv_arar`, R 8, with phase
+    22's bars read on the discriminator's epochs and `gan_expect`'s
+    counts, the epoch p50 of each combination of halves and the mean
+    beside phase 22's p50 (`fp32`: mode -> (p50 ms, ...)); imaging_blur
+    at CADENCE with phase 26's bars beside its p50 (`imaging_blur_p50`);
+    one epoch card vs CPU for each skipped combination; a profile of
+    `throughput(PAPER)` epochs one at a time.  41: the proc runtime,
+    PAPER at CADENCE bitwise `lockstep_reference`, `throughput(PAPER)`
+    for GAN_EPOCHS lock-step epochs with phase 35's bars beside phase
+    35's epoch p50 a rank (`proc_p50`), and a free run with phase 35's
+    lag (finite).  Returns each kernel's launches over the counted
+    runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import (PAPER, REDUCED, for_problem,
+                                                throughput)
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    D, G = CADENCE
+
+    def cadenced(wcfg, **sync):
+        return dataclasses.replace(
+            wcfg, disc_every=D, gen_every=G,
+            sync=dataclasses.replace(wcfg.sync, **sync))
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    R, K, E = GAN_OUTER * GAN_INNER, PAPER.n_param_samples, \
+        PAPER.events_per_sample
+    t0 = time.perf_counter()
+
+    # -- 40. stacked ----------------------------------------------------------
+    for label, wcfg in (
+            ("throughput(PAPER)", throughput(PAPER)),
+            (f"PAPER conv_arar at disc_every {D}, gen_every {G}",
+             cadenced(PAPER, mode="conv_arar"))):
+        got, p50, final = train_and_check(
+            "40", f"GAN {label}", dev, wcfg, data, all_counts,
+            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+        add_launches(launches, got)
+        p50_22 = fp32[wcfg.sync.mode][0]
+        print(f"[40] GAN {label}: mean epoch {final['mean']:.3f} ms "
+              f"({R * K * E / final['mean'] * 1e3:,.0f} events/s), "
+              f"{final['mean'] / p50_22:.3f}x phase 22's every-epoch "
+              f"{wcfg.sync.mode} p50 {p50_22:.3f} ms in the same run; "
+              f"{flags_text(final['by_flags'])}")
+    name = "imaging_blur"
+    wcfg = cadenced(for_problem(name, PAPER))
+    blur_data = get_problem(name).make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    got, _, final = train_and_check(
+        "40", f"{name} for_problem(PAPER) at disc_every {D}, gen_every {G}",
+        dev, wcfg, blur_data, all_counts,
+        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+    add_launches(launches, got)
+    print(f"[40] {name} at disc_every {D}, gen_every {G}: mean epoch "
+          f"{final['mean']:.3f} ms beside phase 26's every-epoch p50 "
+          f"{imaging_blur_p50:.3f} ms in the same run; "
+          f"{flags_text(final['by_flags'])}")
+    del blur_data
+    small = cadenced(dataclasses.replace(
+        PAPER, n_param_samples=REDUCED.n_param_samples,
+        events_per_sample=REDUCED.events_per_sample), h=1)
+    for flags in ((True, False), (False, True), (False, False)):
+        epoch_card_vs_cpu("40", f"GAN rma_arar_arar {FLAG_NAMES[flags]}",
+                          dev, small, pin_kinks=True, flags=flags)
+    profile_cadence("40", "throughput(PAPER)", dev, throughput(PAPER), data)
+    print(f"[40] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 41. the proc runtime ------------------------------------------------
+    t0 = time.perf_counter()
+    counts, _ = proc_bitwise("41", dev, cadenced(PAPER, h=2), data,
+                             all_counts)
+    add_launches(launches, counts)
+    p50 = {}
+    for label, kw in (
+            ("lock-step", {}),
+            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
+             {"lockstep": False, "n_epochs": PROC_FREE_EPOCHS,
+              "d_bar": lambda d: (True, "finite"),
+              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
+        counts, p50[label] = proc_workflow(
+            "41", label, dev, throughput(PAPER), data, all_counts,
+            fp32[PAPER.sync.mode][0], **kw)
+        add_launches(launches, counts)
+    lock = p50["lock-step"]
+    print(f"[41] throughput(PAPER) as 8 workers, lock-step: epoch p50 a "
+          f"rank {np.min(lock):.3f}-{np.max(lock):.3f} ms (median "
+          f"{np.median(lock):.3f}) beside PAPER's every-epoch fp32 "
+          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (phase 35, "
+          f"same run); phase 41 {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def time_phase(dev, strict):
@@ -3432,6 +3748,13 @@ def main():
         launches[k] = launches.get(k, 0) + v
 
     clock("38-39")
+    # -- 40-41. the update cadences, stacked and as worker processes -------
+    n = cadence_phases(dev, all_counts, gan_fp32,
+                       problem_p50["imaging_blur"], proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("40-41")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

@@ -61,8 +61,8 @@ def throughput(base: WorkflowConfig = REDUCED, disc_every: int = 2
                ) -> WorkflowConfig:
     """The JAX package's throughput variant of a preset: the bf16 ring
     payload against fp32 master state, and a discriminator update every
-    `disc_every` epochs.  The cadence is ROADMAP.md queue A item 3c, so
-    any `disc_every` but 1 raises from `WorkflowConfig`."""
+    `disc_every` epochs (the off-epochs run the generator's half alone,
+    `core.workflow.due`)."""
     return dataclasses.replace(
         base, sync=dataclasses.replace(base.sync, payload_precision="bf16"),
         disc_every=disc_every)

@@ -29,6 +29,10 @@ Two halves:
   readout noise and B2 or B3 for the imaging ones) runs forward once an
   epoch, and backward once where the gradient reaches it.  An
   image-valued problem trains the conv generator (`models.convgen`).
+  Under the update cadences (`disc_every`, `gen_every`; `due`) step 3
+  runs on the discriminator's epochs and steps 4–6 on the generator's;
+  an epoch with neither runs no forward, and one without the generator
+  only advances the epoch counter.
 
 `train_proc` runs the same loop with each rank a worker process of its
 own (`runtime.launch`), the exchange crossing mmap mailboxes.
@@ -170,8 +174,8 @@ def make_solver(problem, cfg: SolveConfig, draws: Draws) -> Solver:
 class WorkflowConfig:
     """The training loop's settings, as `repro.core.workflow.WorkflowConfig`
     (line 66) has them.  There is no `sampler_impl`: the device picks the
-    sampler's route.  Update cadences other than every epoch (queue A
-    item 3c) and the telemetry channel (`obs`) raise: ROADMAP.md queue A
+    sampler's route.  `disc_every`/`gen_every` are the update cadences
+    (`due`).  The telemetry channel (`obs`) raises: ROADMAP.md queue A
     item 3."""
     sync: sync_lib.SyncConfig = sync_lib.SyncConfig()
     n_param_samples: int = pipeline.PARAM_SAMPLES       # Tab. III
@@ -195,11 +199,6 @@ class WorkflowConfig:
             raise ValueError(
                 f"disc_compute must be one of {gan.DISC_COMPUTE}, got "
                 f"{self.disc_compute!r}")
-        if self.disc_every != 1 or self.gen_every != 1:
-            raise NotImplementedError(
-                f"update cadences disc_every={self.disc_every}, gen_every="
-                f"{self.gen_every} are not ported yet: ROADMAP.md queue A "
-                f"item 3c (the schedule layer's update cadences)")
         if self.obs:
             raise NotImplementedError(
                 f"the telemetry channel (obs) is not ported yet: "
@@ -213,6 +212,24 @@ class WorkflowConfig:
     def problem_obj(self):
         from ..problems import get_problem
         return get_problem(self.problem)
+
+
+def due(wcfg: WorkflowConfig, epoch: int) -> Tuple[bool, bool]:
+    """(disc_due, gen_due) of host epoch `epoch`: the discriminator updates
+    when `epoch % disc_every == 0`; the generator, with its exchange and
+    Adam step, when `epoch % gen_every == 0` (the JAX `_epoch_body_vmap`,
+    :428–494, and the proc worker, `runtime/launch.py:384–411`).  Every
+    driver decides on the host, so nothing is read back from the card."""
+    return epoch % wcfg.disc_every == 0, epoch % wcfg.gen_every == 0
+
+
+def due_counts(wcfg: WorkflowConfig, n_epochs: int,
+               start: int = 0) -> Tuple[int, int]:
+    """(epochs on which some half runs, epochs on which the generator
+    runs) among epochs start..n_epochs-1: a GAN kernel's forward launches
+    and, where the generator's gradient reaches it, its backward ones."""
+    flags = [due(wcfg, e) for e in range(start, n_epochs)]
+    return sum(d or g for d, g in flags), sum(g for _, g in flags)
 
 
 def _gen_example(wcfg: WorkflowConfig):
@@ -349,7 +366,8 @@ def _grad(loss, tree):
 
 
 def rank_grads(state, data_per_rank, draws: EpochDraws,
-               wcfg: WorkflowConfig):
+               wcfg: WorkflowConfig, update_disc: bool = True,
+               update_gen: bool = True):
     """Steps 1–4 for every rank at once.  Returns (partial_state,
     gen_grads, metrics), as `repro.core.workflow.rank_grads` (:319–387)
     under `jax.vmap`; metrics hold d_loss and g_loss [R] and the mean
@@ -357,31 +375,63 @@ def rank_grads(state, data_per_rank, draws: EpochDraws,
 
     Each loss is a mean over its rank's events, and rank r's loss depends
     on rank r's parameters alone, so the gradient of the sum over ranks
-    is every rank's own gradient."""
+    is every rank's own gradient.
+
+    `update_disc`/`update_gen` are the cadence flags (`due`); a half that
+    is off launches nothing of its own.  Discriminator only: the fake
+    events are made without a graph (no backward through the forward
+    model), g_loss is NaN and `gen_grads` a zero tree no caller reads.
+    Generator only: no bootstrap, no discriminator loss, gradient or Adam
+    step (`disc`, `disc_opt` returned as they came), d_loss NaN.
+    Neither: no forward at all, and pred_params and residuals NaN too.
+    `draws` are the epoch's whatever the flags (`make_draws`), so a
+    cadenced run stays draw for draw with the every-epoch run."""
     from ..problems import synthetic_events
     prob = wcfg.problem_obj
     cdt = gan.compute_dtype_of(wcfg.disc_compute)
-    real = _bootstrap(draws["idx"], data_per_rank)
+    disc, disc_opt = state["disc"], state["disc_opt"]
+    pred = None
     with torch.enable_grad():
-        gen = tree_map(lambda t: t.detach().requires_grad_(), state["gen"])
-        disc = tree_map(lambda t: t.detach().requires_grad_(), state["disc"])
-        fake, pred = synthetic_events(prob, gen, draws["noise"], draws["u"])
-        # the discriminator's step sees the fake events as data ...
-        d_loss = gan.disc_loss(disc, real, fake.detach(), cdt)
-        d_grads = _grad(d_loss.sum(), disc)
-        # ... and the generator's objective reads the discriminator from
-        # before that step, differentiated for the generator's leaves only
-        g_loss = gan.gen_loss(state["disc"], fake, cdt)
-        g_grads = _grad(g_loss.sum(), gen)
+        if update_gen:
+            gen = tree_map(lambda t: t.detach().requires_grad_(),
+                           state["gen"])
+            fake, pred = synthetic_events(prob, gen, draws["noise"],
+                                          draws["u"])
+        elif update_disc:
+            with torch.no_grad():
+                fake, pred = synthetic_events(prob, state["gen"],
+                                              draws["noise"], draws["u"])
+        if update_disc:
+            real = _bootstrap(draws["idx"], data_per_rank)
+            disc = tree_map(lambda t: t.detach().requires_grad_(),
+                            state["disc"])
+            # the discriminator's step sees the fake events as data ...
+            d_loss = gan.disc_loss(disc, real, fake.detach(), cdt)
+            d_grads = _grad(d_loss.sum(), disc)
+        if update_gen:
+            # ... and the generator's objective reads the discriminator
+            # from before that step, differentiated for the generator's
+            # leaves only
+            g_loss = gan.gen_loss(state["disc"], fake, cdt)
+            g_grads = _grad(g_loss.sum(), gen)
     with torch.no_grad():
-        d_upd, disc_opt = adam(wcfg.disc_lr).update(d_grads,
-                                                    state["disc_opt"])
-        new_disc = tree_map(lambda p, u: p + u, state["disc"], d_upd)
-        pred_mean = pred.detach().mean(1)
-    metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+        if update_disc:
+            d_upd, disc_opt = adam(wcfg.disc_lr).update(d_grads,
+                                                        state["disc_opt"])
+            disc = tree_map(lambda p, u: p + u, state["disc"], d_upd)
+        if not update_gen:
+            g_grads = tree_map(torch.zeros_like, state["gen"])
+
+    def nan(*shape):            # what a skipped half reports
+        return torch.full(draws["noise"].shape[:1] + shape, float("nan"),
+                          device=draws["noise"].device)
+    pred_mean = nan(prob.n_params) if pred is None else \
+        pred.detach().mean(1)
+    metrics = {"d_loss": d_loss.detach() if update_disc else nan(),
+               "g_loss": g_loss.detach() if update_gen else nan(),
                "pred_params": pred_mean,
                "residuals": prob.residuals(pred_mean)}
-    return dict(state, disc=new_disc, disc_opt=disc_opt), g_grads, metrics
+    return dict(state, disc=disc, disc_opt=disc_opt), g_grads, metrics
 
 
 @torch.no_grad()
@@ -393,17 +443,27 @@ def rank_apply(state, synced_grads, new_sync, wcfg: WorkflowConfig):
                 epoch=state["epoch"] + 1)
 
 
+def bump_epoch(state):
+    """A generator off-epoch's end: no exchange and no Adam step, only the
+    epoch counter advances (the JAX `_epoch_body_vmap`, :485–490)."""
+    return dict(state, epoch=state["epoch"] + 1)
+
+
 def make_epoch_fn(n_outer: int, n_inner: int, wcfg: WorkflowConfig):
-    """One stacked epoch, `fn(state, data_per_rank, draws) -> (state,
-    metrics)` (the JAX `_epoch_body_vmap` at cadence 1, :446–494).  The
-    exchange's epoch is the device's own counter, so nothing is read
-    back to the host."""
+    """One stacked epoch, `fn(state, data_per_rank, draws, e) -> (state,
+    metrics)` (the JAX `_epoch_body_vmap`, :428–494).  `e` is the host's
+    epoch index, which equals the state's counter: the halves due at `e`
+    run (`due`).  The exchange's epoch is the device's own counter, so
+    nothing is read back to the host."""
     comm = VmapComm(n_outer, n_inner)
     schedule = make_schedule(wcfg)
 
-    def epoch(state, data_per_rank, draws: EpochDraws):
-        new_state, g_grads, metrics = rank_grads(state, data_per_rank,
-                                                 draws, wcfg)
+    def epoch(state, data_per_rank, draws: EpochDraws, e: int):
+        update_disc, update_gen = due(wcfg, e)
+        new_state, g_grads, metrics = rank_grads(
+            state, data_per_rank, draws, wcfg, update_disc, update_gen)
+        if not update_gen:
+            return bump_epoch(new_state), metrics
         synced, new_sync = schedule.exchange(comm, g_grads,
                                              new_state["sync"],
                                              new_state["epoch"][0])
@@ -442,8 +502,11 @@ def train_stacked(seed: int, wcfg: WorkflowConfig, n_outer: int,
     generator's state under "rng", at each chunk boundary on the
     `checkpoint_every` cadence and at the end, and `resume=True` restores
     the newest step and continues from it: a resume from a chunk-aligned
-    step is bitwise the uninterrupted run.  `on_epoch(e, metrics)` is
-    called after each epoch's work is enqueued."""
+    step is bitwise the uninterrupted run.  The loop's epoch index is
+    the state's counter, after a resume too, so the update cadences
+    (`due`) are decided on the host and stay on their grid.
+    `on_epoch(e, metrics)` is called after each epoch's work is
+    enqueued."""
     from ..checkpoint.store import restore_latest, save_checkpoint
     dev = resolve_device(device)
     R = n_outer * n_inner
@@ -472,7 +535,7 @@ def train_stacked(seed: int, wcfg: WorkflowConfig, n_outer: int,
             continue
         for e in range(max(e0, start), done):
             state, metrics = epoch(state, data_per_rank,
-                                   make_draws(generator, wcfg, R, n_sub))
+                                   make_draws(generator, wcfg, R, n_sub), e)
             if on_epoch is not None:
                 on_epoch(e, metrics)
             if (checkpoint_every and e % checkpoint_every == 0) \

@@ -47,9 +47,20 @@ refuses the rest with the JAX package's message):
         --problem imaging_blur --ranks 4 --epochs 4 --param-samples 8 \
         --ring-chunking 524288
 
-The exchange schedules other than `sync` (--sync-schedule,
---staleness, --max-staleness, --disc-every, --gen-every, the metrics
-and trace sinks) are ROADMAP.md queue A item 3: they raise.  The run
+`--disc-every D` updates the discriminator only on epochs e with e % D
+== 0, and `--gen-every G` the generator, with its exchange and Adam
+step, only on epochs with e % G == 0 (`core.workflow.due`); a skipped
+half launches nothing, and its loss is NaN in the history.  They work
+on both backends and with every --problem:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
+        --ranks 4 --epochs 12 --disc-every 2 --gen-every 3
+
+The progress lines show the mean over ranks of the last epoch's losses,
+or of the report interval's finite ones where the last epoch skipped
+that half.  The exchange schedules other than `sync` (--sync-schedule,
+--staleness, --max-staleness, the metrics and trace sinks) are
+ROADMAP.md queue A item 3: they raise.  The run
 ends with the ensemble against the truth, the serving-path solve
 (`core.workflow.make_solver`) on the reference events, and the kernels'
 launches and plain calls.
@@ -106,6 +117,18 @@ def report_final(problem, gen_stack, data, device):
     return r_ens, r_sol
 
 
+def interval_loss(rows, key):
+    """The NaN-aware mean over ranks of the last row's `key`, or of every
+    row's where the last is all NaN (its half was skipped under
+    --disc-every/--gen-every), as the JAX example reads them; NaN when no
+    row ran that half."""
+    last = rows[-1][key].float()
+    if bool(last.isnan().all()):
+        last = torch.stack([r[key].float() for r in rows])
+    return float(last.nanmean()) if not bool(last.isnan().all()) \
+        else float("nan")
+
+
 def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
     """The proc backend: one worker process a rank, then one line per rank
     and the workers' summed kernel counts.  Returns the stacked state."""
@@ -133,10 +156,13 @@ def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
               f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s")
     h = out["history"]
     if len(h["d_loss"]):
-        print(f"last epoch: d_loss {float(h['d_loss'][-1].mean()):.3f} "
-              f"g_loss {float(h['g_loss'][-1].mean()):.3f} (mean over "
-              f"ranks); {out['wall_s']:.1f} s from spawn to result, "
-              f"start-up {out['startup_s']:.1f} s")
+        rows = [{k: h[k][i] for k in ("d_loss", "g_loss")}
+                for i in range(len(h["d_loss"]))]
+        print(f"last epoch: d_loss {interval_loss(rows, 'd_loss'):.3f} "
+              f"g_loss {interval_loss(rows, 'g_loss'):.3f} (mean over "
+              f"ranks; the run's where the last epoch skipped that half); "
+              f"{out['wall_s']:.1f} s from spawn to result, start-up "
+              f"{out['startup_s']:.1f} s")
     launches, plain, _, bwd_plain = out["counts"]["inverse_cdf"]
     print(f"inverse-CDF sampler (B1), summed over the workers: {launches} "
           f"kernel launches, {plain} plain calls, {bwd_plain} backward "
@@ -206,8 +232,6 @@ def main(argv=None):
         ("--sync-schedule", args.sync_schedule != "sync"),
         ("--staleness", args.staleness != 1),
         ("--max-staleness", args.max_staleness is not None),
-        ("--disc-every", args.disc_every != 1),
-        ("--gen-every", args.gen_every != 1),
         ("--metrics-out", args.metrics_out), ("--trace-dir", args.trace_dir),
         ("--profile-dir", args.profile_dir),
         ("--obs-metrics", args.obs_metrics)) if on]
@@ -223,7 +247,9 @@ def main(argv=None):
         ring_chunking=args.ring_chunking,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
-    wcfg = dataclasses.replace(base, sync=sync, problem=args.problem)
+    wcfg = dataclasses.replace(base, sync=sync, problem=args.problem,
+                               disc_every=args.disc_every,
+                               gen_every=args.gen_every)
     if args.param_samples is not None:
         wcfg = dataclasses.replace(wcfg, n_param_samples=args.param_samples)
     wcfg = sagips_gan.for_problem(args.problem, wcfg)
@@ -250,7 +276,8 @@ def main(argv=None):
           f"ranks={n_outer}x{n_inner} "
           f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "
           f"disc_batch={wcfg.disc_batch} lr gen {wcfg.gen_lr} disc "
-          f"{wcfg.disc_lr} on {dev}")
+          f"{wcfg.disc_lr} disc_every={wcfg.disc_every} "
+          f"gen_every={wcfg.gen_every} on {dev}")
     if args.backend == "proc":
         state = proc_backend(args, wcfg, n_outer, n_inner, data, dev)
         report_final(problem, state["gen"], data, dev)
@@ -264,14 +291,19 @@ def main(argv=None):
         chunk = max(d for d in range(1, min(chunk, args.ckpt_every) + 1)
                     if args.ckpt_every % d == 0)
     t0 = time.time()
+    since = []                  # the report interval's metrics, on device
 
     def on_epoch(e, metrics):
+        since.append(metrics)
         if (e + 1) % report_every == 0 or e + 1 == args.epochs:
-            print(f"epoch {e:6d}  mean|r̂|="
-                  f"{float(metrics['residuals'].abs().mean()):.4f}  d_loss="
-                  f"{float(metrics['d_loss'].mean()):.3f}  g_loss="
-                  f"{float(metrics['g_loss'].mean()):.3f}  "
+            res = next((m["residuals"] for m in reversed(since)
+                        if not bool(m["residuals"].isnan().all())),
+                       metrics["residuals"])
+            print(f"epoch {e:6d}  mean|r̂|={float(res.abs().mean()):.4f}  "
+                  f"d_loss={interval_loss(since, 'd_loss'):.3f}  g_loss="
+                  f"{interval_loss(since, 'g_loss'):.3f}  "
                   f"({time.time() - t0:.0f}s)", flush=True)
+            since.clear()
     for c in (icdf_counts, mask_counts, blur_counts):
         c.reset()
     state, _ = workflow.train_stacked(

@@ -10,8 +10,12 @@ running this module (`python -m repro_torch.runtime.launch --worker
      rank=r)`), so every rank starts where the stacked run starts,
   2. runs its epochs: the jitter sleep, the epoch's stacked draws
      (`workflow.make_draws`) cut to its rows, `rank_grads` on its [1]
-     state, the schedule's exchange over `ProcComm`, `rank_apply`, and a
-     `torch.cuda.synchronize()` before the epoch's host time is taken,
+     state with the halves due at that epoch (`workflow.due`), the
+     schedule's exchange over `ProcComm` and `rank_apply` when the
+     generator is due (else only the epoch counter advances, and no
+     transfer is made: every rank skips the same epochs, so the lock-step
+     pairing stays aligned), and a `torch.cuda.synchronize()` before the
+     epoch's host time is taken,
   3. checkpoints its own state, with its generator's state under "rng",
      every `ckpt_every` epochs under `<run_dir>/ckpt/rank_<r>`,
   4. saves its final state under `<run_dir>/final/rank_<r>` and a JSON
@@ -393,11 +397,16 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
         n_sub = data_per_rank.shape[1]
         per = [workflow.rank_rows(state, r) for r in range(R)]
         datas = [workflow.rank_rows(data_per_rank, r) for r in range(R)]
-        for _ in range(n_epochs):
+        for e in range(n_epochs):
             draws = workflow.make_draws(generator, wcfg, R, n_sub)
+            disc_due, gen_due = workflow.due(wcfg, e)
             outs = [workflow.rank_grads(per[r], datas[r],
-                                        workflow.rank_rows(draws, r), wcfg)
+                                        workflow.rank_rows(draws, r), wcfg,
+                                        disc_due, gen_due)
                     for r in range(R)]
+            if not gen_due:
+                per = [workflow.bump_epoch(o[0]) for o in outs]
+                continue
             ns, g = stack([o[0] for o in outs]), stack([o[1] for o in outs])
             synced, new_sync = schedule.exchange(comm, g, ns["sync"],
                                                  ns["epoch"][0])
@@ -477,12 +486,16 @@ def _worker_main(rank: int, run_dir: str) -> int:
         t0 = time.perf_counter()
         draws = workflow.rank_rows(
             workflow.make_draws(generator, wcfg, R, n_sub), rank)
+        disc_due, gen_due = workflow.due(wcfg, e)
         new_state, g_grads, metrics = workflow.rank_grads(
-            state, data_local, draws, wcfg)
-        comm.begin_epoch(e)
-        synced, new_sync = schedule.exchange(comm, g_grads, new_state["sync"],
-                                             new_state["epoch"][0])
-        state = workflow.rank_apply(new_state, synced, new_sync, wcfg)
+            state, data_local, draws, wcfg, disc_due, gen_due)
+        if gen_due:
+            comm.begin_epoch(e)
+            synced, new_sync = schedule.exchange(
+                comm, g_grads, new_state["sync"], new_state["epoch"][0])
+            state = workflow.rank_apply(new_state, synced, new_sync, wcfg)
+        else:               # no exchange and no Adam step: every rank
+            state = workflow.bump_epoch(new_state)    # skips this epoch
         if cuda:
             torch.cuda.synchronize(dev)
         hist["epoch_s"].append(time.perf_counter() - t0)

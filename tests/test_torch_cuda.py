@@ -19,11 +19,12 @@ service, the LLM engine, the LLM trainer and the GAN trainer on the card
 are shown to launch the kernels and to agree with the CPU on the same
 inputs (the GAN trainer: B1 once an epoch, forward and backward; every
 registered problem on its kernels, with the conv generator's backward in
-full fp32).  Flash attention is held at head dim 80 on both routes, and
-at GQA group 3 (granite-moe-3b-a800m's).  The MoE layer on the card is
-held against the CPU with capacity drops, and is bitwise repeatable in
-bf16.  The exchange with the bf16 ring payload is bitwise the CPU's on
-the same gradients.  The proc runtime's 2 worker processes on the card
+full fp32; under the update cadences, B1 on each epoch where a half runs
+and backward on the generator's).  Flash attention is held at head dim
+80 on both routes, and at GQA group 3 (granite-moe-3b-a800m's).  The
+MoE layer on the card is held against the CPU with capacity drops, and
+is bitwise repeatable in bf16.  The exchange with the bf16 ring payload
+is bitwise the CPU's on the same gradients.  The proc runtime's 2 worker processes on the card
 are bitwise their per-rank reference, with B1 on its kernel in both.
 """
 import numpy as np
@@ -911,6 +912,36 @@ def test_gan_training_launches_b1_once_an_epoch(sm90_card):
         (3, 0, 3)
     assert bool(torch.isfinite(hist["d_loss"]).all())
     assert state["gen"][0]["w"].device.type == "cuda"
+
+
+def test_gan_cadence_trains_on_b1_as_due_counts_says(sm90_card):
+    """`PAPER` at smoke size and disc_every 2, gen_every 3 for 6 epochs
+    (every combination of the two halves): B1 launches on each epoch where a
+    half runs and its backward on the generator's epochs
+    (`workflow.due_counts`), nothing takes the plain version, the state
+    is finite and the skipped halves' losses are NaN."""
+    import dataclasses
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import workflow as W
+    from repro_torch.core.tree import tree_paths
+    wcfg = dataclasses.replace(PAPER, n_param_samples=16,
+                               events_per_sample=8, disc_every=2,
+                               gen_every=3)
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator().manual_seed(99), 2_000, device=sm90_card)
+    counts.reset()
+    state, hist = W.train_stacked(0, wcfg, 2, 2, 6, data,
+                                  checkpoint_every=1, device=sm90_card)
+    torch.cuda.synchronize()
+    n_half, n_gen = W.due_counts(wcfg, 6)
+    assert (counts.launches, counts.plain_calls, counts.backward_plain) == \
+        (n_half, 0, n_gen) == (4, 0, 2)
+    for k, t in tree_paths(state):
+        assert t.device.type == "cuda" and bool(
+            torch.isfinite(t.float()).all()), k
+    for key, i in (("d_loss", 0), ("g_loss", 1)):
+        ran = torch.tensor([W.due(wcfg, e)[i] for e in range(6)])
+        assert torch.equal(hist[key].isnan().all(1).cpu(), ~ran), key
 
 
 @pytest.mark.parametrize("name", ["proxy2d", "linear_blur", "imaging",

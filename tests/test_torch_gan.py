@@ -419,13 +419,22 @@ def test_schedule_features_raise_with_their_item(kw):
 
 
 def test_workflow_features_raise_with_their_item():
-    for kw in (dict(disc_every=2), dict(gen_every=3), dict(obs=True)):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
+    """The telemetry channel (3e) still raises with its item; the update
+    cadences (3c) are ported and take the JAX config field for field."""
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        workflow.WorkflowConfig(obs=True)
+    for kw in (dict(disc_every=2), dict(gen_every=3),
+               dict(disc_every=3, gen_every=2)):
+        got, want = workflow.WorkflowConfig(**kw), JW.WorkflowConfig(**kw)
+        assert (got.disc_every, got.gen_every) == \
+            (want.disc_every, want.gen_every)
+    for kw in (dict(disc_every=0), dict(gen_every=-1)):
+        with pytest.raises(ValueError) as want:
+            JW.WorkflowConfig(**kw)
+        with pytest.raises(ValueError, match="cadences") as got:
             workflow.WorkflowConfig(**kw)
-    with pytest.raises(ValueError, match="cadences"):
-        workflow.WorkflowConfig(disc_every=0)
-    with pytest.raises(NotImplementedError, match="queue A item 3c"):
-        sagips_gan.throughput()
+        assert str(got.value) == str(want.value)
+    assert sagips_gan.throughput().disc_every == 2
     img = sagips_gan.for_problem("imaging")
     assert (img.n_param_samples, img.events_per_sample, img.gen_lr) == \
         (64, 32, 5e-5)
@@ -516,10 +525,10 @@ def test_three_epochs_match_jax(mode):
     jepoch = JW.make_epoch_fn_vmap(2, 2, jcfg)
     pepoch = workflow.make_epoch_fn(2, 2, pcfg)
     jstate = jax.tree.map(jnp.copy, jstate)
-    for _ in range(3):
+    for e in range(3):
         _, draws = jax_draws(jstate["rng"], jcfg, jdata.shape[1])
         jstate, jm = jepoch(jstate, jdata)
-        pstate, pm = pepoch(pstate, pdata, draws)
+        pstate, pm = pepoch(pstate, pdata, draws, e)
         np.testing.assert_allclose(_np(pm["d_loss"]),
                                    np.asarray(jm["d_loss"]), **FP32)
         np.testing.assert_allclose(_np(pm["g_loss"]),
@@ -668,7 +677,7 @@ def test_train_gan_cli_on_the_cpu(capsys):
             "backward passes") in out
     assert "serving-path solve" in out
     for argv, item in ((["--sync-schedule", "overlap"], "item 3"),
-                       (["--disc-every", "2"], "item 3")):
+                       (["--staleness", "2"], "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             train_gan.main(["--device", "cpu"] + argv)
 

@@ -457,17 +457,18 @@ def test_train_gan_cli_bf16(capsys):
 
 
 def test_throughput_preset_matches_jax():
-    """`throughput` is the JAX preset: bf16 and `disc_every`; its default
-    cadence (queue A item 3c) raises, and at `disc_every=1` it is the
+    """`throughput` is the JAX preset: bf16 and `disc_every`, at its
+    default cadence (queue A item 3c, ported) and at `disc_every=1`, the
     bf16 payload alone."""
-    with pytest.raises(NotImplementedError, match="queue A item 3c"):
-        sagips_gan.throughput()
     for name in ("PAPER", "REDUCED"):
-        j = jax_presets.throughput(getattr(jax_presets, name), disc_every=1)
-        p = sagips_gan.throughput(getattr(sagips_gan, name), disc_every=1)
-        assert dataclasses.asdict(p.sync) == dataclasses.asdict(j.sync)
-        assert (p.disc_every, p.n_param_samples, p.gen_lr) == \
-            (j.disc_every, j.n_param_samples, j.gen_lr)
+        for kw in ({}, dict(disc_every=1)):
+            j = jax_presets.throughput(getattr(jax_presets, name), **kw)
+            p = sagips_gan.throughput(getattr(sagips_gan, name), **kw)
+            assert dataclasses.asdict(p.sync) == dataclasses.asdict(j.sync)
+            assert (p.disc_every, p.gen_every, p.n_param_samples,
+                    p.gen_lr) == (j.disc_every, j.gen_every,
+                                  j.n_param_samples, j.gen_lr)
+    assert sagips_gan.throughput().disc_every == 2
     # 3d, 3f and 3g still raise; 3b (the chunked ring) takes the JAX config
     for kw in (dict(staleness=2), dict(overlap=True), dict(adaptive=True)):
         with pytest.raises(NotImplementedError, match="queue A item 3"):

@@ -277,10 +277,10 @@ def test_three_epochs_match_jax(name, mode):
     pepoch = workflow.make_epoch_fn(2, 2, pcfg)
     jstate = jax.tree.map(jnp.copy, jstate)
     C = get_problem(name).noise_channels
-    for _ in range(3):
+    for e in range(3):
         _, draws = jax_draws(jstate["rng"], jcfg, jdata.shape[1], C)
         jstate, jm = jepoch(jstate, jdata)
-        pstate, pm = pepoch(pstate, pdata, draws)
+        pstate, pm = pepoch(pstate, pdata, draws, e)
         for k in ("d_loss", "g_loss"):
             np.testing.assert_allclose(_np(pm[k]), np.asarray(jm[k]),
                                        err_msg=k, **FP32)
@@ -302,7 +302,7 @@ def test_fused_and_unfused_exchange_agree_bitwise(name):
         state, per_rank = workflow.init_run(g, 4, pcfg, data, "cpu")
         draws = workflow.make_draws(g, pcfg, 4, per_rank.shape[1])
         outs[fuse], metrics = workflow.make_epoch_fn(2, 2, pcfg)(
-            state, per_rank, draws)
+            state, per_rank, draws, 0)
         assert metrics["residuals"].shape == (4, p.n_params)
     for a, b in zip(tree_leaves(outs[False]["gen"]),
                     tree_leaves(outs[True]["gen"])):
