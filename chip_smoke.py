@@ -247,8 +247,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      times in every worker, no plain call; the gap to `train_stacked`'s
      10 epochs printed;
  35. the paper's workflow: `PAPER` (`rma_arar_arar`, h 1000) as 8 worker
-     processes, 2 x 4, 200 epochs, once lock-step and once free-running
-     with rank r sleeping r x 1 ms an epoch: phase 22's bars on the
+     processes, 2 x 4, 200 epochs lock-step and 50 free-running with
+     rank r sleeping r x 1 ms an epoch (phase 43 runs such a free run
+     again, at depth 2): phase 22's bars on the
      history (every state leaf finite, the ensemble in (0, 1), the last
      d_loss (mean over ranks) below the first and its minimum below
      1.42), B1 once an epoch in every worker with its backward and no
@@ -269,8 +270,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      and 34-35 check the same at fp32);
  37. the bf16 payload on the proc runtime: phase 34's bitwise runs at
      bf16 (the deposit 101,632 B, half of fp32's, read off the ring's
-     window from rank 0 to rank 1) and phase 35's lock-step run at bf16, its epoch p50
-     a rank beside phase 35's fp32 one;
+     window from rank 0 to rank 1) and phase 35's lock-step run at bf16
+     for 50 epochs (phase 41 trains bf16 lock-step workers for 200), its
+     epoch p50 a rank beside phase 35's fp32 one;
  38. the chunked ring (`SyncConfig(ring_chunking=N)`: the fused payload
      crosses as ceil(bytes / N) segments, one `torch.roll` each), stacked:
      `PAPER` at R 8 at 65,536 B (4 segments) for 200 epochs in both ring
@@ -278,8 +280,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      beside phase 22's, the generator's gap to phase 22's printed; the
      first 10 epochs of each mode bitwise an unchunked run from the same
      seed; imaging_blur at 524,288 B (3 segments) with phase 26's bars
-     and counts; `PAPER` at bf16 and 65,536 B (2 segments) with phase
-     22's bars, beside phase 36's bf16 p50;
+     and counts; `PAPER` at bf16 and 65,536 B (2 segments) for 50 epochs
+     (phase 42 trains that payload for 200) with phase 22's bars, beside
+     phase 36's bf16 p50;
  39. the chunked ring on the proc runtime: phase 34's bitwise runs at
      65,536 B (4 mmap windows a deposit, counted off the run directory),
      each bitwise `lockstep_reference` and phase 34's unchunked state;
@@ -312,7 +315,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
      with phase 35's bars read on the discriminator's epochs, the
      workers' B1 counts as phase 40 counts them, epoch p50 a rank by the
      halves that ran, start-up; a free run of 50 epochs with phase 35's
-     lag, which must end finite.
+     lag, which must end finite;
+ 42. the depth-k RMA mailbox (`staleness` k: epoch e reads its ring
+     predecessor's deposit of epoch e - k from slot e % k of an [R, k,
+     ...] mailbox, zeros before epoch k), stacked: `PAPER` at k 2 (the
+     JAX `depth_k` row) for 200 epochs with phase 22's bars and counts,
+     its mailbox [8, 2, ...], epoch p50 beside phase 22's;
+     `throughput(PAPER)` at k 2 and 65,536 B (bf16, chunked, disc_every
+     2 and depth together) with phase 40's bars and counts; imaging_blur
+     at k 2 with phase 26's bars and counts (B1 on u [512, 32], B3 on
+     [512, 32, 32] and as its backward); 8 epochs of the exchange at k 3,
+     h 2, 2 x 4 ranks, at fp32 and bf16, whole and at 65,536 B, on
+     gradients drawn on the card: outputs and sync state bitwise the
+     CPU's exchange of the card's gradients, each read the deposit of
+     e - k, every rank off the outer ring's synced gradient its own plus
+     that read; the exchange alone at depth 1 and 3 in turns;
+ 43. the depth-k mailbox on the proc runtime: `PAPER` at k 3, h 2 as 8
+     workers, 10 lock-step epochs bitwise `lockstep_reference` (the [8,
+     3, ...] mailbox included; the wire is the depth-1 one); a free run
+     of 50 epochs at k 2 with phase 35's lag, which must end finite,
+     epoch p50 a rank.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -321,8 +343,9 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35, 37, 39 and 41
-count their own launches and report them (the kernels line adds them).  The last lines are the `kernels` JSON line, the card's
+read just after it; the worker processes of phases 34-35, 37, 39, 41 and
+43 count their own launches and report them (the kernels line adds
+them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -422,10 +445,18 @@ PROC_TIMEOUT_S = 600            # a proc run, spawn to result
 RING_CHUNK = 65_536             # phases 38-39: PAPER's 50,816 scalars in 4
 IMAGE_RING_CHUNK = 524_288      # ... the conv generator's 290,448 in 3
 CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
-PROC_FREE_EPOCHS = 50           # free runs whose bar is "finite" (39, 41)
+PROC_FREE_EPOCHS = 50           # free runs (35, 39, 41, 43)
+CUT_EPOCHS = 50                 # paths a later phase drives again for
+                                # GAN_EPOCHS: 37's lock-step run (41's),
+                                # 38's bf16 chunked run (42's)
 CADENCE = (2, 3)                # phases 40-41: disc_every, gen_every (the
 #                                 JAX package's fp32_cadence row)
 CADENCE_PROFILED = 4            # phase 40's profiled epochs
+STALENESS = 2                   # phases 42-43: the RMA mailbox's depth k
+                                # (JAX's `depth_k` row), and for the
+STALENESS_BITWISE = 3           # ... exchange on the card and 8 workers
+DEPTH_EXCHANGE_EPOCHS = 8       # phase 42: the exchange card vs CPU
+EXCHANGE_CALLS = 200            # phase 42: exchanges a timed turn
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -2084,31 +2115,42 @@ def preset_name(wcfg):
     if (wcfg.disc_every, wcfg.gen_every) != (1, 1):
         name += (f" at disc_every {wcfg.disc_every}, gen_every "
                  f"{wcfg.gen_every}")
+    if wcfg.sync.staleness > 1:
+        name += f", staleness {wcfg.sync.staleness}"
     return name
 
 
 def check_dtypes(label, state, wcfg):
     """Fails unless the master state (gen, disc and their Adam states) is
-    fp32 (int32 steps) and the mailbox's masked leaves and the flat outer
-    mailbox are in the payload's dtype, its biases fp32."""
+    fp32 (int32 steps), the mailbox's masked leaves and the flat outer
+    mailbox are in the payload's dtype, its biases fp32, and every mailbox
+    leaf is its generator leaf's shape with the depth axis [R, k, ...]
+    where `staleness` k > 1."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core.sync import payload_dtype_of
     from repro_torch.core.tree import tree_leaves, tree_paths
     wire = payload_dtype_of(wcfg.sync.payload_precision)
-    bad = [f"{top}/{k} {t.dtype}" for top in ("gen", "gen_opt", "disc",
-                                              "disc_opt")
-           for k, t in tree_paths(state[top])
+    k = wcfg.sync.staleness
+    bad = [f"{top}/{key} {t.dtype}" for top in ("gen", "gen_opt", "disc",
+                                                "disc_opt")
+           for key, t in tree_paths(state[top])
            if t.dtype not in (torch.float32, torch.int32)]
     mb = state["sync"]["mailbox"]
-    bad += [f"sync/mailbox/{k} {t.dtype}" for m, (k, t) in zip(
+    bad += [f"sync/mailbox/{key} {t.dtype}" for m, (key, t) in zip(
         tree_leaves(gan.weight_mask(mb)), tree_paths(mb))
         if t.dtype != (wire if m else torch.float32)]
     if state["sync"]["outer_mailbox"].dtype != wire:
         bad.append(f"sync/outer_mailbox {state['sync']['outer_mailbox'].dtype}")
+    for (key, t), g in zip(tree_paths(mb), tree_leaves(state["gen"])):
+        want = tuple(g.shape[:1]) + ((k,) if k > 1 else ()) + \
+            tuple(g.shape[1:])
+        if tuple(t.shape) != want:
+            bad.append(f"sync/mailbox/{key} {tuple(t.shape)}, not {want}")
     if bad:
-        fail(f"{label}: leaves of the wrong dtype {bad[:6]} (master state "
-             f"fp32, the mailbox's weights and the outer mailbox {wire})")
+        fail(f"{label}: leaves of the wrong dtype or shape {bad[:6]} (master "
+             f"state fp32, the mailbox's weights and the outer mailbox "
+             f"{wire}, the mailbox at depth {k})")
 
 
 def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
@@ -2296,7 +2338,7 @@ def proc_phases(dev, all_counts, stacked_p50):
     """Phases 34-35: the paper's GAN as R 8 worker processes on the card
     (`runtime.launch.run_proc`, 2 x 4): lock-step runs bitwise their
     per-rank reference, then PAPER for GAN_EPOCHS epochs lock-step and
-    free-running with phase 22's bars.  `stacked_p50` is phase 22's epoch
+    PROC_FREE_EPOCHS free-running, with phase 22's bars.  `stacked_p50` is phase 22's epoch
     p50 by mode.  Returns each kernel's launches in the workers over the
     counted runs, the lock-step run's epoch p50 by rank (ms) and the
     bitwise runs' final states on the CPU by mode."""
@@ -2317,12 +2359,12 @@ def proc_phases(dev, all_counts, stacked_p50):
             data, all_counts)
         add_launches(launches, counts)
 
-    # -- 35. the paper's workflow: 200 epochs, lock-step and free-running ---
+    # -- 35. the paper's workflow: lock-step and free-running ---------------
     p50 = {}
     for label, kw in (
             ("lock-step", {}),
             (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
-             {"lockstep": False,
+             {"lockstep": False, "n_epochs": PROC_FREE_EPOCHS,
               "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
         counts, p50[label] = proc_workflow("35", label, dev, PAPER, data,
                                            all_counts,
@@ -2338,7 +2380,7 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     ms, final generator on the CPU, final ensemble mean|r̂|)); imaging_blur
     with phase 26's bars and counts beside its fp32 p50; one epoch card
     vs CPU.  37: the proc runtime, lock-step bitwise its reference in
-    both modes and PAPER for GAN_EPOCHS epochs with phase 35's bars,
+    both modes and PAPER for CUT_EPOCHS epochs with phase 35's bars,
     beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
     kernel's launches over the counted runs and phase 36's PAPER epoch
     p50 (ms) by mode."""
@@ -2407,7 +2449,8 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
                                  data, all_counts)
         add_launches(launches, counts)
     counts, p50 = proc_workflow("37", "lock-step", dev, bf16(PAPER), data,
-                                all_counts, fp32[PAPER.sync.mode][0])
+                                all_counts, fp32[PAPER.sync.mode][0],
+                                n_epochs=CUT_EPOCHS)
     add_launches(launches, counts)
     print(f"[37] PAPER {PAPER.sync.mode} bf16 payload, lock-step: epoch p50 "
           f"a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
@@ -2425,7 +2468,8 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     generator on the CPU, final mean|r̂|)), CHUNK_BITWISE_EPOCHS epochs of
     each bitwise an unchunked run; imaging_blur at IMAGE_RING_CHUNK with
     phase 26's bars and counts beside its p50 (`imaging_blur_p50`); PAPER
-    at bf16 and RING_CHUNK beside phase 36's (`bf16_p50` by mode).  39:
+    at bf16 and RING_CHUNK for CUT_EPOCHS beside phase 36's (`bf16_p50`
+    by mode).  39:
     the proc runtime, phase 34's bitwise runs chunked, bitwise their
     reference and phase 34's states (`proc_states` by mode);
     imaging_blur as 8 workers, bitwise its reference, then GAN_EPOCHS
@@ -2516,7 +2560,8 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     got, p50, _ = train_and_check(
         "38", f"GAN PAPER rma_arar_arar bf16 payload, ring_chunking "
         f"{RING_CHUNK:,} B ({nseg} segments)", dev, wcfg, data, all_counts,
-        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+        gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_healthy,
+        n_epochs=CUT_EPOCHS)
     if nseg != 2:
         fail(f"[38] bf16 at {RING_CHUNK} B: {nseg} segments, expected 2")
     launches["inverse_cdf"] += got["inverse_cdf"][0]
@@ -2592,9 +2637,10 @@ def flags_text(by_flags):
 
 
 def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
-                    d_bar):
-    """Train `wcfg` at R 8 (GAN_OUTER x GAN_INNER) for GAN_EPOCHS epochs
-    after an uncounted 2-epoch warm-up (phases 22 and 26).  Fails unless
+                    d_bar, n_epochs=None):
+    """Train `wcfg` at R 8 (GAN_OUTER x GAN_INNER) for `n_epochs` (None:
+    GAN_EPOCHS) epochs after an uncounted 2-epoch warm-up (phases 22 and
+    26).  Fails unless
     each kernel's (launches, plain calls, backward launches, backward
     plain calls) over the counted run equal `expect`, every state leaf is
     finite, the ensemble lies in (0, 1), every recorded d_loss is finite
@@ -2615,6 +2661,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     from repro_torch.core.tree import tree_map, tree_paths
 
     R = GAN_OUTER * GAN_INNER
+    n_epochs = n_epochs or GAN_EPOCHS
     K, E = wcfg.n_param_samples, wcfg.events_per_sample
     prob = wcfg.problem_obj
     noise = torch.randn((64, gan.NOISE_DIM), generator=torch.Generator(
@@ -2634,7 +2681,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     for cnt in all_counts.values():
         cnt.reset()                    # --- the counted main-path run ---
     state, hist = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
-                                  GAN_EPOCHS, data,
+                                  n_epochs, data,
                                   checkpoint_every=GAN_EVERY, device=dev,
                                   on_epoch=on_epoch)
     events[-1].synchronize()
@@ -2648,8 +2695,8 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
            if not bool(torch.isfinite(t.float()).all())]
     p_hat, _ = ensemble_response(state["gen"], noise)
     d, d_epochs = disc_due_losses(f"training {label}", wcfg, [
-        e for e in range(GAN_EPOCHS)
-        if e % GAN_EVERY == 0 or e == GAN_EPOCHS - 1], hist)
+        e for e in range(n_epochs)
+        if e % GAN_EVERY == 0 or e == n_epochs - 1], hist)
     ok, bar = d_bar(d) if np.isfinite(d).all() else (False, "")
     if bad or not (0 < float(p_hat.min()) and float(p_hat.max()) < 1) \
             or not ok:
@@ -2661,7 +2708,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     steps = np.array([a.elapsed_time(b)
                       for a, b in zip(events[:-1], events[1:])])
     p50 = float(np.percentile(steps, 50))
-    by_flags = p50_by_flags(wcfg, range(1, GAN_EPOCHS), steps)
+    by_flags = p50_by_flags(wcfg, range(1, n_epochs), steps)
     last_batch = next(r for r in reversed(hist["residuals"])
                       if not bool(r.isnan().all()))
     cadenced = (wcfg.disc_every, wcfg.gen_every) != (1, 1)
@@ -2670,7 +2717,7 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     print(f"[{tag}] {label}: {R} ranks ({GAN_OUTER} x {GAN_INNER}), {K} x "
           f"{E} events a rank an epoch, {gan.param_count(state['gen']) // R:,}"
           f" generator parameters a rank, h {wcfg.sync.h}, lr gen "
-          f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {wcfg.sync.mode}, {GAN_EPOCHS} "
+          f"{wcfg.gen_lr} disc {wcfg.disc_lr}, {wcfg.sync.mode}, {n_epochs} "
           f"epochs from seed {SEED}, fp32 compute (TF32 off), "
           f"{wcfg.sync.payload_precision} ring payload; kernel launches: "
           f"{runs}; no plain call")
@@ -3077,6 +3124,195 @@ def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
           f"{np.median(lock):.3f}) beside PAPER's every-epoch fp32 "
           f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (phase 35, "
           f"same run); phase 41 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def depth_exchange(dev):
+    """Phase 42's exchange on the card: DEPTH_EXCHANGE_EPOCHS epochs of
+    `StaticSchedule.exchange` at staleness STALENESS_BITWISE, 2 x 4 ranks,
+    h 2, at fp32 and bf16, whole and at RING_CHUNK, on gradients drawn on
+    the card.  Fails unless the outputs and the SyncState are bitwise the
+    same exchange run on the CPU from the card's gradients, and each
+    epoch e reads the deposit of e - k: the slot e % k held before it is
+    zero for e < k, else epoch e - k's gradient ring-shifted in the
+    payload's dtype, and the synced gradient of every rank off the outer
+    ring is its own plus that read.  Then the exchange alone, depth 1
+    and depth k in turns (1, k, k, 1), EXCHANGE_CALLS calls back to back
+    a turn, CUDA events around each turn."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.sync import payload_dtype_of
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+
+    t0 = time.perf_counter()
+    R, k, n = GAN_OUTER * GAN_INNER, STALENESS_BITWISE, DEPTH_EXCHANGE_EPOCHS
+    comm = VmapComm(GAN_OUTER, GAN_INNER)
+
+    def wcfg_of(prec, chunk, depth):
+        return dataclasses.replace(PAPER, sync=dataclasses.replace(
+            PAPER.sync, h=2, staleness=depth, payload_precision=prec,
+            ring_chunking=chunk))
+    example = W.make_schedule(PAPER).spec.zeros(None, "cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    grads = [tree_map(lambda t: torch.randn((R,) + tuple(t.shape),
+                                            generator=g, device=dev),
+                      example) for _ in range(n)]
+    off_outer = [r for r in range(R) if r % GAN_INNER]   # inner index != 0
+
+    def ring(x):                # the inner ring's shift of a [R, ...] leaf
+        return x.reshape(GAN_OUTER, GAN_INNER, *x.shape[1:]).roll(
+            1, 1).reshape(x.shape)
+    for prec in ("fp32", "bf16"):
+        wire = payload_dtype_of(prec)
+        for chunk in (0, RING_CHUNK):
+            sched = W.make_schedule(wcfg_of(prec, chunk, k))
+            runs = []               # the card's, then the CPU's
+            for d in (dev, torch.device("cpu")):
+                st, outs = sched.init_state(R, d), []
+                for e in range(n):
+                    synced, new = sched.exchange(
+                        comm, tree_map(lambda t: t.to(d), grads[e]), st,
+                        torch.tensor(e, dtype=torch.int32, device=d))
+                    outs.append(tree_map(lambda t: t.cpu(),
+                                         (st["mailbox"], synced, new)))
+                    st = new
+                runs.append(outs)
+            label = (f"[42] the exchange at staleness {k}, {prec} payload, "
+                     f"ring_chunking {chunk:,} B")
+            for e, (card, cpu) in enumerate(zip(*runs)):
+                diff = [key for (key, a), b in zip(
+                    tree_paths(card[1:]), tree_leaves(cpu[1:]))
+                    if a.dtype != b.dtype or not torch.equal(a, b)]
+                if diff:
+                    fail(f"{label}, epoch {e}: the card's outputs or sync "
+                         f"state differ from the CPU's exchange of the "
+                         f"card's gradients in {diff[:6]}")
+                before, synced, _ = card
+                for i, (layer, gl, sl) in enumerate(zip(
+                        before, grads[e], synced)):
+                    read = layer["w"][:, e % k]
+                    want = (torch.zeros_like(read) if e < k else
+                            ring(grads[e - k][i]["w"].cpu()).to(wire))
+                    mine = (gl["w"].cpu().to(wire) + read).float()
+                    if not torch.equal(read, want) or not torch.equal(
+                            sl["w"][off_outer], mine[off_outer]):
+                        fail(f"{label}, epoch {e}, layer {i}: the read is "
+                             f"not epoch {e - k}'s deposit (zeros before "
+                             f"epoch {k}), or the synced gradient off the "
+                             f"outer ring is not the rank's own plus it")
+            print(f"{label}: {n} epochs on 2 x 4 ranks at h 2 bitwise the "
+                  f"CPU's exchange of the card's gradients (outputs, the "
+                  f"[{R}, {k}, ...] mailbox in {wire}, the outer mailbox); "
+                  f"each epoch e read slot e % {k}: zeros before epoch {k}, "
+                  f"then epoch e - {k}'s ring-shifted gradient; every rank "
+                  f"off the outer ring's synced gradient its own plus that "
+                  f"read")
+    # the exchange alone, depth 1 and depth k in turns
+    ms = {}
+    epoch = torch.zeros((), dtype=torch.int32, device=dev)
+    for depth in (1, k, k, 1):
+        sched = W.make_schedule(wcfg_of("fp32", 0, depth))
+        st = sched.init_state(R, dev)
+        for _ in range(20):
+            _, st = sched.exchange(comm, grads[0], st, epoch)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for i in range(EXCHANGE_CALLS):
+            _, st = sched.exchange(comm, grads[i % n], st, epoch + i)
+        b.record()
+        b.synchronize()
+        ms.setdefault(depth, []).append(a.elapsed_time(b) / EXCHANGE_CALLS)
+    print(f"[42] the exchange alone, PAPER (2 x 4, fp32 payload, h 2), in "
+          f"turns 1, {k}, {k}, 1 of {EXCHANGE_CALLS} calls back to back "
+          f"(CUDA events): depth 1 {', '.join(f'{v:.4f}' for v in ms[1])} "
+          f"ms a call, depth {k} {', '.join(f'{v:.4f}' for v in ms[k])} ms "
+          f"a call; {time.perf_counter() - t0:.1f} s")
+    return ms
+
+
+def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+    """Phases 42-43: the depth-k RMA mailbox (`staleness`) on the card.
+    42: PAPER at STALENESS in `rma_arar_arar` (R 8, h 1000) with phase 22's
+    bars and counts, its mailbox [8, k, ...], beside phase 22's p50
+    (`fp32`: mode -> (p50 ms, ...)); `throughput(PAPER)` at STALENESS and
+    RING_CHUNK (bf16, chunked, disc_every 2 and depth together) with
+    phase 40's bars; imaging_blur at STALENESS with phase 26's bars
+    beside its p50 (`imaging_blur_p50`); the exchange card vs CPU and
+    timed (`depth_exchange`).  43: the proc runtime, PAPER at
+    STALENESS_BITWISE h 2 bitwise `lockstep_reference`, and a free run of
+    PROC_FREE_EPOCHS at STALENESS with phase 35's lag (finite) beside
+    phase 35's epoch p50 a rank (`proc_p50`).  Returns each kernel's
+    launches over the counted runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, for_problem, throughput
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    def deep(wcfg, k=STALENESS, **sync):
+        return dataclasses.replace(wcfg, sync=dataclasses.replace(
+            wcfg.sync, staleness=k, **sync))
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    R, K, E = GAN_OUTER * GAN_INNER, PAPER.n_param_samples, \
+        PAPER.events_per_sample
+    t0 = time.perf_counter()
+
+    # -- 42. stacked ----------------------------------------------------------
+    for label, wcfg in (
+            (f"PAPER at staleness {STALENESS}", deep(PAPER)),
+            (f"throughput(PAPER) at staleness {STALENESS}, ring_chunking "
+             f"{RING_CHUNK:,} B", deep(throughput(PAPER),
+                                      ring_chunking=RING_CHUNK))):
+        got, p50, final = train_and_check(
+            "42", f"GAN {label}", dev, wcfg, data, all_counts,
+            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+        add_launches(launches, got)
+        p50_22 = fp32[wcfg.sync.mode][0]
+        print(f"[42] GAN {label}: epoch p50 {p50:.3f} ms, mean "
+              f"{final['mean']:.3f} ms ({R * K * E / final['mean'] * 1e3:,.0f}"
+              f" events/s), beside phase 22's depth-1 {wcfg.sync.mode} p50 "
+              f"{p50_22:.3f} ms in the same run ({p50 / p50_22:.3f}x)")
+    name = "imaging_blur"
+    wcfg = deep(for_problem(name, PAPER))
+    blur_data = get_problem(name).make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    got, p50, _ = train_and_check(
+        "42", f"{name} for_problem(PAPER) at staleness {STALENESS}", dev,
+        wcfg, blur_data, all_counts,
+        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+    add_launches(launches, got)
+    print(f"[42] {name} at staleness {STALENESS}: epoch p50 {p50:.3f} ms "
+          f"beside phase 26's depth-1 p50 {imaging_blur_p50:.3f} ms in the "
+          f"same run")
+    del blur_data
+    depth_exchange(dev)
+    print(f"[42] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 43. the proc runtime ------------------------------------------------
+    t0 = time.perf_counter()
+    counts, _ = proc_bitwise("43", dev, deep(PAPER, STALENESS_BITWISE, h=2),
+                             data, all_counts)
+    add_launches(launches, counts)
+    counts, p50 = proc_workflow(
+        "43", f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
+        dev, deep(PAPER), data, all_counts, fp32[PAPER.sync.mode][0],
+        d_bar=lambda d: (True, "finite"), n_epochs=PROC_FREE_EPOCHS,
+        lockstep=False, jitter=JitterConfig(seed=SEED,
+                                            rank_lag_ms=PROC_LAG_MS))
+    add_launches(launches, counts)
+    print(f"[43] PAPER at staleness {STALENESS} as 8 free-running workers: "
+          f"epoch p50 a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
+          f"{np.median(p50):.3f}) beside phase 35's lock-step depth-1 "
+          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (same run); "
+          f"phase 43 {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3755,6 +3991,13 @@ def main():
         launches[k] = launches.get(k, 0) + v
 
     clock("40-41")
+    # -- 42-43. the depth-k RMA mailbox, stacked and as worker processes ----
+    n = depth_phases(dev, all_counts, gan_fp32, problem_p50["imaging_blur"],
+                     proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("42-43")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

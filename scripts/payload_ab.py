@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Time the GAN epoch and its exchange in two variants of the ring payload
 in turns, on one card: fp32 against bf16 (`--lane payload`, the default),
-or the fp32 payload unchunked against chunked (`--lane chunked`).
+the fp32 payload unchunked against chunked (`--lane chunked`), or the RMA
+mailbox at depth 1 against depth k (`--lane depth`, `--staleness K`,
+default 2).
 
     PYTHONPATH=src python scripts/payload_ab.py [--problem imaging_blur]
     PYTHONPATH=src python scripts/payload_ab.py --lane chunked \
         [--problem imaging_blur] [--ring-chunking BYTES]
+    PYTHONPATH=src python scripts/payload_ab.py --lane depth [--staleness 3]
     PYTHONPATH=src python scripts/payload_ab.py --device cpu --epochs 4
 
 Each turn trains `PAPER` (or `for_problem(name, PAPER)`) stacked at R 8 as
@@ -38,8 +41,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problem", default="proxy1d")
     ap.add_argument("--epochs", type=int, default=200)
-    ap.add_argument("--lane", choices=("payload", "chunked"),
+    ap.add_argument("--lane", choices=("payload", "chunked", "depth"),
                     default="payload")
+    ap.add_argument("--staleness", type=int, default=2,
+                    help="the depth lane's RMA mailbox depth k")
     ap.add_argument("--ring-chunking", type=int, default=None,
                     help="the chunked lane's segment size in bytes")
     ap.add_argument("--turns", default=None,
@@ -79,17 +84,23 @@ def main(argv=None) -> int:
     problem = get_problem(args.problem)
     chunk = args.ring_chunking or (524_288 if problem.param_shape
                                    else 65_536)
-    variants = ({"fp32": ("fp32", 0), "bf16": ("bf16", 0)}
-                if args.lane == "payload" else
-                {"unchunked": ("fp32", 0), "chunked": ("fp32", chunk)})
+    # variant -> (payload precision, ring chunking, mailbox depth)
+    variants = {
+        "payload": {"fp32": ("fp32", 0, 1), "bf16": ("bf16", 0, 1)},
+        "chunked": {"unchunked": ("fp32", 0, 1),
+                    "chunked": ("fp32", chunk, 1)},
+        "depth": {"depth1": ("fp32", 0, 1),
+                  f"depth{args.staleness}": ("fp32", 0, args.staleness)},
+    }[args.lane]
     a, b = variants
     turns = (args.turns or f"{a},{b},{b},{a}").split(",")
 
     def wcfg_of(variant):
-        prec, ring_chunking = variants[variant]
+        prec, ring_chunking, depth = variants[variant]
         base = for_problem(args.problem, PAPER)
         return dataclasses.replace(base, sync=dataclasses.replace(
-            base.sync, payload_precision=prec, ring_chunking=ring_chunking))
+            base.sync, payload_precision=prec, ring_chunking=ring_chunking,
+            staleness=depth))
 
     data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), 50_000, device=dev)
@@ -103,8 +114,9 @@ def main(argv=None) -> int:
         name = "cpu (host clock: not the card's numbers)"
     print(f"{args.problem} for_problem(PAPER), R 8 as 2 x 4, rma_arar_arar, "
           f"{args.epochs} epochs a turn, lane {args.lane}: "
-          + ", ".join(f"{v} = {p} payload, ring_chunking {c}"
-                      for v, (p, c) in variants.items())
+          + ", ".join(f"{v} = {p} payload, ring_chunking {c}, "
+                      f"staleness {k}"
+                      for v, (p, c, k) in variants.items())
           + f", on {name}", flush=True)
     epochs = {}
     for variant in turns:

@@ -12,17 +12,18 @@ of `runtime.proccomm.ProcComm`.
     allreduce       full mean reduce  no        no           mean
     conv_arar       global ring       no        no           sum
     arar_arar       inner ring        no        every h      sum
-    rma_arar_arar   inner ring        depth 1   every h      sum
+    rma_arar_arar   inner ring        depth k   every h      sum
     dbtree          log2(R) stages    no        no           mean
 
-`mailbox` is the RMA window: what the ring predecessor deposited last
-epoch; reading it never waits on the producer.  Per §V-C only weight
-gradients ride the ring (`mask` from `gan.weight_mask`; unmasked leaves
-skip the exchange).  With `fuse_tensors` (the default) the ring modes
-concatenate the masked leaves into one flat [R, D] payload, laid out by a
-`FusionSpec` in `jax.tree.leaves` order, so the offsets, and the flat
-`outer_mailbox` a checkpoint holds, are the JAX package's.  Fused and
-unfused runs are bitwise equal: the ring modes only roll and add.
+`mailbox` is the RMA window: what the ring predecessor deposited
+`staleness` epochs ago; reading it never waits on the producer.  Per
+§V-C only weight gradients ride the ring (`mask` from `gan.weight_mask`;
+unmasked leaves skip the exchange).  With `fuse_tensors` (the default)
+the ring modes concatenate the masked leaves into one flat [R, D]
+payload, laid out by a `FusionSpec` in `jax.tree.leaves` order, so the
+offsets, and the flat `outer_mailbox` a checkpoint holds, are the JAX
+package's.  Fused and unfused runs are bitwise equal: the ring modes only
+roll and add.
 
 The outer ring's predicate (`epoch % h == 0`, inner index 0) stays on the
 device, so an epoch reads nothing back to the host.
@@ -50,9 +51,20 @@ segments are joined before the unpack, so mailboxes and checkpoints do
 not depend on chunking, and a chunked exchange is bitwise the unchunked
 one (the ring modes only roll and add elementwise).
 
+Depth-k mailbox (`SyncConfig.staleness`, rma_arar_arar only; the JAX
+package's lines 67–75 and 519–583): a circular buffer of k slots, a depth
+axis after the rank axis of every mailbox leaf ([R, k, ...]; k = 1 keeps
+the flat layout).  At epoch e a rank reads slot e % k, its predecessor's
+deposit of epoch e - k (zeros for the first k epochs), exchanges it as at
+depth 1 (fused, chunked, bf16 alike) and deposits this epoch's fresh
+payload into the same slot, out of place.  The slot index is computed on
+the device from the epoch counter (`index_select`, `index_copy`), so the
+exchange reads nothing back at any depth.  Only the fresh payload crosses
+the ring: a `ProcComm` worker's depth-k buffer is its local state.
+
 Not ported yet, each raising `NotImplementedError` from `SyncConfig`
-(ROADMAP.md queue A item 3): the depth-k mailbox (`staleness > 1`), the
-overlapped pod boundary (`overlap`) and adaptive staleness (`adaptive`).
+(ROADMAP.md queue A item 3): the overlapped pod boundary (`overlap`) and
+adaptive staleness (`adaptive`).
 """
 from __future__ import annotations
 
@@ -162,8 +174,6 @@ class SyncConfig:
                 f"crosses the ring; mode={self.mode!r} has no ring payload "
                 f"(ring modes: {RING_MODES})")
         # ... then what is valid there but not ported yet
-        if self.staleness > 1:
-            _later("the depth-k RMA mailbox (staleness > 1)")
         if self.overlap:
             _later("the overlapped pod-boundary exchange (overlap=True)")
         if self.adaptive:
@@ -297,10 +307,17 @@ def _masked(mask, synced, local):
     return tree_map(lambda m, s, l: s if m else l, mask, synced, local)
 
 
-def init_mailbox(grads_like):
-    """Zero RMA mailbox shaped like `grads_like` (depth 1; the depth-k
-    circular buffer is ROADMAP.md queue A item 3)."""
-    return tree_map(torch.zeros_like, grads_like)
+def init_mailbox(grads_like, staleness: int = 1, stacked: bool = False):
+    """Zero RMA mailbox shaped like `grads_like`.  `staleness` k > 1 adds a
+    circular-buffer depth axis of size k to every leaf, at position 1 when
+    the tree is rank-stacked ([R, k, ...]), else leading ([k, ...]); k = 1
+    keeps the flat layout (no depth axis)."""
+    if staleness <= 1:
+        return tree_map(torch.zeros_like, grads_like)
+    axis = 1 if stacked else 0
+    return tree_map(
+        lambda x: torch.zeros(x.shape[:axis] + (staleness,) + x.shape[axis:],
+                              dtype=x.dtype, device=x.device), grads_like)
 
 
 def _outer_exchange(comm: Comm, g, epoch, h, combine):
@@ -322,7 +339,24 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
     only the overlap schedule, queue A item 3, writes it).
 
     `spec` is the cached FusionSpec of the fused path; when omitted it is
-    rebuilt from `grads`/`mask`."""
+    rebuilt from `grads`/`mask`.  At `staleness` k > 1 (rma_arar_arar)
+    `mailbox` is the [R, k, ...] circular buffer (`init_mailbox`): the
+    exchange runs on slot `epoch % k` and its deposit is written back
+    into that slot; the mailbox's unmasked leaves never ride the ring and
+    are returned as they came."""
+    depth = cfg.staleness if cfg.mode == "rma_arar_arar" else 1
+    if depth > 1:
+        full = mailbox
+        # slot epoch % k as a [1] index on the device: a device counter
+        # stays there, nothing is read back
+        slot = (torch.as_tensor(epoch, device=tree_leaves(grads)[0].device)
+                % depth).reshape(1).to(torch.int64)
+        rides = [True] * len(tree_leaves(full)) if mask is None \
+            else [bool(m) for m in tree_leaves(mask)]
+        # an unmasked slot is never read: a view of slot 0 stands in
+        mailbox = tree_unflatten(full, [
+            x.index_select(1, slot).squeeze(1) if r else x[:, 0]
+            for r, x in zip(rides, tree_leaves(full))])
     fuse = cfg.fuse_tensors and mask is not None and cfg.mode in RING_MODES
     if fuse and spec is None:
         example = tree_map(lambda x: x[0], grads)
@@ -347,6 +381,13 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
     else:
         synced, new_mailbox = _sync_core(comm, cfg, grads, mailbox, epoch,
                                          mask)
+    if depth > 1:
+        # this epoch's deposit into the slot it was read from, out of
+        # place: the previous state may still be held elsewhere
+        new_mailbox = tree_unflatten(full, [
+            f.index_copy(1, slot, n.unsqueeze(1).to(f.dtype)) if r else f
+            for r, f, n in zip(rides, tree_leaves(full),
+                               tree_leaves(new_mailbox))])
     if outer_mailbox is None:
         return synced, new_mailbox
     return synced, new_mailbox, outer_mailbox
@@ -420,11 +461,13 @@ class SyncSchedule:
 
 
 class StaticSchedule(SyncSchedule):
-    """The synchronous schedule at depth 1: exactly `sync_gradients`.
+    """The synchronous schedule, at any RMA depth: exactly
+    `sync_gradients`.
 
-    SyncState = {"mailbox": <grads-shaped tree>, "outer_mailbox": <flat
-    [R, D] payload>}, the JAX package's layout (the outer mailbox stays
-    zero until the overlap schedule of queue A item 3 writes it).  The
+    SyncState = {"mailbox": <grads-shaped tree, [R, k, ...] at staleness
+    k > 1>, "outer_mailbox": <flat [R, D] payload>}, the JAX package's
+    layout (the outer mailbox stays zero until the overlap schedule of
+    queue A item 3 writes it).  The
     mailbox's masked leaves are stored in the payload dtype, what the
     ring deposits; unmasked leaves never ride it and keep their own."""
 
@@ -434,7 +477,8 @@ class StaticSchedule(SyncSchedule):
             example = tree_map(
                 lambda m, x: x.to(self.spec.payload_dtype) if m else x,
                 self.mask, example)
-        return {"mailbox": init_mailbox(example),
+        return {"mailbox": init_mailbox(example, self.cfg.staleness,
+                                        stacked=n_ranks is not None),
                 "outer_mailbox": self.spec.zero_payload(n_ranks, device)}
 
     def exchange(self, comm: Comm, grads, sync_state, epoch):

@@ -56,11 +56,19 @@ on both backends and with every --problem:
     PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
         --ranks 4 --epochs 12 --disc-every 2 --gen-every 3
 
+`--staleness K` (`--mode rma_arar_arar` only, as in the JAX example)
+makes the RMA mailbox K deep: each epoch reads the deposit made K
+epochs before.  It works on both backends, with every --problem, payload
+and cadence:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
+        --mode rma_arar_arar --staleness 3 --ranks 4 --epochs 12
+
 The progress lines show the mean over ranks of the last epoch's losses,
 or of the report interval's finite ones where the last epoch skipped
 that half.  The exchange schedules other than `sync` (--sync-schedule,
---staleness, --max-staleness, the metrics and trace sinks) are
-ROADMAP.md queue A item 3: they raise.  The run
+--max-staleness, the metrics and trace sinks) are ROADMAP.md queue A
+item 3: they raise.  The run
 ends with the ensemble against the truth, the serving-path solve
 (`core.workflow.make_solver`) on the reference events, and the kernels'
 launches and plain calls.
@@ -198,9 +206,10 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--staleness", type=int, default=1,
+                    help="RMA mailbox depth k (rma_arar_arar only)")
     # the JAX example's flags that are not ported yet: they raise
     ap.add_argument("--sync-schedule", default="sync")
-    ap.add_argument("--staleness", type=int, default=1)
     ap.add_argument("--max-staleness", type=int, default=None)
     ap.add_argument("--payload-precision", choices=PAYLOAD_PRECISIONS,
                     default="fp32",
@@ -230,7 +239,6 @@ def main(argv=None):
 
     later = [f for f, on in (
         ("--sync-schedule", args.sync_schedule != "sync"),
-        ("--staleness", args.staleness != 1),
         ("--max-staleness", args.max_staleness is not None),
         ("--metrics-out", args.metrics_out), ("--trace-dir", args.trace_dir),
         ("--profile-dir", args.profile_dir),
@@ -244,7 +252,7 @@ def main(argv=None):
     sync = dataclasses.replace(
         base.sync, fuse_tensors=not args.no_fuse,
         payload_precision=args.payload_precision,
-        ring_chunking=args.ring_chunking,
+        ring_chunking=args.ring_chunking, staleness=args.staleness,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
     wcfg = dataclasses.replace(base, sync=sync, problem=args.problem,
@@ -270,8 +278,8 @@ def main(argv=None):
     spec = workflow.make_schedule(wcfg).spec
     print(f"problem={args.problem} ({problem.n_params} params -> "
           f"{problem.obs_dim} observables) mode={wcfg.sync.mode} "
-          f"h={wcfg.sync.h} schedule=sync payload="
-          f"{wcfg.sync.payload_precision} ring_chunking="
+          f"h={wcfg.sync.h} schedule=sync staleness={wcfg.sync.staleness} "
+          f"payload={wcfg.sync.payload_precision} ring_chunking="
           f"{wcfg.sync.ring_chunking} ({spec.n_segments} segments) "
           f"ranks={n_outer}x{n_inner} "
           f"samples={wcfg.n_param_samples}x{wcfg.events_per_sample} "

@@ -23,8 +23,9 @@ full fp32; under the update cadences, B1 on each epoch where a half runs
 and backward on the generator's).  Flash attention is held at head dim
 80 on both routes, and at GQA group 3 (granite-moe-3b-a800m's).  The
 MoE layer on the card is held against the CPU with capacity drops, and
-is bitwise repeatable in bf16.  The exchange with the bf16 ring payload
-is bitwise the CPU's on the same gradients.  The proc runtime's 2 worker processes on the card
+is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
+and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
+bitwise the CPU's on the same gradients.  The proc runtime's 2 worker processes on the card
 are bitwise their per-rank reference, with B1 on its kernel in both.
 """
 import numpy as np
@@ -942,6 +943,68 @@ def test_gan_cadence_trains_on_b1_as_due_counts_says(sm90_card):
     for key, i in (("d_loss", 0), ("g_loss", 1)):
         ran = torch.tensor([W.due(wcfg, e)[i] for e in range(6)])
         assert torch.equal(hist[key].isnan().all(1).cpu(), ~ran), key
+
+
+def test_depth_k_exchange_and_training_on_the_card(sm90_card):
+    """`staleness` k > 1: (1) the depth-3 exchange (2 x 4 ranks, h 2, 8
+    epochs, at fp32 and bf16, whole and at 65,536 B) on the card is
+    bitwise the CPU's on the same gradients, outputs and SyncState, the
+    read of epoch e the deposit of e - 3; (2) `PAPER` at smoke size and
+    k 2 trains with B1 at `due_counts`, no plain call, and a finite
+    [R, 2, ...] state."""
+    import dataclasses
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    rng = np.random.default_rng(5)
+    widths = gan.gen_widths()
+    grads = [[{"w": rng.standard_normal((8, a, b)).astype(np.float32),
+               "b": rng.standard_normal((8, b)).astype(np.float32)}
+              for a, b in zip(widths[:-1], widths[1:])] for _ in range(8)]
+    for prec in ("fp32", "bf16"):
+        for chunk in (0, 65_536):
+            wcfg = W.WorkflowConfig(sync=sync.SyncConfig(
+                mode="rma_arar_arar", h=2, staleness=3,
+                payload_precision=prec, ring_chunking=chunk))
+            out = {}
+            for dev in ("cpu", sm90_card):
+                sched = W.make_schedule(wcfg)
+                st, runs = sched.init_state(8, dev), []
+                for e, g in enumerate(grads):
+                    synced, st = sched.exchange(
+                        VmapComm(2, 4), tree_map(lambda a: torch.from_numpy(
+                            a).to(dev), g), st,
+                        torch.tensor(e, dtype=torch.int32, device=dev))
+                    runs.append(tree_map(lambda t: t.cpu(), (synced, st)))
+                out[str(dev)] = runs
+            for e, (got, want) in enumerate(zip(out[str(sm90_card)],
+                                                out["cpu"])):
+                for (k, a), b in zip(tree_paths(got), tree_leaves(want)):
+                    assert a.dtype == b.dtype and torch.equal(a, b), \
+                        (prec, chunk, e, k)
+                # slot e % 3 holds epoch e's deposit: the ring-shifted
+                # gradient, in the payload's dtype
+                dep = got[1]["mailbox"][0]["w"][:, e % 3]
+                ring = torch.from_numpy(grads[e][0]["w"]).reshape(
+                    2, 4, *dep.shape[1:]).roll(1, 1).reshape(dep.shape)
+                assert torch.equal(dep, ring.to(dep.dtype)), (prec, e)
+    wcfg = dataclasses.replace(
+        PAPER, n_param_samples=16, events_per_sample=8,
+        sync=dataclasses.replace(PAPER.sync, staleness=2))
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator().manual_seed(99), 2_000, device=sm90_card)
+    counts.reset()
+    state, hist = W.train_stacked(0, wcfg, 2, 2, 5, data, device=sm90_card)
+    torch.cuda.synchronize()
+    n_half, n_gen = W.due_counts(wcfg, 5)
+    assert (counts.launches, counts.plain_calls, counts.backward_plain) == \
+        (n_half, 0, n_gen) == (5, 0, 5)
+    assert state["sync"]["mailbox"][0]["w"].shape[:2] == (4, 2)
+    for k, t in tree_paths(state):
+        assert t.device.type == "cuda" and bool(
+            torch.isfinite(t.float()).all()), k
+    assert bool(torch.isfinite(hist["d_loss"]).all())
 
 
 @pytest.mark.parametrize("name", ["proxy2d", "linear_blur", "imaging",

@@ -100,9 +100,10 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def jax_draws(rng, jcfg, n_sub, noise_channels=2):
+def jax_draws(rng, jcfg, n_sub, noise_channels=2, to_port=True):
     """One epoch's draws for every rank, replaying the reference's key
-    splits under its `jax.vmap`: (new rng [R, 2], port draws)."""
+    splits under its `jax.vmap`: (new rng [R, 2], port draws), or with
+    `to_port=False` JAX's draws alone (traceable: `jax.jit` takes it)."""
     K, E = jcfg.n_param_samples, jcfg.events_per_sample
 
     def one(key):
@@ -113,6 +114,8 @@ def jax_draws(rng, jcfg, n_sub, noise_channels=2):
         u = jax.random.uniform(k2, (K, E, noise_channels))
         return new, idx, noise, u
     new, idx, noise, u = jax.vmap(one)(rng)
+    if not to_port:
+        return {"noise": noise, "u": u, "idx": idx}
     return new, {"noise": _t(noise), "u": _t(u),
                  "idx": _t(idx).to(torch.int64)}
 
@@ -408,9 +411,10 @@ def test_sync_config_errors_match_jax(kw):
     ids=["staleness", "overlap", "adaptive", "chunking"])
 def test_schedule_features_raise_with_their_item(kw):
     """The features of queue A item 3 still to port raise with the item;
-    the chunked ring (3b) is ported and takes the JAX config as is."""
+    the chunked ring (3b) and the depth-k mailbox (3d) are ported and take
+    the JAX config as is."""
     want = JS.SyncConfig(**kw)          # valid in the JAX package
-    if "ring_chunking" in kw:
+    if "ring_chunking" in kw or "staleness" in kw:
         assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
             dataclasses.asdict(want)
         return
@@ -677,7 +681,7 @@ def test_train_gan_cli_on_the_cpu(capsys):
             "backward passes") in out
     assert "serving-path solve" in out
     for argv, item in ((["--sync-schedule", "overlap"], "item 3"),
-                       (["--staleness", "2"], "item 3")):
+                       (["--sync-schedule", "adaptive"], "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             train_gan.main(["--device", "cpu"] + argv)
 
