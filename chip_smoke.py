@@ -247,9 +247,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      times in every worker, no plain call; the gap to `train_stacked`'s
      10 epochs printed;
  35. the paper's workflow: `PAPER` (`rma_arar_arar`, h 1000) as 8 worker
-     processes, 2 x 4, 200 epochs lock-step and 50 free-running with
-     rank r sleeping r x 1 ms an epoch (phase 43 runs such a free run
-     again, at depth 2): phase 22's bars on the
+     processes, 2 x 4, 50 epochs lock-step (phase 41 runs 200) and 50
+     free-running with rank r sleeping r x 1 ms an epoch (phase 43 runs
+     such a free run again, at depth 2): phase 22's bars on the
      history (every state leaf finite, the ensemble in (0, 1), the last
      d_loss (mean over ranks) below the first and its minimum below
      1.42), B1 once an epoch in every worker with its backward and no
@@ -319,8 +319,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  42. the depth-k RMA mailbox (`staleness` k: epoch e reads its ring
      predecessor's deposit of epoch e - k from slot e % k of an [R, k,
      ...] mailbox, zeros before epoch k), stacked: `PAPER` at k 2 (the
-     JAX `depth_k` row) for 200 epochs with phase 22's bars and counts,
-     its mailbox [8, 2, ...], epoch p50 beside phase 22's;
+     JAX `depth_k` row) for 50 epochs (phase 44 trains it for 200) with
+     phase 22's bars and counts, its mailbox [8, 2, ...], epoch p50
+     beside phase 22's;
      `throughput(PAPER)` at k 2 and 65,536 B (bf16, chunked, disc_every
      2 and depth together) with phase 40's bars and counts; imaging_blur
      at k 2 with phase 26's bars and counts (B1 on u [512, 32], B3 on
@@ -334,7 +335,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
      workers, 10 lock-step epochs bitwise `lockstep_reference` (the [8,
      3, ...] mailbox included; the wire is the depth-1 one); a free run
      of 50 epochs at k 2 with phase 35's lag, which must end finite,
-     epoch p50 a rank.
+     epoch p50 a rank;
+ 44. the telemetry (`ObsConfig`), stacked: `PAPER` at k 2 with metrics
+     and a metrics file for 200 epochs in chunks of 20, with phase 22's
+     bars and counts: 1 header (schedule `sync`, payload_bytes 203,264)
+     and 10 rows, each k_eff 2 and exchange_count its epoch, epoch p50
+     beside phase 22's; 20 epochs with metrics on and off from one seed,
+     every leaf outside "obs" bitwise; 20 epochs at disc_every 2,
+     gen_every 3, exchange_count the generator's 7 epochs; imaging_blur
+     for 20 epochs with a metrics file (payload_bytes 1,161,792), B1 and
+     B3 at `due_counts`; 10 epochs under `profile_dir`, whose Chrome
+     trace holds one device event of B1's `icdf_kernel` a launch after
+     the profiler's first epoch (where it has dropped events);
+ 45. the telemetry as 8 workers with `trace_dir`: `PAPER` free-running
+     (phase 35's lag) for 50 epochs and lock-step for 20, each summary's
+     obs entry (an exchange an epoch of 203,264 B), the 8 rank traces
+     merged (`obs.trace.merge_traces`), and each rank's epochs after the
+     first broken down by span (`obs.trace.epoch_breakdown`:
+     compute.grads, exchange and the waits inside it, compute.apply,
+     jitter.sleep), epoch p50 a rank beside phase 35's untraced one.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -343,8 +362,8 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35, 37, 39, 41 and
-43 count their own launches and report them (the kernels line adds
+read just after it; the worker processes of phases 34-35, 37, 39, 41, 43
+and 45 count their own launches and report them (the kernels line adds
 them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
@@ -447,8 +466,9 @@ IMAGE_RING_CHUNK = 524_288      # ... the conv generator's 290,448 in 3
 CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
 PROC_FREE_EPOCHS = 50           # free runs (35, 39, 41, 43)
 CUT_EPOCHS = 50                 # paths a later phase drives again for
-                                # GAN_EPOCHS: 37's lock-step run (41's),
-                                # 38's bf16 chunked run (42's)
+                                # GAN_EPOCHS: 35's and 37's lock-step runs
+                                # (41's), 38's bf16 chunked run (42's),
+                                # 42's PAPER at staleness 2 (44's)
 CADENCE = (2, 3)                # phases 40-41: disc_every, gen_every (the
 #                                 JAX package's fp32_cadence row)
 CADENCE_PROFILED = 4            # phase 40's profiled epochs
@@ -457,6 +477,8 @@ STALENESS = 2                   # phases 42-43: the RMA mailbox's depth k
 STALENESS_BITWISE = 3           # ... exchange on the card and 8 workers
 DEPTH_EXCHANGE_EPOCHS = 8       # phase 42: the exchange card vs CPU
 EXCHANGE_CALLS = 200            # phase 42: exchanges a timed turn
+OBS_EPOCHS = 20                 # phases 44-45: the shorter obs runs
+OBS_PROFILED = 10               # phase 44's epochs under profile_dir
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -2337,11 +2359,12 @@ def add_launches(launches, counts):
 def proc_phases(dev, all_counts, stacked_p50):
     """Phases 34-35: the paper's GAN as R 8 worker processes on the card
     (`runtime.launch.run_proc`, 2 x 4): lock-step runs bitwise their
-    per-rank reference, then PAPER for GAN_EPOCHS epochs lock-step and
-    PROC_FREE_EPOCHS free-running, with phase 22's bars.  `stacked_p50` is phase 22's epoch
-    p50 by mode.  Returns each kernel's launches in the workers over the
-    counted runs, the lock-step run's epoch p50 by rank (ms) and the
-    bitwise runs' final states on the CPU by mode."""
+    per-rank reference, then PAPER for CUT_EPOCHS epochs lock-step and
+    PROC_FREE_EPOCHS free-running, with phase 22's bars.  `stacked_p50` is
+    phase 22's epoch p50 by mode.  Returns each kernel's launches in the
+    workers over the counted runs, the lock-step run's epoch p50 by rank
+    (ms), the bitwise runs' final states on the CPU by mode and the free
+    run's epoch p50 by rank (ms)."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER
@@ -2362,15 +2385,16 @@ def proc_phases(dev, all_counts, stacked_p50):
     # -- 35. the paper's workflow: lock-step and free-running ---------------
     p50 = {}
     for label, kw in (
-            ("lock-step", {}),
-            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
-             {"lockstep": False, "n_epochs": PROC_FREE_EPOCHS,
-              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
-        counts, p50[label] = proc_workflow("35", label, dev, PAPER, data,
-                                           all_counts,
-                                           stacked_p50[PAPER.sync.mode], **kw)
+            ("lock-step", {"n_epochs": CUT_EPOCHS}),
+            ("free", {"lockstep": False, "n_epochs": PROC_FREE_EPOCHS,
+                      "jitter": JitterConfig(seed=SEED,
+                                             rank_lag_ms=PROC_LAG_MS)})):
+        counts, p50[label] = proc_workflow(
+            "35", "lock-step" if label == "lock-step" else
+            f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
+            dev, PAPER, data, all_counts, stacked_p50[PAPER.sync.mode], **kw)
         add_launches(launches, counts)
-    return launches, p50["lock-step"], states
+    return launches, p50["lock-step"], states, p50["free"]
 
 
 def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
@@ -3246,7 +3270,8 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     STALENESS_BITWISE h 2 bitwise `lockstep_reference`, and a free run of
     PROC_FREE_EPOCHS at STALENESS with phase 35's lag (finite) beside
     phase 35's epoch p50 a rank (`proc_p50`).  Returns each kernel's
-    launches over the counted runs."""
+    launches over the counted runs and the epoch p50 (ms) of PAPER at
+    STALENESS."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, for_problem, throughput
@@ -3265,15 +3290,17 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     t0 = time.perf_counter()
 
     # -- 42. stacked ----------------------------------------------------------
-    for label, wcfg in (
-            (f"PAPER at staleness {STALENESS}", deep(PAPER)),
+    p50s = []
+    for label, wcfg, n in (
+            (f"PAPER at staleness {STALENESS}", deep(PAPER), CUT_EPOCHS),
             (f"throughput(PAPER) at staleness {STALENESS}, ring_chunking "
              f"{RING_CHUNK:,} B", deep(throughput(PAPER),
-                                      ring_chunking=RING_CHUNK))):
+                                      ring_chunking=RING_CHUNK), GAN_EPOCHS)):
         got, p50, final = train_and_check(
             "42", f"GAN {label}", dev, wcfg, data, all_counts,
-            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+            gan_expect(wcfg, n, all_counts), gan_healthy, n_epochs=n)
         add_launches(launches, got)
+        p50s.append(p50)
         p50_22 = fp32[wcfg.sync.mode][0]
         print(f"[42] GAN {label}: epoch p50 {p50:.3f} ms, mean "
               f"{final['mean']:.3f} ms ({R * K * E / final['mean'] * 1e3:,.0f}"
@@ -3313,6 +3340,259 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
           f"{np.median(p50):.3f}) beside phase 35's lock-step depth-1 "
           f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (same run); "
           f"phase 43 {time.perf_counter() - t0:.1f} s")
+    return launches, p50s[0]
+
+
+def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
+    """Phases 44-45: the telemetry (`ObsConfig`) on the card.  44, stacked:
+    PAPER at STALENESS with metrics and a metrics file for GAN_EPOCHS in
+    chunks of GAN_EVERY (phase 22's bars and counts; 1 header and a row a
+    chunk, each row k_eff STALENESS and exchange_count its epoch), beside
+    phase 22's p50 (`fp32`: mode -> (p50 ms, ...)) and phase 42's p50 of
+    the same config without metrics (`depth_p50`); OBS_EPOCHS with
+    metrics on and off from one seed, bitwise outside "obs"; OBS_EPOCHS at
+    CADENCE, exchange_count the generator's epochs; imaging_blur with a
+    metrics file (its payload_bytes, B1 and B3 counted); OBS_PROFILED
+    epochs under `profile_dir`, the Chrome trace holding one device event
+    of B1's kernel a launch after the profiler's first epoch.  45, as 8 workers with `trace_dir`: PAPER
+    free-running PROC_FREE_EPOCHS with phase 35's lag and OBS_EPOCHS
+    lock-step, each summary's obs entry, the 8 rank traces merged, and
+    each rank's epoch broken down by span, beside phase 35's p50 a rank
+    (`proc_free_p50`, `proc_p50`).  Returns each kernel's launches over
+    the counted runs."""
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, for_problem
+    from repro_torch.core import workflow as W
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.trace import (EPOCH_PARTS, epoch_breakdown,
+                                       merge_traces, write_chrome_trace)
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    def metered(wcfg, k=1, **obs):
+        return dataclasses.replace(wcfg, obs=ObsConfig(metrics=True, **obs),
+                                   sync=dataclasses.replace(wcfg.sync,
+                                                            staleness=k))
+
+    def counted(label, wcfg, data, n, **kw):
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        state, hist = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER, n,
+                                      data, device=dev, **kw)
+        torch.cuda.synchronize()
+        got = {k: (c.launches, c.plain_calls, c.backward_launches,
+                   c.backward_plain) for k, c in all_counts.items()}
+        # ------------------------------------------------------------------
+        if got != gan_expect(wcfg, n, all_counts):
+            fail(f"{label}: (launches, plain calls, backward launches, "
+                 f"backward plain calls) {got}; expected "
+                 f"{gan_expect(wcfg, n, all_counts)}")
+        add_launches(launches, got)
+        return state, hist
+
+    def rows_of(path):
+        with open(path) as f:
+            lines = [json.loads(line) for line in f]
+        return lines[0], lines[1:]
+
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    R = GAN_OUTER * GAN_INNER
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    t0 = time.perf_counter()
+    try:
+        # -- 44. stacked ------------------------------------------------------
+        out = os.path.join(tmp, "paper.jsonl")
+        wcfg = metered(PAPER, STALENESS, metrics_out=out)
+        label = f"GAN PAPER at staleness {STALENESS}, metrics on"
+        got, p50, final = train_and_check(
+            "44", label, dev, wcfg, data, all_counts,
+            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+        add_launches(launches, got)
+        header, rows = rows_of(out)
+        want = {"schema": 1, "kind": "header", "problem": "proxy1d",
+                "schedule": "sync", "payload_bytes": 203_264, "n_ranks": R,
+                "n_epochs": GAN_EPOCHS}
+        if header != want or [(r["epoch"], r["k_eff"], r["exchange_count"])
+                              for r in rows] != [
+                (e, STALENESS, e) for e in range(
+                    GAN_EVERY, GAN_EPOCHS + 1, GAN_EVERY)]:
+            fail(f"[44] {label}: the metrics file's header {header} (want "
+                 f"{want}) or rows (epoch, k_eff, exchange_count) "
+                 f"{[(r['epoch'], r['k_eff'], r['exchange_count']) for r in rows]}"
+                 f" are not a row a chunk of {GAN_EVERY}, k_eff "
+                 f"{STALENESS}, an exchange an epoch")
+        p50_22 = fp32[PAPER.sync.mode][0]
+        print(f"[44] {label}: the metrics file holds its header ({header}) "
+              f"and {len(rows)} rows, one a chunk of {GAN_EVERY} epochs, "
+              f"each k_eff {STALENESS} and exchange_count its epoch; epoch "
+              f"p50 {p50:.3f} ms beside, in the same run, phase 42's "
+              f"metrics-off p50 at staleness {STALENESS} {depth_p50:.3f} ms "
+              f"({p50 / depth_p50:.3f}x) and phase 22's at depth 1 "
+              f"{p50_22:.3f} ms ({p50 / p50_22:.3f}x)")
+
+        on = metered(PAPER, STALENESS)
+        states = {}
+        for tag, w in (("on", on), ("off", dataclasses.replace(
+                on, obs=ObsConfig()))):
+            states[tag], _ = counted(f"[44] metrics {tag}", w, data,
+                                     OBS_EPOCHS)
+        on_leaves = dict(tree_paths(states["on"]))
+        diff = [k for k, t in tree_paths(states["off"])
+                if on_leaves[k].dtype != t.dtype
+                or not torch.equal(on_leaves[k], t)]
+        if diff or "obs" in states["off"] or \
+                set(states["on"]) != set(states["off"]) | {"obs"}:
+            fail(f"[44] PAPER at staleness {STALENESS}, {OBS_EPOCHS} "
+                 f"epochs: metrics on differs from off outside 'obs' in "
+                 f"{diff[:6]}, or the state keys are {sorted(states['on'])} "
+                 f"and {sorted(states['off'])}")
+        print(f"[44] PAPER at staleness {STALENESS}, {OBS_EPOCHS} epochs "
+              f"from seed {SEED} with metrics on and off: every leaf outside "
+              f"'obs' bitwise equal; the off run's state has no 'obs'")
+        del states
+
+        w = dataclasses.replace(metered(PAPER), disc_every=CADENCE[0],
+                                gen_every=CADENCE[1])
+        state, _ = counted(f"[44] metrics at {CADENCE}", w, data, OBS_EPOCHS)
+        n_half, n_gen = W.due_counts(w, OBS_EPOCHS)
+        got = state["obs"]["exchange_count"].tolist()
+        if got != [n_gen] * R:
+            fail(f"[44] PAPER at disc_every {CADENCE[0]}, gen_every "
+                 f"{CADENCE[1]}: exchange_count {got}, the generator ran "
+                 f"{n_gen} of {OBS_EPOCHS} epochs")
+        print(f"[44] PAPER at disc_every {CADENCE[0]}, gen_every "
+              f"{CADENCE[1]}, {OBS_EPOCHS} epochs: exchange_count {n_gen} on "
+              f"every rank, the generator's epochs; B1 {n_half} launches "
+              f"(backward {n_gen}) at `due_counts`")
+        del state
+
+        name = "imaging_blur"
+        out = os.path.join(tmp, f"{name}.jsonl")
+        w = metered(for_problem(name, PAPER), metrics_out=out)
+        blur_data = get_problem(name).make_reference_data(
+            torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+            device=dev)
+        counted(f"[44] {name}", w, blur_data, OBS_EPOCHS,
+                checkpoint_every=OBS_EPOCHS)
+        header, rows = rows_of(out)
+        if header["payload_bytes"] != 1_161_792 or header["problem"] != name \
+                or [r["exchange_count"] for r in rows] != [OBS_EPOCHS]:
+            fail(f"[44] {name}: the metrics file's header {header}, rows "
+                 f"{rows}: want payload_bytes 1,161,792 and {OBS_EPOCHS} "
+                 f"exchanges")
+        print(f"[44] {name} for_problem(PAPER), {OBS_EPOCHS} epochs with "
+              f"metrics: header payload_bytes {header['payload_bytes']:,} "
+              f"(ProcComm's deposit), exchange_count {OBS_EPOCHS}; B1 and "
+              f"B3 at `due_counts`")
+        del blur_data
+
+        # the profiler's first epoch is not held to the count: late in the
+        # script it has dropped device events at its start (phase 40, and
+        # here 1 of 10 B1 events once); epoch 0 ends in a synchronize()
+        # and a marker op, and every B1 launch after it must have its
+        # device event after the marker
+        prof_dir = os.path.join(tmp, "profile")
+        w = dataclasses.replace(PAPER, obs=ObsConfig(profile_dir=prof_dir))
+        marker, first = "chip_smoke: epoch 0 done on the card", []
+
+        def on_epoch(e, metrics):
+            if e == 0:
+                torch.cuda.synchronize()
+                first.append(all_counts["inverse_cdf"].launches)
+                with torch.profiler.record_function(marker):
+                    pass
+        counted("[44] profile_dir", w, data, OBS_PROFILED, on_epoch=on_epoch)
+        n = all_counts["inverse_cdf"].launches - first[0]
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        t_mark = [e["ts"] for e in events if e.get("name") == marker]
+        b1 = [e["ts"] for e in kernels if "icdf_kernel" in e.get("name", "")]
+        later = sum(ts > t_mark[0] for ts in b1) if t_mark else -1
+        if not kernels:
+            print(f"[44] profile_dir: the profiler recorded no device "
+                  f"events; B1's device events: not measured")
+        elif later != n:
+            fail(f"[44] profile_dir, {OBS_PROFILED} epochs: the Chrome "
+                 f"trace holds {later} device events of icdf_kernel after "
+                 f"epoch 0 (marker found: {bool(t_mark)}), the wrapper "
+                 f"counted {n} launches there")
+        else:
+            print(f"[44] profile_dir, {OBS_PROFILED} epochs of PAPER: "
+                  f"trace.json holds {len(kernels)} device events; after "
+                  f"epoch 0, {later} of B1's icdf_kernel, one a launch the "
+                  f"wrapper counted ({n}); in epoch 0, {len(b1) - later} of "
+                  f"{first[0]} (the profiler's first epoch)")
+        print(f"[44] phase {time.perf_counter() - t0:.1f} s")
+
+        # -- 45. as 8 worker processes with the tracer -------------------------
+        t0 = time.perf_counter()
+        for label, n, ref, kw in (
+                (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an "
+                 f"epoch", PROC_FREE_EPOCHS, proc_free_p50,
+                 {"lockstep": False, "jitter": JitterConfig(
+                     seed=SEED, rank_lag_ms=PROC_LAG_MS)}),
+                ("lock-step", OBS_EPOCHS, proc_p50, {})):
+            run_dir = os.path.join(tmp, f"proc_{n}")
+            w = metered(PAPER, trace_dir="trace")
+            counts, p50 = proc_workflow(
+                "45", f"{label}, traced", dev, w, data, all_counts,
+                fp32[PAPER.sync.mode][0], d_bar=lambda d: (True, "finite"),
+                n_epochs=n, run_dir=run_dir, **kw)
+            add_launches(launches, counts)
+            summaries = []
+            for r in range(R):
+                with open(os.path.join(run_dir,
+                                       f"summary_rank{r}.json")) as f:
+                    summaries.append(json.load(f)["obs"])
+            paths = sorted(glob.glob(os.path.join(run_dir, "trace",
+                                                  "trace_rank*.jsonl")))
+            bad = [s for s in summaries if s["exchange_count"] != n
+                   or s["payload_bytes"] != 203_264]
+            if bad or len(paths) != R:
+                fail(f"[45] {label}: summaries' obs {bad[:2]} (want {n} "
+                     f"exchanges of 203,264 B), {len(paths)} rank traces")
+            merged = merge_traces(paths)
+            write_chrome_trace(os.path.join(run_dir, "trace",
+                                            "merged_trace.json"), merged)
+            shares = epoch_breakdown(merged["traceEvents"])
+            if sorted(shares) != list(range(R)) or any(
+                    sh["epochs"] != n - 1 for sh in shares.values()):
+                fail(f"[45] {label}: the merged trace's epochs by rank "
+                     f"{ {r: sh['epochs'] for r, sh in shares.items()} }")
+            print(f"[45] PAPER as 8 workers, {label}, {n} epochs, metrics "
+                  f"and trace_dir: every summary's obs {n} exchanges of "
+                  f"203,264 B; {len(paths)} rank traces merged into one "
+                  f"Chrome trace ({len(merged['traceEvents']):,} events)")
+            for r, sh in sorted(shares.items()):
+                print(f"[45] {label}: rank {r}, epochs 1-{n - 1} (epoch 0 "
+                      f"holds the worker's CUDA set-up): epoch span p50 "
+                      f"{1e3 * sh['epoch_p50_s']:.3f} ms, mean "
+                      f"{1e3 * sh['epoch_s'] / (n - 1):.3f} ms; "
+                      + ", ".join(f"{k} {100 * sh[k]:.1f}%" for k in
+                                  EPOCH_PARTS[:2] + ("exchange.wait",)
+                                  + EPOCH_PARTS[2:] + ("other",))
+                      + " (exchange.wait: the wait spans inside the "
+                      "exchange)")
+            print(f"[45] {label}, traced: epoch p50 a rank "
+                  f"{np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
+                  f"{np.median(p50):.3f}) beside phase 35's untraced "
+                  f"{np.min(ref):.3f}-{np.max(ref):.3f} ms (median "
+                  f"{np.median(ref):.3f}; {np.median(p50) / np.median(ref):.3f}"
+                  f"x): the tracer's torch.cuda.synchronize() after the "
+                  f"gradients")
+        print(f"[45] phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3964,7 +4244,7 @@ def main():
 
     clock("29-33")
     # -- 34-35. the GAN as worker processes (B1: the workers' launches) -----
-    n, proc_p50, proc_states = proc_phases(
+    n, proc_p50, proc_states, proc_free_p50 = proc_phases(
         dev, all_counts, {m: v[0] for m, v in gan_fp32.items()})
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
@@ -3992,12 +4272,19 @@ def main():
 
     clock("40-41")
     # -- 42-43. the depth-k RMA mailbox, stacked and as worker processes ----
-    n = depth_phases(dev, all_counts, gan_fp32, problem_p50["imaging_blur"],
-                     proc_p50)
+    n, depth_p50 = depth_phases(dev, all_counts, gan_fp32,
+                                problem_p50["imaging_blur"], proc_p50)
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
 
     clock("42-43")
+    # -- 44-45. the telemetry, stacked and as worker processes -------------
+    n = obs_phases(dev, all_counts, gan_fp32, depth_p50, proc_p50,
+                   proc_free_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("44-45")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

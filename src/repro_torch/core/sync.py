@@ -2,7 +2,8 @@
 
 Counterpart of `repro.core.sync`: the strategy layer (`sync_gradients`,
 `_sync_core`, lines 494–647) and the schedule layer (`SyncSchedule`,
-`StaticSchedule`, `make_schedule`, lines 654–785), over any stacked-first
+`StaticSchedule`, `make_schedule`, lines 654–802, with the metrics
+channel), over any stacked-first
 `ring.Comm`: the simulated ranks of `ring.VmapComm` or one worker process
 of `runtime.proccomm.ProcComm`.
 
@@ -62,6 +63,16 @@ the device from the epoch counter (`index_select`, `index_copy`), so the
 exchange reads nothing back at any depth.  Only the fresh payload crosses
 the ring: a `ProcComm` worker's depth-k buffer is its local state.
 
+Metrics channel (`ObsConfig.metrics`; the JAX package's lines 694–802):
+the schedule owns an obs tree as it owns its SyncState.
+`exchange_with_obs` returns the exchange and one row (k_eff: `staleness`
+in `rma_arar_arar`, else 0; skew, deposit age and the ship flag 0, the
+lock-step facts of the static schedule), and `accumulate_obs` folds it
+into the cumulative tree (gauges overwrite, counts add).  Every leaf is
+made and updated on the device, so an epoch reads nothing back;
+`payload_bytes` is the fused payload in its wire dtype and `name` the
+schedule's name for the metrics file's header.
+
 Not ported yet, each raising `NotImplementedError` from `SyncConfig`
 (ROADMAP.md queue A item 3): the overlapped pod boundary (`overlap`) and
 adaptive staleness (`adaptive`).
@@ -89,6 +100,9 @@ PAYLOAD_PRECISIONS = ("fp32", "bf16")
 GROUPED_MODES = ("arar_arar", "rma_arar_arar")
 
 SCHEDULE_ITEM = "ROADMAP.md queue A item 3 (the schedule layer)"
+
+# dtype of the obs tree's float gauges (the JAX package's CTRL_DTYPE)
+CTRL_DTYPE = torch.float32
 
 
 def payload_dtype_of(precision: str):
@@ -453,11 +467,66 @@ class SyncSchedule:
     def __init__(self, cfg: SyncConfig, mask, spec: FusionSpec):
         self.cfg, self.mask, self.spec = cfg, mask, spec
 
+    @property
+    def name(self) -> str:
+        raise NotImplementedError
+
     def init_state(self, n_ranks: int, device=None):
         raise NotImplementedError
 
     def exchange(self, comm: Comm, grads, sync_state, epoch):
         raise NotImplementedError
+
+    # -- the metrics channel (the JAX package's lines 694-758) ---------------
+    # The schedule owns the obs tree as it owns its SyncState; the loops
+    # call these only when `ObsConfig.metrics` is on, so a run without it
+    # takes the plain `exchange` path and its state has no "obs" key.
+
+    @property
+    def payload_bytes(self) -> int:
+        """Bytes a rank sends on the inner ring each exchange: the fused
+        payload in its wire dtype (what `ProcComm` deposits)."""
+        return self.spec.total * self.spec.payload_dtype.itemsize
+
+    def init_obs_state(self, n_ranks: Optional[int] = None, device=None):
+        """Zero cumulative obs tree (rides as `state["obs"]`): the last
+        exchange's k_eff, skew, deposit age and ship flag, and running
+        ship and exchange counts; leaves [n_ranks] ([] for None)."""
+        lead = () if n_ranks is None else (n_ranks,)
+
+        def zeros(dtype):
+            return torch.zeros(lead, dtype=dtype, device=device)
+        return {
+            "k_eff": zeros(torch.int32),
+            "skew_ema": zeros(CTRL_DTYPE),
+            "deposit_age": zeros(CTRL_DTYPE),
+            "shipped": zeros(torch.int32),
+            "ship_count": zeros(torch.int32),
+            "exchange_count": zeros(torch.int32),
+        }
+
+    @staticmethod
+    def accumulate_obs(obs_state, row):
+        """Fold one exchange's obs row into the cumulative tree, on the
+        device: gauges overwrite, counts add."""
+        return {
+            "k_eff": row["k_eff"],
+            "skew_ema": row["skew_ema"],
+            "deposit_age": row["deposit_age"],
+            "shipped": row["shipped"],
+            "ship_count": obs_state["ship_count"] + row["shipped"],
+            "exchange_count": obs_state["exchange_count"] + 1,
+        }
+
+    def obs_row(self, comm: Comm, sync_state, epoch):
+        """One exchange's obs row (k_eff, skew_ema, deposit_age, shipped),
+        leaves in the sync state's rank layout."""
+        raise NotImplementedError
+
+    def exchange_with_obs(self, comm: Comm, grads, sync_state, epoch):
+        """`exchange` plus its obs row: `(synced, new_state, row)`."""
+        synced, new_state = self.exchange(comm, grads, sync_state, epoch)
+        return synced, new_state, self.obs_row(comm, new_state, epoch)
 
 
 class StaticSchedule(SyncSchedule):
@@ -470,6 +539,10 @@ class StaticSchedule(SyncSchedule):
     queue A item 3 writes it).  The
     mailbox's masked leaves are stored in the payload dtype, what the
     ring deposits; unmasked leaves never ride it and keep their own."""
+
+    @property
+    def name(self) -> str:
+        return "sync"
 
     def init_state(self, n_ranks: int, device=None):
         example = self.spec.zeros(n_ranks, device)
@@ -486,6 +559,20 @@ class StaticSchedule(SyncSchedule):
             comm, self.cfg, grads, sync_state["mailbox"], epoch, self.mask,
             spec=self.spec, outer_mailbox=sync_state["outer_mailbox"])
         return synced, {"mailbox": new_mb, "outer_mailbox": new_omb}
+
+    def obs_row(self, comm: Comm, sync_state, epoch):
+        # static facts restated as data, made on the device: a depth-k RMA
+        # read is `staleness` epochs old, the lock-step exchange has no
+        # skew, and nothing ships ahead of the outer ring (overlap)
+        omb = sync_state["outer_mailbox"]
+        lead, dev = omb.shape[:-1], omb.device
+        k = self.cfg.staleness if self.cfg.mode == "rma_arar_arar" else 0
+        return {
+            "k_eff": torch.full(lead, k, dtype=torch.int32, device=dev),
+            "skew_ema": torch.zeros(lead, dtype=CTRL_DTYPE, device=dev),
+            "deposit_age": torch.zeros(lead, dtype=CTRL_DTYPE, device=dev),
+            "shipped": torch.zeros(lead, dtype=torch.int32, device=dev),
+        }
 
 
 def make_schedule(cfg: SyncConfig, mask, spec: FusionSpec) -> SyncSchedule:

@@ -46,12 +46,14 @@ option: it follows the tensors' device (`kernels.inverse_cdf`).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..models import convgen
+from ..obs.config import ObsConfig
 from ..optim import adam
 from . import gan, pipeline, sync as sync_lib
 from .ring import VmapComm
@@ -175,8 +177,10 @@ class WorkflowConfig:
     """The training loop's settings, as `repro.core.workflow.WorkflowConfig`
     (line 66) has them.  There is no `sampler_impl`: the device picks the
     sampler's route.  `disc_every`/`gen_every` are the update cadences
-    (`due`).  The telemetry channel (`obs`) raises: ROADMAP.md queue A
-    item 3."""
+    (`due`).  `obs` is the telemetry (`ObsConfig`): the default is inert,
+    and with `metrics` on the schedule's obs tree rides the state as
+    `state["obs"]` (`make_epoch_fn`), flushed and profiled by
+    `train_stacked` and traced by the proc workers."""
     sync: sync_lib.SyncConfig = sync_lib.SyncConfig()
     n_param_samples: int = pipeline.PARAM_SAMPLES       # Tab. III
     events_per_sample: int = pipeline.EVENTS_PER_SAMPLE
@@ -187,7 +191,7 @@ class WorkflowConfig:
     disc_every: int = 1
     gen_every: int = 1
     disc_compute: str = "fp32"     # discriminator forward: 'fp32' | 'bf16'
-    obs: bool = False              # the JAX package's metrics channel
+    obs: ObsConfig = ObsConfig()   # metrics tree and its sinks
 
     def __post_init__(self):
         if self.disc_every < 1 or self.gen_every < 1:
@@ -199,10 +203,6 @@ class WorkflowConfig:
             raise ValueError(
                 f"disc_compute must be one of {gan.DISC_COMPUTE}, got "
                 f"{self.disc_compute!r}")
-        if self.obs:
-            raise NotImplementedError(
-                f"the telemetry channel (obs) is not ported yet: "
-                f"{sync_lib.SCHEDULE_ITEM}")
 
     @property
     def disc_batch(self) -> int:
@@ -263,7 +263,8 @@ def init_rank_state(generator: torch.Generator, wcfg: WorkflowConfig,
     """The state of ONE rank (no leading rank axis): generator (the conv
     generator for an image-valued problem) and discriminator
     (Kaiming-normal from `generator`, in that order), their Adam states,
-    the schedule's SyncState and the epoch counter."""
+    the schedule's SyncState and the epoch counter, and with
+    `wcfg.obs.metrics` the schedule's zero obs tree under "obs"."""
     prob = wcfg.problem_obj
     dev = resolve_device(device)
     gen_p = gan.init_generator(generator, n_params=prob.n_params, device=dev,
@@ -271,13 +272,16 @@ def init_rank_state(generator: torch.Generator, wcfg: WorkflowConfig,
     disc_p = gan.init_discriminator(generator, obs_dim=prob.obs_dim,
                                     device=dev)
     schedule = make_schedule(wcfg) if schedule is None else schedule
-    return {
+    state = {
         "gen": gen_p, "disc": disc_p,
         "gen_opt": adam(wcfg.gen_lr).init(gen_p),
         "disc_opt": adam(wcfg.disc_lr).init(disc_p),
         "sync": schedule.init_state(None, dev),
         "epoch": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if wcfg.obs.metrics:
+        state["obs"] = schedule.init_obs_state(None, dev)
+    return state
 
 
 def init_state(generator: torch.Generator, n_ranks: int,
@@ -454,7 +458,9 @@ def make_epoch_fn(n_outer: int, n_inner: int, wcfg: WorkflowConfig):
     metrics)` (the JAX `_epoch_body_vmap`, :428–494).  `e` is the host's
     epoch index, which equals the state's counter: the halves due at `e`
     run (`due`).  The exchange's epoch is the device's own counter, so
-    nothing is read back to the host."""
+    nothing is read back to the host.  With `wcfg.obs.metrics` the obs
+    tree is updated on the generator's epochs only (a generator off-epoch
+    leaves it as it was) and rides the metrics as `metrics["obs"]`."""
     comm = VmapComm(n_outer, n_inner)
     schedule = make_schedule(wcfg)
 
@@ -463,11 +469,20 @@ def make_epoch_fn(n_outer: int, n_inner: int, wcfg: WorkflowConfig):
         new_state, g_grads, metrics = rank_grads(
             state, data_per_rank, draws, wcfg, update_disc, update_gen)
         if not update_gen:
-            return bump_epoch(new_state), metrics
-        synced, new_sync = schedule.exchange(comm, g_grads,
-                                             new_state["sync"],
-                                             new_state["epoch"][0])
-        return rank_apply(new_state, synced, new_sync, wcfg), metrics
+            out = bump_epoch(new_state)
+        elif wcfg.obs.metrics:
+            synced, new_sync, row = schedule.exchange_with_obs(
+                comm, g_grads, new_state["sync"], new_state["epoch"][0])
+            out = rank_apply(new_state, synced, new_sync, wcfg)
+            out["obs"] = schedule.accumulate_obs(new_state["obs"], row)
+        else:
+            synced, new_sync = schedule.exchange(comm, g_grads,
+                                                 new_state["sync"],
+                                                 new_state["epoch"][0])
+            out = rank_apply(new_state, synced, new_sync, wcfg)
+        if wcfg.obs.metrics:
+            metrics = dict(metrics, obs=out["obs"])
+        return out, metrics
     return epoch
 
 
@@ -506,7 +521,15 @@ def train_stacked(seed: int, wcfg: WorkflowConfig, n_outer: int,
     the state's counter, after a resume too, so the update cadences
     (`due`) are decided on the host and stay on their grid.
     `on_epoch(e, metrics)` is called after each epoch's work is
-    enqueued."""
+    enqueued.
+
+    The telemetry sinks (`wcfg.obs`, the JAX `train_vmap`'s :693–733):
+    `metrics_out` gets a header (problem, schedule, payload_bytes,
+    n_ranks, n_epochs) and one `obs.metrics.chunk_row` a chunk, from the
+    chunk's last epoch: one read-back a chunk, none an epoch.
+    `profile_dir` wraps the epoch loop in `torch.profiler.profile` (the
+    CPU, and CUDA on the card) and writes its Chrome trace there as
+    `trace.json`."""
     from ..checkpoint.store import restore_latest, save_checkpoint
     dev = resolve_device(device)
     R = n_outer * n_inner
@@ -528,25 +551,53 @@ def train_stacked(seed: int, wcfg: WorkflowConfig, n_outer: int,
             generator.set_state(restored.pop("rng"))
             state, start = restored, step
 
+    writer = prof = None
+    if wcfg.obs.metrics_out:
+        from ..obs.metrics import MetricsWriter
+        sched = make_schedule(wcfg)
+        writer = MetricsWriter(wcfg.obs.metrics_out, header={
+            "problem": wcfg.problem, "schedule": sched.name,
+            "payload_bytes": sched.payload_bytes, "n_ranks": R,
+            "n_epochs": n_epochs})
+    if wcfg.obs.profile_dir:
+        os.makedirs(wcfg.obs.profile_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
     hist = []
-    for e0, n in chunk_schedule(n_epochs, chunk):
-        done = e0 + n
-        if done <= start:          # chunk fully covered by the checkpoint
-            continue
-        for e in range(max(e0, start), done):
-            state, metrics = epoch(state, data_per_rank,
-                                   make_draws(generator, wcfg, R, n_sub), e)
-            if on_epoch is not None:
-                on_epoch(e, metrics)
-            if (checkpoint_every and e % checkpoint_every == 0) \
-                    or e == n_epochs - 1:
-                hist.append(metrics)
-        if checkpoint_dir and (done == n_epochs or (
-                checkpoint_every and done % checkpoint_every == 0)):
-            save_checkpoint(checkpoint_dir, done,
-                            dict(state, rng=generator.get_state()),
-                            metadata={"epochs": done,
-                                      "problem": wcfg.problem})
+    try:
+        for e0, n in chunk_schedule(n_epochs, chunk):
+            done = e0 + n
+            if done <= start:      # chunk fully covered by the checkpoint
+                continue
+            for e in range(max(e0, start), done):
+                state, metrics = epoch(
+                    state, data_per_rank,
+                    make_draws(generator, wcfg, R, n_sub), e)
+                if on_epoch is not None:
+                    on_epoch(e, metrics)
+                if (checkpoint_every and e % checkpoint_every == 0) \
+                        or e == n_epochs - 1:
+                    hist.append(metrics)
+            if writer is not None:
+                from ..obs.metrics import chunk_row
+                writer.write_row(chunk_row(
+                    done, tree_map(lambda x: x[None], metrics)))
+            if checkpoint_dir and (done == n_epochs or (
+                    checkpoint_every and done % checkpoint_every == 0)):
+                save_checkpoint(checkpoint_dir, done,
+                                dict(state, rng=generator.get_state()),
+                                metadata={"epochs": done,
+                                          "problem": wcfg.problem})
+    finally:
+        if prof is not None:
+            prof.stop()
+            prof.export_chrome_trace(
+                os.path.join(wcfg.obs.profile_dir, "trace.json"))
+        if writer is not None:
+            writer.close()
     history = tree_map(lambda *xs: torch.stack(xs), *hist) if hist else {}
     return state, history
 

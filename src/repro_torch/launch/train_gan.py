@@ -64,11 +64,22 @@ and cadence:
     PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
         --mode rma_arar_arar --staleness 3 --ranks 4 --epochs 12
 
+The telemetry flags work as in the JAX example: `--obs-metrics` carries
+the metrics tree (k_eff, skew, ship and exchange counts) in the epoch
+state, `--metrics-out FILE.jsonl` (stacked; implies --obs-metrics)
+writes a header and one row a chunk, `--profile-dir DIR` (stacked)
+writes a `torch.profiler` Chrome trace of the epoch loop, and
+`--trace-dir DIR` (proc) has each worker write its span trace
+`trace_rank<r>.jsonl`, which `python scripts/obsview.py DIR` merges:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --backend proc \
+        --num-procs 2 --device cpu --epochs 12 --jitter-rank-lag-ms 20 \
+        --obs-metrics --trace-dir trace
+
 The progress lines show the mean over ranks of the last epoch's losses,
 or of the report interval's finite ones where the last epoch skipped
 that half.  The exchange schedules other than `sync` (--sync-schedule,
---max-staleness, the metrics and trace sinks) are ROADMAP.md queue A
-item 3: they raise.  The run
+--max-staleness) are ROADMAP.md queue A item 3: they raise.  The run
 ends with the ensemble against the truth, the serving-path solve
 (`core.workflow.make_solver`) on the reference events, and the kernels'
 launches and plain calls.
@@ -77,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -90,6 +102,7 @@ from repro_torch.core.sync import MODES, PAYLOAD_PRECISIONS, SCHEDULE_ITEM
 from repro_torch.kernels import build
 from repro_torch.kernels.imaging import blur_counts, mask_counts
 from repro_torch.kernels.inverse_cdf import counts as icdf_counts
+from repro_torch.obs.config import ObsConfig
 from repro_torch.problems import available, get_problem
 
 
@@ -160,8 +173,12 @@ def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
         n = s["n_epochs"] - s["start_epoch"]
         p50 = (f"epoch p50 {1e3 * np.median(s['history']['epoch_s']):.2f} "
                f"ms" if n else "no new epochs")
+        obs = s.get("obs")
+        obs = (f"; obs: {obs['exchange_count']} exchanges of "
+               f"{obs['payload_bytes']:,} B, {obs['ship_count']} ships, max "
+               f"deposit age {obs['max_deposit_age']:g}" if obs else "")
         print(f"  rank {s['rank']} on {s['device']}: {n} epochs from "
-              f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s")
+              f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s{obs}")
     h = out["history"]
     if len(h["d_loss"]):
         rows = [{k: h[k][i] for k in ("d_loss", "g_loss")}
@@ -171,6 +188,12 @@ def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
               f"ranks; the run's where the last epoch skipped that half); "
               f"{out['wall_s']:.1f} s from spawn to result, start-up "
               f"{out['startup_s']:.1f} s")
+    if wcfg.obs.trace_dir:
+        tdir = wcfg.obs.trace_dir
+        if out["run_dir"] is not None and not os.path.isabs(tdir):
+            tdir = os.path.join(out["run_dir"], tdir)
+        print(f"span traces: {tdir}/trace_rank<r>.jsonl (merge with "
+              f"python scripts/obsview.py {tdir})")
     launches, plain, _, bwd_plain = out["counts"]["inverse_cdf"]
     print(f"inverse-CDF sampler (B1), summed over the workers: {launches} "
           f"kernel launches, {plain} plain calls, {bwd_plain} backward "
@@ -232,17 +255,25 @@ def main(argv=None):
     ap.add_argument("--jitter-noise-ms", type=float, default=0.0,
                     help="proc backend: a seeded uniform [0, NOISE) ms "
                          "sleep an epoch")
-    for flag in ("--metrics-out", "--trace-dir", "--profile-dir"):
-        ap.add_argument(flag, default=None)
-    ap.add_argument("--obs-metrics", action="store_true")
+    ap.add_argument("--obs-metrics", action="store_true",
+                    help="carry the metrics tree (k_eff, skew, ship and "
+                         "exchange counts) through the epoch state; implied "
+                         "by --metrics-out")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE.jsonl",
+                    help="stacked backend: flush chunk-boundary metrics as "
+                         "JSONL (schema-versioned header, one row a chunk)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="proc backend: per-rank host span traces "
+                         "(trace_rank<r>.jsonl; merge with "
+                         "scripts/obsview.py)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="stacked backend: a torch.profiler Chrome trace "
+                         "of the epoch loop (trace.json) in this directory")
     args = ap.parse_args(argv)
 
     later = [f for f, on in (
         ("--sync-schedule", args.sync_schedule != "sync"),
-        ("--max-staleness", args.max_staleness is not None),
-        ("--metrics-out", args.metrics_out), ("--trace-dir", args.trace_dir),
-        ("--profile-dir", args.profile_dir),
-        ("--obs-metrics", args.obs_metrics)) if on]
+        ("--max-staleness", args.max_staleness is not None)) if on]
     if later:
         raise NotImplementedError(f"{', '.join(later)}: not ported yet, "
                                   f"{SCHEDULE_ITEM}")
@@ -255,9 +286,17 @@ def main(argv=None):
         ring_chunking=args.ring_chunking, staleness=args.staleness,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
+    trace_dir = args.trace_dir
+    if trace_dir and not args.checkpoint_dir:
+        # without --checkpoint-dir the run directory is temporary: a
+        # relative trace dir is taken from here instead
+        trace_dir = os.path.abspath(trace_dir)
+    obs = ObsConfig(metrics=args.obs_metrics or bool(args.metrics_out),
+                    metrics_out=args.metrics_out, trace_dir=trace_dir,
+                    profile_dir=args.profile_dir)
     wcfg = dataclasses.replace(base, sync=sync, problem=args.problem,
                                disc_every=args.disc_every,
-                               gen_every=args.gen_every)
+                               gen_every=args.gen_every, obs=obs)
     if args.param_samples is not None:
         wcfg = dataclasses.replace(wcfg, n_param_samples=args.param_samples)
     wcfg = sagips_gan.for_problem(args.problem, wcfg)
@@ -319,6 +358,11 @@ def main(argv=None):
         checkpoint_every=args.ckpt_every if args.checkpoint_dir else 0,
         chunk=chunk, checkpoint_dir=args.checkpoint_dir,
         resume=args.resume, device=dev, on_epoch=on_epoch)
+    if wcfg.obs.metrics_out:
+        print(f"metrics: a header and one row a chunk in "
+              f"{wcfg.obs.metrics_out}")
+    if wcfg.obs.profile_dir:
+        print(f"profile: {os.path.join(wcfg.obs.profile_dir, 'trace.json')}")
     c = icdf_counts
     print(f"inverse-CDF sampler (B1): {c.launches} kernel launches, "
           f"{c.plain_calls} plain calls, {c.backward_plain} backward passes "

@@ -18,6 +18,7 @@ Perfetto/`chrome://tracing` document is concatenation plus metadata.
     one attribute load and one branch.  The mailbox windows, the jitter
     and `ProcComm` record their waits and transfers through it.
 """
+import bisect
 import contextlib
 import json
 import threading
@@ -25,8 +26,8 @@ import time
 from typing import Optional
 
 __all__ = ["Tracer", "current_tracer", "install", "instant", "counter",
-           "load_events", "merge_traces", "span", "uninstall",
-           "write_chrome_trace"]
+           "epoch_breakdown", "load_events", "merge_traces", "span",
+           "uninstall", "write_chrome_trace"]
 
 
 class Tracer:
@@ -185,3 +186,49 @@ def merge_traces(paths):
 def write_chrome_trace(path: str, trace: dict):
     with open(path, "w", encoding="utf-8") as f:
         json.dump(trace, f)
+
+
+# the spans a proc worker's epoch is made of (`runtime.launch`), each a
+# direct child of its `epoch` span
+EPOCH_PARTS = ("compute.grads", "exchange", "compute.apply", "jitter.sleep")
+
+
+def epoch_breakdown(events, skip: int = 1):
+    """Where a proc worker's epochs went, from trace events: per rank,
+    over its epochs after the first `skip` (a worker's first epoch carries
+    its lazy CUDA set-up), {"epochs": n, "epoch_s": their summed `epoch`
+    span seconds, "epoch_p50_s": the median one, and the share of the
+    summed time in each of `EPOCH_PARTS`, in "exchange.wait" (the wait
+    spans nested in the exchange: rendezvous waits and seqlock retries)
+    and in "other" (the epoch outside its parts)}.  A span belongs to the
+    epoch span of its rank that holds its start."""
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X":
+            spans.setdefault(ev.get("pid", 0), []).append(ev)
+    out = {}
+    for rank, evs in spans.items():
+        epochs = sorted((e for e in evs if e["name"] == "epoch"
+                         and e.get("args", {}).get("depth", 0) == 0),
+                        key=lambda e: e["ts"])[skip:]
+        starts = [e["ts"] for e in epochs]
+        r = dict({k: 0.0 for k in EPOCH_PARTS}, **{"exchange.wait": 0.0})
+        for ev in evs:
+            i = bisect.bisect_right(starts, ev["ts"]) - 1
+            if ev["name"] == "epoch" or i < 0 or \
+                    ev["ts"] > starts[i] + epochs[i]["dur"]:
+                continue
+            depth = ev.get("args", {}).get("depth", 0)
+            if ev["name"] in EPOCH_PARTS and depth == 1:
+                r[ev["name"]] += ev["dur"]
+            elif ev.get("cat") == "wait" and depth >= 2:
+                r["exchange.wait"] += ev["dur"]
+        durs = sorted(e["dur"] for e in epochs)
+        total = sum(durs)
+        r["other"] = total - sum(r[k] for k in EPOCH_PARTS)
+        for k in list(r):
+            r[k] /= total or 1.0
+        r.update(epochs=len(epochs), epoch_s=total / 1e6,
+                 epoch_p50_s=(durs[len(durs) // 2] if durs else 0.0) / 1e6)
+        out[rank] = r
+    return out

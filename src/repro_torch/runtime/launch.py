@@ -22,6 +22,18 @@ running this module (`python -m repro_torch.runtime.launch --worker
      summary (history, device, start-up and wall times, peak memory, the
      GAN kernels' counts) for the parent to aggregate.
 
+Telemetry (`wcfg.obs`, the JAX worker's :309–323 and :370–458): with
+`trace_dir` each worker installs an `obs.trace.Tracer` writing
+`trace_rank<r>.jsonl` (a relative dir lands under the run directory),
+and its epoch records the spans `epoch`, `compute.grads`, `exchange` and
+`compute.apply` around the mailbox, jitter and `ProcComm` spans beneath;
+on the card `compute.grads` then ends in a `torch.cuda.synchronize()`,
+so the span covers the compute and not its dispatch.  With `metrics` the
+exchange is `exchange_with_obs`, the state carries the obs tree, the
+history keeps `deposit_age` and `shipped` (the tracer gets the
+`deposit_age` counter) and the summary an "obs" entry (payload_bytes,
+ship_count, exchange_count, max_deposit_age).
+
 The parent stacks the final states into the `[R, ...]` layout and the
 histories into `[T, R, ...]`, so what reads a `train_stacked` result reads
 this one.  `workflow.train_proc` wraps it for the training loop.
@@ -81,8 +93,11 @@ def wcfg_to_dict(wcfg) -> dict:
 def wcfg_from_dict(d: dict):
     from ..core.sync import SyncConfig
     from ..core.workflow import WorkflowConfig
+    from ..obs.config import ObsConfig
     d = dict(d)
-    return WorkflowConfig(sync=SyncConfig(**d.pop("sync")), **d)
+    sync = SyncConfig(**d.pop("sync"))
+    obs = ObsConfig(**d.pop("obs", {}))
+    return WorkflowConfig(sync=sync, obs=obs, **d)
 
 
 def _kernel_counts():
@@ -408,8 +423,13 @@ def lockstep_reference(seed: int, wcfg, n_outer: int, n_inner: int,
                 per = [workflow.bump_epoch(o[0]) for o in outs]
                 continue
             ns, g = stack([o[0] for o in outs]), stack([o[1] for o in outs])
-            synced, new_sync = schedule.exchange(comm, g, ns["sync"],
-                                                 ns["epoch"][0])
+            if wcfg.obs.metrics:
+                synced, new_sync, row = schedule.exchange_with_obs(
+                    comm, g, ns["sync"], ns["epoch"][0])
+                ns["obs"] = schedule.accumulate_obs(ns["obs"], row)
+            else:
+                synced, new_sync = schedule.exchange(comm, g, ns["sync"],
+                                                     ns["epoch"][0])
             per = [workflow.rank_apply(
                 workflow.rank_rows(ns, r), workflow.rank_rows(synced, r),
                 workflow.rank_rows(new_sync, r), wcfg) for r in range(R)]
@@ -430,6 +450,7 @@ def _worker_main(rank: int, run_dir: str) -> int:
     from .. import resolve_device
     from ..checkpoint.store import restore_checkpoint, save_checkpoint
     from ..core import workflow
+    from ..obs import trace as obs_trace
     from .jitter import JitterConfig
     from .mailbox import Barrier
     from .proccomm import ProcComm
@@ -445,6 +466,20 @@ def _worker_main(rank: int, run_dir: str) -> int:
     n_epochs, lockstep = cfg["n_epochs"], cfg["lockstep"]
     jitter = JitterConfig.from_dict(cfg["jitter"])
     timeout = float(cfg["timeout"])
+
+    # the host-side span tracer: every mailbox wait, window read and
+    # write, barrier, jitter sleep and ProcComm exchange from here on
+    # records into trace_rank<rank>.jsonl (merge with scripts/obsview.py);
+    # a relative trace dir lands inside run_dir, beside the summaries
+    tracer = None
+    if wcfg.obs.trace_dir:
+        tdir = wcfg.obs.trace_dir
+        if not os.path.isabs(tdir):
+            tdir = os.path.join(run_dir, tdir)
+        os.makedirs(tdir, exist_ok=True)
+        tracer = obs_trace.Tracer(
+            os.path.join(tdir, f"trace_rank{rank}.jsonl"), rank=rank)
+        obs_trace.install(tracer)
 
     with np.load(os.path.join(run_dir, DATA_FILE)) as z:
         data = torch.from_numpy(z["data"]).to(dev)
@@ -479,30 +514,55 @@ def _worker_main(rank: int, run_dir: str) -> int:
     t_ready = time.time()
     barrier.arrive_and_wait("run start")
     t_start = time.time()
+    obs_on = wcfg.obs.metrics
     hist = {"d_loss": [], "g_loss": [], "epoch_s": [], "residuals": [],
             "pred_params": []}
+    if obs_on:
+        hist["deposit_age"], hist["shipped"] = [], []
+    span = obs_trace.span
     for e in range(start, n_epochs):
-        jitter.apply(rank, e)
-        t0 = time.perf_counter()
-        draws = workflow.rank_rows(
-            workflow.make_draws(generator, wcfg, R, n_sub), rank)
-        disc_due, gen_due = workflow.due(wcfg, e)
-        new_state, g_grads, metrics = workflow.rank_grads(
-            state, data_local, draws, wcfg, disc_due, gen_due)
-        if gen_due:
-            comm.begin_epoch(e)
-            synced, new_sync = schedule.exchange(
-                comm, g_grads, new_state["sync"], new_state["epoch"][0])
-            state = workflow.rank_apply(new_state, synced, new_sync, wcfg)
-        else:               # no exchange and no Adam step: every rank
-            state = workflow.bump_epoch(new_state)    # skips this epoch
-        if cuda:
-            torch.cuda.synchronize(dev)
+        with span("epoch", cat="epoch", epoch=e):
+            jitter.apply(rank, e)
+            t0 = time.perf_counter()
+            disc_due, gen_due = workflow.due(wcfg, e)
+            with span("compute.grads", cat="compute", epoch=e):
+                draws = workflow.rank_rows(
+                    workflow.make_draws(generator, wcfg, R, n_sub), rank)
+                new_state, g_grads, metrics = workflow.rank_grads(
+                    state, data_local, draws, wcfg, disc_due, gen_due)
+                if tracer is not None and cuda:   # the span covers the
+                    torch.cuda.synchronize(dev)   # compute, not its dispatch
+            if gen_due:
+                comm.begin_epoch(e)
+                with span("exchange", cat="wire", epoch=e):
+                    if obs_on:
+                        synced, new_sync, row = schedule.exchange_with_obs(
+                            comm, g_grads, new_state["sync"],
+                            new_state["epoch"][0])
+                    else:
+                        synced, new_sync = schedule.exchange(
+                            comm, g_grads, new_state["sync"],
+                            new_state["epoch"][0])
+                with span("compute.apply", cat="compute", epoch=e):
+                    state = workflow.rank_apply(new_state, synced, new_sync,
+                                                wcfg)
+                if obs_on:
+                    state["obs"] = schedule.accumulate_obs(new_state["obs"],
+                                                           row)
+            else:           # no exchange and no Adam step: every rank
+                state = workflow.bump_epoch(new_state)  # skips this epoch
+            if cuda:
+                torch.cuda.synchronize(dev)
         hist["epoch_s"].append(time.perf_counter() - t0)
         for k in ("d_loss", "g_loss"):
             hist[k].append(float(metrics[k][0]))
         for k in ("residuals", "pred_params"):
             hist[k].append(metrics[k][0].tolist())
+        if obs_on:
+            hist["deposit_age"].append(float(state["obs"]["deposit_age"][0]))
+            hist["shipped"].append(int(state["obs"]["shipped"][0]))
+            if tracer is not None:
+                tracer.counter("deposit_age", hist["deposit_age"][-1])
         if cfg["ckpt_every"] and (e + 1) % cfg["ckpt_every"] == 0:
             save_checkpoint(ckpt_dir, e + 1,
                             dict(state, rng=generator.get_state()),
@@ -524,9 +584,19 @@ def _worker_main(rank: int, run_dir: str) -> int:
                        c.backward_plain] for k, c in counts.items()},
         "history": hist,
     }
+    if obs_on:
+        summary["obs"] = {
+            "payload_bytes": schedule.payload_bytes,
+            "ship_count": int(state["obs"]["ship_count"][0]),
+            "exchange_count": int(state["obs"]["exchange_count"][0]),
+            "max_deposit_age": max(hist["deposit_age"] or [0.0]),
+        }
     with open(os.path.join(run_dir, f"summary_rank{rank}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     barrier.arrive_and_wait("run end")
+    if tracer is not None:
+        obs_trace.uninstall()
+        tracer.close()
     comm.close()
     barrier.close()
     return 0

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

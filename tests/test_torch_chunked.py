@@ -33,6 +33,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

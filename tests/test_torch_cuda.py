@@ -27,10 +27,12 @@ is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
 bitwise the CPU's on the same gradients.  The proc runtime's 2 worker processes on the card
 are bitwise their per-rank reference, with B1 on its kernel in both.
+The metrics channel's obs rows on the card equal the CPU's.
 """
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 from repro_torch.configs.serving import REDUCED
 from repro_torch.core import gan
@@ -1105,3 +1107,48 @@ def test_proc_runtime_on_the_card_is_bitwise_its_reference(sm90_card):
     assert out["counts"]["inverse_cdf"] == (6, 0, 0, 6)
     assert [s["device"] for s in out["summaries"]] == \
         [torch.cuda.get_device_name(0)] * 2
+
+
+def test_obs_rows_on_the_card_equal_the_cpus(sm90_card, tmp_path):
+    """The metrics channel (`ObsConfig(metrics=True, metrics_out=...)`):
+    6 epochs of `PAPER` at smoke size, k 2, disc_every 2, gen_every 3, on
+    the card and on the CPU from one seed: the history's obs tree and the
+    metrics file's header and obs fields are equal, and on the card B1
+    runs at `due_counts`, no plain call."""
+    import dataclasses
+    import json
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import workflow as W
+    from repro_torch.obs import ObsConfig
+    fields = ("epoch", "k_eff", "shipped", "ship_count", "exchange_count",
+              "skew_ema", "deposit_age")
+    hists, rows = {}, {}
+    for dev in ("cpu", sm90_card):
+        out = str(tmp_path / f"{torch.device(dev).type}.jsonl")
+        wcfg = dataclasses.replace(
+            PAPER, n_param_samples=16, events_per_sample=8, disc_every=2,
+            gen_every=3, sync=dataclasses.replace(PAPER.sync, staleness=2),
+            obs=ObsConfig(metrics=True, metrics_out=out))
+        data = get_problem("proxy1d").make_reference_data(
+            torch.Generator().manual_seed(99), 2_000, device=dev)
+        counts.reset()
+        _, hist = W.train_stacked(0, wcfg, 2, 2, 6, data, checkpoint_every=1,
+                                  chunk=2, device=dev)
+        hists[str(dev)] = {k: v.cpu() for k, v in hist["obs"].items()}
+        with open(out) as f:
+            lines = [json.loads(line) for line in f]
+        rows[str(dev)] = [lines[0]] + [{k: r[k] for k in fields}
+                                       for r in lines[1:]]
+    torch.cuda.synchronize()
+    n_half, n_gen = W.due_counts(wcfg, 6)
+    assert (counts.launches, counts.plain_calls, counts.backward_plain) == \
+        (n_half, 0, n_gen) == (4, 0, 2)
+    card, cpu = hists[str(sm90_card)], hists["cpu"]
+    assert list(card) == list(cpu)
+    for k in cpu:
+        assert card[k].dtype == cpu[k].dtype and torch.equal(card[k],
+                                                             cpu[k]), k
+    assert card["exchange_count"][:, 0].tolist() == [1, 1, 1, 2, 2, 2]
+    assert rows[str(sm90_card)] == rows["cpu"]
+    assert rows["cpu"][0]["payload_bytes"] == 203_264 and \
+        [r["k_eff"] for r in rows["cpu"][1:]] == [2, 2, 2]

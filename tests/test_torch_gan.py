@@ -41,6 +41,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp
@@ -423,10 +424,17 @@ def test_schedule_features_raise_with_their_item(kw):
 
 
 def test_workflow_features_raise_with_their_item():
-    """The telemetry channel (3e) still raises with its item; the update
-    cadences (3c) are ported and take the JAX config field for field."""
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        workflow.WorkflowConfig(obs=True)
+    """The telemetry channel (3e) and the update cadences (3c) are ported
+    and take the JAX config field for field."""
+    from repro.obs.config import ObsConfig as JaxObsConfig
+    from repro_torch.obs import ObsConfig
+    for kw in (dict(), dict(metrics=True),
+               dict(metrics=True, metrics_out="m.jsonl", trace_dir="t",
+                    profile_dir="p")):
+        got = workflow.WorkflowConfig(obs=ObsConfig(**kw))
+        want = JW.WorkflowConfig(obs=JaxObsConfig(**kw))
+        assert dataclasses.asdict(got.obs) == dataclasses.asdict(want.obs)
+    assert workflow.WorkflowConfig().obs == ObsConfig()
     for kw in (dict(disc_every=2), dict(gen_every=3),
                dict(disc_every=3, gen_every=2)):
         got, want = workflow.WorkflowConfig(**kw), JW.WorkflowConfig(**kw)

@@ -24,6 +24,7 @@ card by tests/test_torch_cuda.py and `chip_smoke.py`.
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax.numpy as jnp
 
@@ -236,6 +237,61 @@ def test_port_sources_import_nothing_of_jax():
             bad += [f"{path}: {n}" for n in names
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+# the obs layering, the port's form of scripts/repro_lint.py check 9:
+# the epoch's core records into the schedule's obs tree, never through the
+# host-side tracer or counters; the proc runtime and serving never import
+# the metrics flush
+OBS_CORE = ("core/sync.py", "core/workflow.py", "core/ring.py")
+OBS_HOST = ("obs.trace", "obs.counters")      # not in OBS_CORE
+OBS_METRICS = "obs.metrics"                   # not in runtime/, serving/
+
+
+def _obs_imports(tree):
+    """(lineno, dotted path) of every import, relative dots stripped:
+    `from ..obs import trace` -> `obs.trace`."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                yield node.lineno, f"{node.module or ''}.{a.name}".lstrip(".")
+
+
+def obs_layering_problems(sources):
+    """`sources` maps a path under src/repro_torch to its text."""
+    bad = []
+    for rel, src in sources.items():
+        for lineno, path in _obs_imports(ast.parse(src)):
+            if rel in OBS_CORE and any(h in path for h in OBS_HOST):
+                bad.append(f"{rel}:{lineno}: the core imports {path}")
+            if rel.startswith(("runtime/", "serving/")) and \
+                    OBS_METRICS in path:
+                bad.append(f"{rel}:{lineno}: a host backend imports {path}")
+    return bad
+
+
+def test_port_obs_layering():
+    pkg = os.path.dirname(repro_torch.__file__)
+    sources = {}
+    for path in _port_sources()[1:]:
+        with open(path) as f:
+            sources[os.path.relpath(path, pkg).replace(os.sep, "/")] = f.read()
+    assert set(OBS_CORE) <= set(sources)
+    assert obs_layering_problems(sources) == []
+    # the guard sees each rule broken, and lets the right split through
+    assert len(obs_layering_problems({
+        "core/workflow.py": "from ..obs.trace import span\n",
+        "core/sync.py": "from ..obs import counters\n",
+        "runtime/launch.py": "from ..obs.metrics import chunk_row\n",
+        "serving/queue.py": "from ..obs import metrics\n"})) == 4
+    assert obs_layering_problems({
+        "core/workflow.py": "from ..obs.config import ObsConfig\n"
+                            "from ..obs.metrics import MetricsWriter\n",
+        "runtime/mailbox.py": "from ..obs.trace import span as _span\n",
+        "serving/service.py": "from ..obs.counters import Counters\n"}) == []
 
 
 def test_importing_the_port_loads_no_jax():

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_threads import torch_one_thread  # noqa: F401
 
 import jax.numpy as jnp
 
