@@ -279,8 +279,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      modes with phase 22's bars and counts, each epoch p50 and events/s
      beside phase 22's, the generator's gap to phase 22's printed; the
      first 10 epochs of each mode bitwise an unchunked run from the same
-     seed; imaging_blur at 524,288 B (3 segments) with phase 26's bars
-     and counts; `PAPER` at bf16 and 65,536 B (2 segments) for 50 epochs
+     seed; imaging_blur at 524,288 B (3 segments) for 50 epochs (phase
+     46 trains it for 200 with overlap) with phase 26's bars and counts;
+     `PAPER` at bf16 and 65,536 B (2 segments) for 50 epochs
      (phase 42 trains that payload for 200) with phase 22's bars, beside
      phase 36's bf16 p50;
  39. the chunked ring on the proc runtime: phase 34's bitwise runs at
@@ -337,10 +338,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
      of 50 epochs at k 2 with phase 35's lag, which must end finite,
      epoch p50 a rank;
  44. the telemetry (`ObsConfig`), stacked: `PAPER` at k 2 with metrics
-     and a metrics file for 200 epochs in chunks of 20, with phase 22's
-     bars and counts: 1 header (schedule `sync`, payload_bytes 203,264)
-     and 10 rows, each k_eff 2 and exchange_count its epoch, epoch p50
-     beside phase 22's; 20 epochs with metrics on and off from one seed,
+     and a metrics file for 50 epochs in chunks of 20 (phase 46 trains
+     `PAPER` with a metrics file for 200), with phase 22's bars and
+     counts: 1 header (schedule `sync`, payload_bytes 203,264) and 3
+     rows, each k_eff 2 and exchange_count its epoch, epoch p50 beside
+     phase 22's; 20 epochs with metrics on and off from one seed,
      every leaf outside "obs" bitwise; 20 epochs at disc_every 2,
      gen_every 3, exchange_count the generator's 7 epochs; imaging_blur
      for 20 epochs with a metrics file (payload_bytes 1,161,792), B1 and
@@ -353,7 +355,32 @@ Phases, each reported on its own lines; any failure exits non-zero:
      merged (`obs.trace.merge_traces`), and each rank's epochs after the
      first broken down by span (`obs.trace.epoch_breakdown`:
      compute.grads, exchange and the waits inside it, compute.apply,
-     jitter.sleep), epoch p50 a rank beside phase 35's untraced one.
+     jitter.sleep), epoch p50 a rank beside phase 35's untraced one;
+ 46. the overlapped pod boundary (`overlap`: the epoch before a due one
+     ships its inner-synced payload across the pod boundary into the
+     outer mailbox, and the due epoch adds it, one epoch old), stacked:
+     `PAPER` with overlap at h 10 in `arar_arar` and `rma_arar_arar`
+     with metrics and a metrics file, 200 epochs each, with phase 22's
+     bars and counts: the header's schedule `overlap`, a row's
+     ship_count its epoch / 10, the final ship_count 20 and
+     exchange_count 200 on every rank; imaging_blur with overlap at h 10
+     and 524,288 B with phase 26's bars and counts (B3 and its backward
+     an epoch), beside phase 26's p50; 6 epochs of the exchange at h 2,
+     depth 2, 2 x 4 ranks, at fp32 whole and at 65,536 B and at bf16, on
+     gradients drawn on the card: outputs and sync state bitwise the
+     CPU's exchange of the card's gradients, the outer mailbox rewritten
+     on the ship epochs only, by the outer ring's shift of the synced
+     payload; `PAPER` under sync and overlap at h 10 in turns
+     (`scripts/payload_ab.py --lane overlap`, 50 epochs a turn);
+ 47. the overlapped pod boundary as 8 workers: `PAPER` with overlap at
+     h 2 in `rma_arar_arar`, 10 lock-step epochs bitwise
+     `lockstep_reference`, every rank's ship window holding one deposit
+     a ship epoch and no outer-ring window; 50 free-running epochs at h
+     10 with phase 35's lag, traced, under sync and under overlap (which
+     must end finite): each rank's span shares and epoch p50 side by
+     side, the overlap traces' `exchange.ship` spans on the ship epochs
+     only and no `exchange.outer`, the sync traces' `exchange.outer` on
+     every epoch.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -362,8 +389,8 @@ turns.  An earlier checkout's kernel that has no launch-floor entry or
 refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
-read just after it; the worker processes of phases 34-35, 37, 39, 41, 43
-and 45 count their own launches and report them (the kernels line adds
+read just after it; the worker processes of phases 34-35, 37, 39, 41, 43,
+45 and 47 count their own launches and report them (the kernels line adds
 them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
@@ -478,6 +505,11 @@ STALENESS_BITWISE = 3           # ... exchange on the card and 8 workers
 DEPTH_EXCHANGE_EPOCHS = 8       # phase 42: the exchange card vs CPU
 EXCHANGE_CALLS = 200            # phase 42: exchanges a timed turn
 OBS_EPOCHS = 20                 # phases 44-45: the shorter obs runs
+OVERLAP_H = 10                  # phases 46-47: a ship and a due combine
+#                                 every 10 epochs (20 of each in 200)
+OVERLAP_BITWISE_H = 2           # ... the card-vs-CPU exchange, 8 workers
+OVERLAP_EXCHANGE_EPOCHS = 6     # phase 46: the exchange card vs CPU
+OVERLAP_AB_EPOCHS = 25          # phase 46: epochs a turn, sync vs overlap
 OBS_PROFILED = 10               # phase 44's epochs under profile_dir
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
@@ -2139,6 +2171,8 @@ def preset_name(wcfg):
                  f"{wcfg.gen_every}")
     if wcfg.sync.staleness > 1:
         name += f", staleness {wcfg.sync.staleness}"
+    if wcfg.sync.overlap:
+        name += ", overlap"
     return name
 
 
@@ -2208,6 +2242,7 @@ def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
             p.rsplit("w", 1)[1].split(".")[0])) or [os.path.join(
             run_dir, f"mbx_0to1_{channel}.bin")]
         windows = [os.path.getsize(f) - _MBX_HDR.size for f in files]
+        ships = ship_windows(run_dir, wcfg) if wcfg.sync.overlap else None
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     ref = lockstep_reference(SEED, wcfg, GAN_OUTER, GAN_INNER,
@@ -2230,6 +2265,20 @@ def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
         fail(f"{label}: the ring's windows 0 -> 1 hold {windows} B, a "
              f"deposit of {spec.total} scalars in {spec.payload_dtype} is "
              f"{deposit} B in {spec.n_segments} segments")
+    if ships is not None:
+        want = [e for e in range(PROC_BITWISE_EPOCHS)
+                if (e + 1) % wcfg.sync.h == 0]
+        bad = {r: v for r, v in ships["by_rank"].items()
+               if v != (len(want), want[-1], deposit)}
+        if bad or ships["outer_files"]:
+            fail(f"{label}: the ship windows (entries, last tag, bytes) by "
+                 f"rank {bad}, want ({len(want)}, {want[-1]}, {deposit}) "
+                 f"each: a deposit on each ship epoch {want}; outer-ring "
+                 f"windows {ships['outer_files']}, want none")
+        print(f"{label}: every rank's ship window holds {len(want)} entries "
+              f"of {deposit:,} B, one a ship epoch {want} (the last tagged "
+              f"epoch {want[-1]}), and no outer-ring window exists: the pod "
+              f"boundary is crossed on the ship epochs only")
     stacked, _ = W.train_stacked(SEED, wcfg, GAN_OUTER, GAN_INNER,
                                  PROC_BITWISE_EPOCHS, data, device=dev)
     gap = {top: max(float((a - b).abs().max()) for a, b in zip(
@@ -2256,6 +2305,26 @@ def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
     del out, stacked, ref
     torch.cuda.empty_cache()
     return counts, state
+
+
+def ship_windows(run_dir, wcfg):
+    """The overlap schedule's ship windows of a proc run of R 8 workers:
+    each rank's (entries, last tag, bytes) in its window toward its
+    outer-ring successor (`ProcComm`'s "ship" channel, one window
+    unchunked), and the outer-ring windows that exist (none under
+    overlap: the pod boundary is crossed by the ships alone)."""
+    import glob
+    from repro_torch.runtime.mailbox import _MBX_HDR
+    by_rank = {}
+    for r in range(GAN_OUTER * GAN_INNER):
+        succ = ((r // GAN_INNER + 1) % GAN_OUTER) * GAN_INNER + r % GAN_INNER
+        with open(os.path.join(run_dir, f"mbx_{r}to{succ}_ship.bin"),
+                  "rb") as f:
+            wseq, _, tag, nbytes = _MBX_HDR.unpack(f.read(_MBX_HDR.size))
+        by_rank[r] = (wseq, tag, nbytes)
+    outer = glob.glob(os.path.join(run_dir, "mbx_*_outer*.bin"))
+    return {"by_rank": by_rank, "outer_files": sorted(
+        os.path.basename(p) for p in outer)}
 
 
 def gan_healthy(d):
@@ -2490,8 +2559,9 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     PAPER stacked at R 8 in both ring modes at RING_CHUNK with phase 22's
     bars and counts beside phase 22's runs (`fp32`: mode -> (p50 ms, final
     generator on the CPU, final mean|r̂|)), CHUNK_BITWISE_EPOCHS epochs of
-    each bitwise an unchunked run; imaging_blur at IMAGE_RING_CHUNK with
-    phase 26's bars and counts beside its p50 (`imaging_blur_p50`); PAPER
+    each bitwise an unchunked run; imaging_blur at IMAGE_RING_CHUNK for
+    CUT_EPOCHS with phase 26's bars and counts beside its p50
+    (`imaging_blur_p50`); PAPER
     at bf16 and RING_CHUNK for CUT_EPOCHS beside phase 36's (`bf16_p50`
     by mode).  39:
     the proc runtime, phase 34's bitwise runs chunked, bitwise their
@@ -2571,7 +2641,8 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     got, blur_p50, _ = train_and_check(
         "38", f"{name} for_problem(PAPER) ring_chunking "
         f"{IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data, all_counts,
-        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+        gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_improving,
+        n_epochs=CUT_EPOCHS)
     for k in launches:
         launches[k] += got[k][0]
     print(f"[38] {name} chunked: epoch p50 {blur_p50:.3f} ms beside phase "
@@ -2674,7 +2745,8 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     are as the config says (`check_dtypes`).  Returns the counts, the
     epoch p50 (ms) and {"gen": the final generator stack on the CPU,
     "residual": the final ensemble's mean|r̂|, "mean": the mean epoch
-    (ms), "by_flags": `p50_by_flags` of the epochs}.  Under an update
+    (ms), "by_flags": `p50_by_flags` of the epochs, "obs": the final obs
+    tree on the CPU, None without metrics}.  Under an update
     cadence the bars read the discriminator's recorded epochs
     (`disc_due_losses`), and the epoch p50 of each combination of
     halves that ran is printed beside the mean."""
@@ -2768,10 +2840,26 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
               f"({R * K * E / steps.mean() * 1e3:,.0f} events/s)")
     final = {"gen": tree_map(lambda t: t.cpu(), state["gen"]),
              "residual": float(prob.mean_abs_residual(p_hat)),
-             "mean": float(steps.mean()), "by_flags": by_flags}
+             "mean": float(steps.mean()), "by_flags": by_flags,
+             "obs": (tree_map(lambda t: t.cpu(), state["obs"])
+                     if "obs" in state else None)}
     del state, hist
     torch.cuda.empty_cache()
     return got, p50, final
+
+
+def metrics_rows(path):
+    """A metrics file's header and its rows."""
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    return lines[0], lines[1:]
+
+
+def row_epochs(n_epochs):
+    """The epochs at which a metrics file of `train_and_check`'s runs
+    gets a row: the end of each chunk of GAN_EVERY epochs."""
+    return [min(e + GAN_EVERY, n_epochs)
+            for e in range(0, n_epochs, GAN_EVERY)]
 
 
 @contextlib.contextmanager
@@ -3345,7 +3433,7 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
 
 def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
     """Phases 44-45: the telemetry (`ObsConfig`) on the card.  44, stacked:
-    PAPER at STALENESS with metrics and a metrics file for GAN_EPOCHS in
+    PAPER at STALENESS with metrics and a metrics file for CUT_EPOCHS in
     chunks of GAN_EVERY (phase 22's bars and counts; 1 header and a row a
     chunk, each row k_eff STALENESS and exchange_count its epoch), beside
     phase 22's p50 (`fp32`: mode -> (p50 ms, ...)) and phase 42's p50 of
@@ -3395,11 +3483,6 @@ def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
         add_launches(launches, got)
         return state, hist
 
-    def rows_of(path):
-        with open(path) as f:
-            lines = [json.loads(line) for line in f]
-        return lines[0], lines[1:]
-
     launches = {k: 0 for k in all_counts}
     data = get_problem("proxy1d").make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
@@ -3414,16 +3497,16 @@ def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
         label = f"GAN PAPER at staleness {STALENESS}, metrics on"
         got, p50, final = train_and_check(
             "44", label, dev, wcfg, data, all_counts,
-            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+            gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_healthy,
+            n_epochs=CUT_EPOCHS)
         add_launches(launches, got)
-        header, rows = rows_of(out)
+        header, rows = metrics_rows(out)
         want = {"schema": 1, "kind": "header", "problem": "proxy1d",
                 "schedule": "sync", "payload_bytes": 203_264, "n_ranks": R,
-                "n_epochs": GAN_EPOCHS}
+                "n_epochs": CUT_EPOCHS}
         if header != want or [(r["epoch"], r["k_eff"], r["exchange_count"])
                               for r in rows] != [
-                (e, STALENESS, e) for e in range(
-                    GAN_EVERY, GAN_EPOCHS + 1, GAN_EVERY)]:
+                (e, STALENESS, e) for e in row_epochs(CUT_EPOCHS)]:
             fail(f"[44] {label}: the metrics file's header {header} (want "
                  f"{want}) or rows (epoch, k_eff, exchange_count) "
                  f"{[(r['epoch'], r['k_eff'], r['exchange_count']) for r in rows]}"
@@ -3482,7 +3565,7 @@ def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
             device=dev)
         counted(f"[44] {name}", w, blur_data, OBS_EPOCHS,
                 checkpoint_every=OBS_EPOCHS)
-        header, rows = rows_of(out)
+        header, rows = metrics_rows(out)
         if header["payload_bytes"] != 1_161_792 or header["problem"] != name \
                 or [r["exchange_count"] for r in rows] != [OBS_EPOCHS]:
             fail(f"[44] {name}: the metrics file's header {header}, rows "
@@ -3590,6 +3673,276 @@ def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
                   f"x): the tracer's torch.cuda.synchronize() after the "
                   f"gradients")
         print(f"[45] phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def overlap_exchange(dev):
+    """Phase 46's exchange on the card: OVERLAP_EXCHANGE_EPOCHS epochs of
+    `StaticSchedule.exchange` with overlap at h OVERLAP_BITWISE_H, depth
+    STALENESS, 2 x 4 ranks, at fp32 whole and at RING_CHUNK and at bf16,
+    on gradients drawn on the card: ships on the odd epochs, due combines
+    on the even ones.  Fails unless the outputs and the SyncState are
+    bitwise the same exchange run on the CPU from the card's gradients,
+    the outer mailbox is unchanged on the other epochs and, on a ship
+    epoch (no due combine then), the outer ring's shift of that epoch's
+    synced payload."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+
+    t0 = time.perf_counter()
+    R, n, h = GAN_OUTER * GAN_INNER, OVERLAP_EXCHANGE_EPOCHS, \
+        OVERLAP_BITWISE_H
+    comm = VmapComm(GAN_OUTER, GAN_INNER)
+    example = W.make_schedule(PAPER).spec.zeros(None, "cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED + 46)
+    grads = [tree_map(lambda t: torch.randn((R,) + tuple(t.shape),
+                                            generator=g, device=dev),
+                      example) for _ in range(n)]
+    for prec, chunk in (("fp32", 0), ("fp32", RING_CHUNK), ("bf16", 0)):
+        sched = W.make_schedule(dataclasses.replace(
+            PAPER, sync=dataclasses.replace(
+                PAPER.sync, h=h, staleness=STALENESS, overlap=True,
+                payload_precision=prec, ring_chunking=chunk)))
+        runs = []                   # the card's, then the CPU's
+        for d in (dev, torch.device("cpu")):
+            st, outs = sched.init_state(R, d), []
+            for e in range(n):
+                synced, new = sched.exchange(
+                    comm, tree_map(lambda t: t.to(d), grads[e]), st,
+                    torch.tensor(e, dtype=torch.int32, device=d))
+                outs.append(tree_map(lambda t: t.cpu(), (
+                    st["outer_mailbox"], synced, new)))
+                st = new
+            runs.append(outs)
+        label = (f"[46] the exchange with overlap at h {h}, staleness "
+                 f"{STALENESS}, {prec} payload, ring_chunking {chunk:,} B")
+        for e, (card, cpu) in enumerate(zip(*runs)):
+            diff = [key for (key, a), b in zip(
+                tree_paths(card[1:]), tree_leaves(cpu[1:]))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+            if diff:
+                fail(f"{label}, epoch {e}: the card's outputs or sync state "
+                     f"differ from the CPU's exchange of the card's "
+                     f"gradients in {diff[:6]}")
+            before, synced, new = card
+            after = new["outer_mailbox"]
+            flat = sched.spec.flatten(synced, True)
+            shipped = flat.reshape(GAN_OUTER, GAN_INNER, -1).roll(
+                1, 0).reshape(flat.shape)
+            ship = (e + 1) % h == 0
+            if not torch.equal(after, shipped if ship else before):
+                fail(f"{label}, epoch {e}: the outer mailbox is not "
+                     f"{'the outer shift of the synced payload (a ship)' if ship else 'the one before (no ship)'}")
+        print(f"{label}: {n} epochs on 2 x 4 ranks bitwise the CPU's "
+              f"exchange of the card's gradients (outputs, the mailbox, the "
+              f"[{R}, {sched.spec.total:,}] outer mailbox in "
+              f"{sched.spec.payload_dtype}); the outer mailbox rewritten on "
+              f"the ship epochs 1, 3, 5 only, each time by the outer ring's "
+              f"shift of that epoch's synced payload")
+    print(f"[46] the exchange card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+
+def overlap_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+    """Phases 46-47: the overlapped pod boundary (`overlap`) on the card.
+    46, stacked: PAPER with overlap at OVERLAP_H in `arar_arar` and
+    `rma_arar_arar` with metrics and a metrics file (phase 22's bars and
+    counts; the header's schedule, the rows' and the final ship and
+    exchange counts), beside phase 22's p50 (`fp32`: mode -> (p50 ms,
+    ...)); imaging_blur with overlap at OVERLAP_H and IMAGE_RING_CHUNK
+    (phase 26's bars and counts) beside phase 26's p50
+    (`imaging_blur_p50`); the exchange card vs CPU (`overlap_exchange`);
+    PAPER under sync and overlap at OVERLAP_H in turns
+    (`scripts/payload_ab.py --lane overlap`).  47, 8 workers: PAPER with
+    overlap at OVERLAP_BITWISE_H bitwise `lockstep_reference` with one
+    ship deposit a ship epoch; PROC_FREE_EPOCHS free-running with phase
+    35's lag, traced, at OVERLAP_H under sync and overlap (finite): the
+    ship and outer-ring spans by epoch, span shares and p50 side by side
+    beside phase 35's p50 a rank (`proc_p50`).  Returns each kernel's
+    launches over the counted runs."""
+    import dataclasses
+    import glob
+    import importlib.util
+    import io
+    import tempfile
+    import shutil
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, for_problem
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.trace import (EPOCH_PARTS, epoch_breakdown,
+                                       load_events, merge_traces)
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    def overlapped(wcfg, h=OVERLAP_H, on=True, **sync):
+        return dataclasses.replace(wcfg, sync=dataclasses.replace(
+            wcfg.sync, h=h, overlap=on, **sync))
+
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    R, n, h = GAN_OUTER * GAN_INNER, GAN_EPOCHS, OVERLAP_H
+    ships = [e for e in range(n) if (e + 1) % h == 0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
+    t0 = time.perf_counter()
+    try:
+        # -- 46. stacked ------------------------------------------------------
+        for mode in ("arar_arar", "rma_arar_arar"):
+            out = os.path.join(tmp, f"{mode}.jsonl")
+            wcfg = dataclasses.replace(
+                overlapped(PAPER, mode=mode),
+                obs=ObsConfig(metrics=True, metrics_out=out))
+            label = f"GAN PAPER {mode} with overlap at h {h}, metrics on"
+            got, p50, final = train_and_check(
+                "46", label, dev, wcfg, data, all_counts,
+                gan_expect(wcfg, n, all_counts), gan_healthy)
+            add_launches(launches, got)
+            header, rows = metrics_rows(out)
+            want = {"schema": 1, "kind": "header", "problem": "proxy1d",
+                    "schedule": "overlap", "payload_bytes": 203_264,
+                    "n_ranks": R, "n_epochs": n}
+            got_rows = [(r["epoch"], r["ship_count"], r["exchange_count"])
+                        for r in rows]
+            want_rows = [(e, e // h, e) for e in row_epochs(n)]
+            obs = final["obs"]
+            if header != want or got_rows != want_rows or \
+                    obs["ship_count"].tolist() != [len(ships)] * R or \
+                    obs["exchange_count"].tolist() != [n] * R:
+                fail(f"[46] {label}: the metrics file's header {header} "
+                     f"(want {want}), its rows (epoch, ship_count, "
+                     f"exchange_count) {got_rows} (want {want_rows}), or "
+                     f"the final ship_count {obs['ship_count'].tolist()} "
+                     f"and exchange_count {obs['exchange_count'].tolist()}"
+                     f" (want {len(ships)} and {n} on every rank)")
+            p50_22 = fp32.get(mode, (float("nan"),))[0]
+            print(f"[46] {label}: header schedule 'overlap', "
+                  f"{len(rows)} rows, each ship_count its epoch / {h}; "
+                  f"ship_count {len(ships)} (epochs {ships[0]}, "
+                  f"{ships[1]}, ..., {ships[-1]}) and exchange_count {n} "
+                  f"on every rank; epoch p50 {p50:.3f} ms beside phase "
+                  f"22's sync p50 at h 1000 in {mode} {p50_22:.3f} ms "
+                  f"(same run; nan where phase 22 trains no {mode})")
+        name = "imaging_blur"
+        wcfg = overlapped(for_problem(name, PAPER),
+                          ring_chunking=IMAGE_RING_CHUNK)
+        blur_data = get_problem(name).make_reference_data(
+            torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+            device=dev)
+        got, p50, _ = train_and_check(
+            "46", f"{name} for_problem(PAPER) with overlap at h {h}, "
+            f"ring_chunking {IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data,
+            all_counts, gan_expect(wcfg, n, all_counts), gan_improving)
+        add_launches(launches, got)
+        print(f"[46] {name} with overlap at h {h}, {IMAGE_RING_CHUNK:,} B "
+              f"segments: epoch p50 {p50:.3f} ms beside phase 26's sync "
+              f"p50 at h 1000, whole, {imaging_blur_p50:.3f} ms (same run)")
+        del blur_data
+        overlap_exchange(dev)
+        spec = importlib.util.spec_from_file_location(
+            "payload_ab", os.path.join(ROOT, "scripts", "payload_ab.py"))
+        payload_ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(payload_ab)
+        argv = ["--lane", "overlap", "--h", str(h), "--epochs",
+                str(OVERLAP_AB_EPOCHS), "--device", dev.type]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            p50s, ex_ms = payload_ab.run(argv)
+        for line in buf.getvalue().splitlines():
+            print(f"[46] payload_ab {' '.join(argv)}: {line}")
+        ratio = statistics.median(p50s["overlap"]) / statistics.median(
+            p50s["sync"])
+        print(f"[46] PAPER rma_arar_arar at h {h}, in turns sync, overlap, "
+              f"overlap, sync: epoch p50 sync "
+              + ", ".join(f"{v:.3f}" for v in p50s["sync"]) + " ms, overlap "
+              + ", ".join(f"{v:.3f}" for v in p50s["overlap"])
+              + f" ms (overlap / sync {ratio:.3f}x); the exchange alone "
+              f"{ex_ms['sync']:.4f} / {ex_ms['overlap']:.4f} ms a call")
+        print(f"[46] phase {time.perf_counter() - t0:.1f} s")
+
+        # -- 47. as 8 worker processes -------------------------------------------
+        t0 = time.perf_counter()
+        counts, _ = proc_bitwise("47", dev, overlapped(
+            PAPER, h=OVERLAP_BITWISE_H), data, all_counts)
+        add_launches(launches, counts)
+        # traced free runs with phase 35's lag, sync then overlap at h 10:
+        # the overlap run is also the free run that must end finite
+        n = PROC_FREE_EPOCHS
+        want_ships = [e for e in range(n) if (e + 1) % h == 0]
+        shares, p50 = {}, {}
+        for sched in ("sync", "overlap"):
+            run_dir = os.path.join(tmp, f"proc_{sched}")
+            w = dataclasses.replace(
+                overlapped(PAPER, on=sched == "overlap"),
+                obs=ObsConfig(metrics=True, trace_dir="trace"))
+            counts, p50[sched] = proc_workflow(
+                "47", f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an "
+                f"epoch, traced, {sched} at h {h}", dev, w, data,
+                all_counts, fp32[PAPER.sync.mode][0],
+                d_bar=lambda d: (True, "finite"), n_epochs=n,
+                run_dir=run_dir, lockstep=False, jitter=JitterConfig(
+                    seed=SEED, rank_lag_ms=PROC_LAG_MS))
+            add_launches(launches, counts)
+            paths = sorted(glob.glob(os.path.join(run_dir, "trace",
+                                                  "trace_rank*.jsonl")))
+            shares[sched] = epoch_breakdown(
+                merge_traces(paths)["traceEvents"])
+            want = ({"exchange.ship": want_ships, "exchange.outer": []}
+                    if sched == "overlap" else
+                    {"exchange.ship": [], "exchange.outer": list(range(n))})
+            for r, path in enumerate(paths):
+                evs = [e for e in load_events(path)[0] if e.get("ph") == "X"]
+                by = {k: sorted(e["args"]["epoch"] for e in evs
+                                if e["name"] == k) for k in want}
+                if by != want or sorted(shares[sched]) != list(range(R)):
+                    fail(f"[47] {sched}: rank {r}'s trace has ship spans at "
+                         f"epochs {by['exchange.ship']} and outer-ring "
+                         f"spans at {by['exchange.outer']}; want {want}")
+            summaries = []
+            for r in range(R):
+                with open(os.path.join(run_dir,
+                                       f"summary_rank{r}.json")) as f:
+                    summaries.append(json.load(f)["obs"])
+            ships = len(want_ships) if sched == "overlap" else 0
+            bad = [s for s in summaries if s["ship_count"] != ships
+                   or s["exchange_count"] != n]
+            if bad:
+                fail(f"[47] {sched}: summaries' obs {bad[:2]}, want "
+                     f"{ships} ships and {n} exchanges")
+            print(f"[47] {sched} at h {h}, traced: every rank's trace holds "
+                  + (f"an `exchange.ship` span on epochs {want_ships} only "
+                     f"and no `exchange.outer`"
+                     if sched == "overlap" else
+                     f"an `exchange.outer` span on each of the {n} epochs "
+                     f"and no `exchange.ship`")
+                  + f"; every summary's obs {ships} ships, {n} exchanges")
+        parts = EPOCH_PARTS[:2] + ("exchange.wait",) + EPOCH_PARTS[2:] + (
+            "other",)
+        for r in range(R):
+            a, b = shares["sync"][r], shares["overlap"][r]
+            print(f"[47] rank {r}, epochs 1-{n - 1}, sync | overlap at h "
+                  f"{h}: epoch span p50 {1e3 * a['epoch_p50_s']:.3f} | "
+                  f"{1e3 * b['epoch_p50_s']:.3f} ms; "
+                  + ", ".join(f"{k} {100 * a[k]:.1f}% | {100 * b[k]:.1f}%"
+                              for k in parts))
+        med = {k: float(np.median([100 * sh["exchange"] for sh in
+                                   shares[k].values()])) for k in shares}
+        print(f"[47] free-running, traced, at h {h}: epoch p50 a rank sync "
+              f"{np.min(p50['sync']):.3f}-{np.max(p50['sync']):.3f} ms "
+              f"(median {np.median(p50['sync']):.3f}), overlap "
+              f"{np.min(p50['overlap']):.3f}-{np.max(p50['overlap']):.3f} ms"
+              f" (median {np.median(p50['overlap']):.3f}; every state leaf "
+              f"finite); the exchange's share, median over ranks, sync "
+              f"{med['sync']:.1f}%, overlap {med['overlap']:.1f}%; phase "
+              f"35's untraced lock-step p50 a rank "
+              f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms; phase "
+              f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4285,6 +4638,13 @@ def main():
         launches[k] = launches.get(k, 0) + v
 
     clock("44-45")
+    # -- 46-47. the overlapped pod boundary, stacked and as workers --------
+    n = overlap_phases(dev, all_counts, gan_fp32,
+                       problem_p50["imaging_blur"], proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("46-47")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

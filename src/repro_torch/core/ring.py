@@ -9,9 +9,17 @@ rank of R worker processes: the axis is [1], and a ring transfer crosses
 an mmap mailbox.  Ring direction follows Algorithm 1: rank i receives
 from its predecessor i − 1.
 
+The overlap schedule's ship (`ship_outer`, `cond_ship`; the JAX
+package's lines 73–93 and 148–153) moves a payload one hop along the
+outer ring, like `recv_ring_outer`, but its result is read one epoch
+later, from the outer mailbox.  On `VmapComm` the gate is a
+`torch.where` between the rolled tree and the old mailbox, made on the
+device: bitwise JAX's `lax.cond`, which selects between the same two
+values, and the epoch reads nothing back.  `ProcComm` branches in
+Python instead, so an off-epoch moves no bytes.
+
 The mesh backend (`ShardComm`, ranks on several cards) is ROADMAP.md
-queue A item 6; the overlap ship (`ship_outer`, `cond_ship`) and the
-deposit tags of the adaptive schedule are item 3.
+queue A item 6; the deposit tags of the adaptive schedule are item 3.
 """
 from __future__ import annotations
 
@@ -39,6 +47,20 @@ class Comm:
 
     def recv_ring_outer(self, tree):
         raise NotImplementedError
+
+    def ship_outer(self, tree):
+        """The overlap schedule's pod-boundary hop: `tree` one step along
+        the outer ring, as `recv_ring_outer`, read one epoch later
+        (`sync._outer_exchange_overlapped`)."""
+        raise NotImplementedError
+
+    def cond_ship(self, ship_due, tree, fallback):
+        """`ship_outer(tree)` where `ship_due` holds, else `fallback`.
+        `ship_due` is a bool tensor, the same on every rank; the select
+        is made on the device, so nothing is read back."""
+        shipped = self.ship_outer(tree)
+        return tree_map(lambda s, f: torch.where(ship_due, s, f), shipped,
+                        fallback)
 
     def pmean_all(self, tree):
         raise NotImplementedError
@@ -82,6 +104,11 @@ class VmapComm(Comm):
 
     def recv_ring_outer(self, tree):
         return self._roll_grouped(tree, 0)
+
+    def ship_outer(self, tree):
+        # the ranks share one device: the ship is the outer ring's roll;
+        # the overlap lies in reading it one epoch later
+        return self.recv_ring_outer(tree)
 
     def pmean_all(self, tree):
         return tree_map(lambda x: x.mean(0, keepdim=True).expand_as(x), tree)

@@ -73,9 +73,21 @@ made and updated on the device, so an epoch reads nothing back;
 `payload_bytes` is the fused payload in its wire dtype and `name` the
 schedule's name for the metrics file's header.
 
-Not ported yet, each raising `NotImplementedError` from `SyncConfig`
-(ROADMAP.md queue A item 3): the overlapped pod boundary (`overlap`) and
-adaptive staleness (`adaptive`).
+Overlapped pod boundary (`SyncConfig.overlap`, the grouped modes; the
+JAX package's lines 455–491): the outer ring's hop moves off the epoch
+that reads it.  A due epoch (`epoch % h == 0`, inner index 0) adds the
+flat outer mailbox, what the predecessor pod shipped the epoch before
+(zeros before the first ship), instead of this epoch's outer roll; the
+epoch before a due one (`(epoch + 1) % h == 0`) ships its inner-synced
+payload into that mailbox (`Comm.cond_ship`), and every other epoch
+leaves it as it is.  Both predicates stay device tensors.  The mailbox
+is stored flat in the payload dtype, cut into the ring's segments and
+joined back around the exchange, so chunked and whole are bitwise equal.
+The metrics row's ship flag is `(epoch + 1) % h == 0` under overlap
+with more than one pod, made on the device.
+
+Not ported yet, raising `NotImplementedError` from `SyncConfig`
+(ROADMAP.md queue A item 3): adaptive staleness (`adaptive`).
 """
 from __future__ import annotations
 
@@ -127,7 +139,7 @@ class SyncConfig:
     combine: str = "sum"           # Algorithm 1 uses sum
     staleness: int = 1             # RMA mailbox depth k (paper: 1)
     fuse_tensors: bool = True      # one fused ring payload per exchange
-    overlap: bool = False          # queue A item 3
+    overlap: bool = False          # pipelined pod-boundary exchange
     adaptive: bool = False         # queue A item 3
     payload_precision: str = "fp32"  # wire dtype of the fused payload
     ring_chunking: int = 0         # ring segment size in bytes (0: one)
@@ -188,8 +200,6 @@ class SyncConfig:
                 f"crosses the ring; mode={self.mode!r} has no ring payload "
                 f"(ring modes: {RING_MODES})")
         # ... then what is valid there but not ported yet
-        if self.overlap:
-            _later("the overlapped pod-boundary exchange (overlap=True)")
         if self.adaptive:
             _later("adaptive staleness (adaptive=True, AdaptiveSchedule)")
 
@@ -345,19 +355,47 @@ def _outer_exchange(comm: Comm, g, epoch, h, combine):
     return comm.mask_where(due & is_member, exchanged, g)
 
 
+def _outer_exchange_overlapped(comm: Comm, g, outer_mb, epoch, h, combine,
+                               ship_due=None):
+    """The pipelined pod-boundary exchange: consume the outer mailbox, and
+    ship for the next epoch.  A due epoch (`epoch % h == 0`) adds the
+    mailbox, the predecessor pod's inner-synced payload shipped one epoch
+    before, on the inner-rank-0 members; the ship (`Comm.cond_ship`)
+    sends this epoch's `g` into the mailbox where `ship_due` holds
+    (default: the next epoch is due, `(epoch + 1) % h == 0`) and leaves
+    the mailbox as it is elsewhere.  Both predicates are device tensors.
+    Returns (synced, new_outer_mailbox)."""
+    exchanged = tree_map(lambda a, b: _comb(a, b, combine), g, outer_mb)
+    dev = tree_leaves(g)[0].device
+    epoch = torch.as_tensor(epoch, device=dev)
+    is_member = comm.inner_index(dev) == 0
+    synced = comm.mask_where((epoch % h == 0) & is_member, exchanged, g)
+    if ship_due is None:
+        ship_due = (epoch + 1) % h == 0
+    return synced, comm.cond_ship(ship_due, g, outer_mb)
+
+
 def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
                    mask=None, spec: Optional[FusionSpec] = None,
                    outer_mailbox=None):
-    """Returns (synced_grads, new_mailbox), or a 3-tuple with the outer
-    mailbox when `outer_mailbox` is passed (it passes through untouched:
-    only the overlap schedule, queue A item 3, writes it).
+    """Returns (synced_grads, new_mailbox), or a 3-tuple with the new outer
+    mailbox when `outer_mailbox` is passed.
 
     `spec` is the cached FusionSpec of the fused path; when omitted it is
     rebuilt from `grads`/`mask`.  At `staleness` k > 1 (rma_arar_arar)
     `mailbox` is the [R, k, ...] circular buffer (`init_mailbox`): the
     exchange runs on slot `epoch % k` and its deposit is written back
     into that slot; the mailbox's unmasked leaves never ride the ring and
-    are returned as they came."""
+    are returned as they came.
+
+    `outer_mailbox` is the overlap schedule's pod-boundary window, the
+    flat [R, D] payload (`FusionSpec.zero_payload`).  `cfg.overlap`
+    needs it; otherwise it passes through untouched, so a training loop
+    threads it whatever the schedule."""
+    if cfg.overlap and outer_mailbox is None:
+        raise ValueError(
+            "cfg.overlap=True needs the pod-boundary outer mailbox "
+            "(build it with FusionSpec.zero_payload)")
     depth = cfg.staleness if cfg.mode == "rma_arar_arar" else 1
     if depth > 1:
         full = mailbox
@@ -377,24 +415,34 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
         spec = FusionSpec.build(
             example, mask, payload_dtype=payload_dtype_of(
                 cfg.payload_precision), chunk_bytes=cfg.ring_chunking)
+    new_outer = outer_mailbox
     if fuse and spec.total > 0:     # all-False mask: nothing rides the ring
         fg, fmb = spec.flatten(grads, True), spec.flatten(mailbox, True)
+        # the outer mailbox is stored flat already
+        fomb = outer_mailbox if cfg.overlap else None
         nseg = spec.n_segments
         if nseg > 1:
             # the chunked ring: a tuple of segments, each its own transfer;
             # unchunked keeps the bare payload, not a 1-tuple
             fg, fmb = spec.split_payload(fg), spec.split_payload(fmb)
-        fsynced, fnew_mb = _sync_core(
+            if fomb is not None:
+                fomb = spec.split_payload(fomb)
+        fsynced, fnew_mb, fnew_omb = _sync_core(
             comm, cfg, {"w": fg}, {"w": fmb}, epoch,
-            {"w": (True,) * nseg if nseg > 1 else True})
+            {"w": (True,) * nseg if nseg > 1 else True},
+            outer_mb=None if fomb is None else {"w": fomb})
         if nseg > 1:                # storage stays flat
             fsynced = {"w": spec.join_payload(fsynced["w"])}
             fnew_mb = {"w": spec.join_payload(fnew_mb["w"])}
+            if fnew_omb is not None:
+                fnew_omb = {"w": spec.join_payload(fnew_omb["w"])}
         synced = spec.unflatten(fsynced["w"], grads, True)
         new_mailbox = spec.unflatten(fnew_mb["w"], mailbox, True)
+        if fnew_omb is not None:
+            new_outer = fnew_omb["w"]
     else:
-        synced, new_mailbox = _sync_core(comm, cfg, grads, mailbox, epoch,
-                                         mask)
+        synced, new_mailbox, _ = _sync_core(comm, cfg, grads, mailbox, epoch,
+                                            mask)
     if depth > 1:
         # this epoch's deposit into the slot it was read from, out of
         # place: the previous state may still be held elsewhere
@@ -404,21 +452,25 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
                                tree_leaves(new_mailbox))])
     if outer_mailbox is None:
         return synced, new_mailbox
-    return synced, new_mailbox, outer_mailbox
+    return synced, new_mailbox, new_outer
 
 
 def _sync_core(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
-               mask=None):
-    """Returns (synced, new_mailbox)."""
+               mask=None, outer_mb=None, ship_due=None):
+    """Returns (synced, new_mailbox, new_outer_mb).  `outer_mb` is read
+    and written only by the grouped modes under `cfg.overlap`, with more
+    than one pod; every other path passes it through.  `ship_due`
+    overrides the overlap ship's predicate (None: the next epoch is
+    due)."""
     mode, combine = cfg.mode, cfg.combine
     if mode == "ensemble":
-        return grads, mailbox
+        return grads, mailbox, outer_mb
     if mode == "allreduce":
-        return _masked(mask, comm.pmean_all(grads), grads), mailbox
+        return _masked(mask, comm.pmean_all(grads), grads), mailbox, outer_mb
     if mode == "conv_arar":
         recv = comm.recv_ring_all(grads)
         synced = tree_map(lambda a, b: _comb(a, b, combine), grads, recv)
-        return _masked(mask, synced, grads), mailbox
+        return _masked(mask, synced, grads), mailbox, outer_mb
     if mode == "dbtree":
         # recursive doubling: a full reduction in log2(R) pairwise stages,
         # normalized to the mean (comparable to allreduce)
@@ -431,7 +483,7 @@ def _sync_core(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
             recv = comm.recv_hypercube(synced, stage)
             synced = tree_map(lambda a, b: a + b, synced, recv)
         synced = tree_map(lambda x: x / R, synced)
-        return _masked(mask, synced, grads), mailbox
+        return _masked(mask, synced, grads), mailbox, outer_mb
 
     if mode == "arar_arar":
         recv = comm.recv_ring_inner(grads)
@@ -447,8 +499,13 @@ def _sync_core(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
         raise ValueError(f"unknown sync mode {mode!r}")
 
     if comm.n_outer > 1:
-        synced = _outer_exchange(comm, synced, epoch, cfg.h, combine)
-    return _masked(mask, synced, grads), new_mailbox
+        if cfg.overlap and outer_mb is not None:
+            synced, outer_mb = _outer_exchange_overlapped(
+                comm, synced, outer_mb, epoch, cfg.h, combine,
+                ship_due=ship_due)
+        else:
+            synced = _outer_exchange(comm, synced, epoch, cfg.h, combine)
+    return _masked(mask, synced, grads), new_mailbox, outer_mb
 
 
 # ----------------------------------------------------------------------------
@@ -530,19 +587,19 @@ class SyncSchedule:
 
 
 class StaticSchedule(SyncSchedule):
-    """The synchronous schedule, at any RMA depth: exactly
-    `sync_gradients`.
+    """The config-time schedules, sync and overlap, at any RMA depth:
+    exactly `sync_gradients`.
 
     SyncState = {"mailbox": <grads-shaped tree, [R, k, ...] at staleness
     k > 1>, "outer_mailbox": <flat [R, D] payload>}, the JAX package's
-    layout (the outer mailbox stays zero until the overlap schedule of
-    queue A item 3 writes it).  The
-    mailbox's masked leaves are stored in the payload dtype, what the
-    ring deposits; unmasked leaves never ride it and keep their own."""
+    layout (the outer mailbox stays zero unless `overlap` ships into it).
+    The mailbox's masked leaves and the outer mailbox are stored in the
+    payload dtype, what the ring deposits; unmasked leaves never ride it
+    and keep their own."""
 
     @property
     def name(self) -> str:
-        return "sync"
+        return "overlap" if self.cfg.overlap else "sync"
 
     def init_state(self, n_ranks: int, device=None):
         example = self.spec.zeros(n_ranks, device)
@@ -563,19 +620,23 @@ class StaticSchedule(SyncSchedule):
     def obs_row(self, comm: Comm, sync_state, epoch):
         # static facts restated as data, made on the device: a depth-k RMA
         # read is `staleness` epochs old, the lock-step exchange has no
-        # skew, and nothing ships ahead of the outer ring (overlap)
+        # skew, and overlap ships on the fixed h-cadence
         omb = sync_state["outer_mailbox"]
         lead, dev = omb.shape[:-1], omb.device
         k = self.cfg.staleness if self.cfg.mode == "rma_arar_arar" else 0
+        shipped = torch.zeros(lead, dtype=torch.int32, device=dev)
+        if self.cfg.overlap and comm.n_outer > 1:
+            due = (torch.as_tensor(epoch, device=dev) + 1) % self.cfg.h == 0
+            shipped = due.to(torch.int32).expand(lead)
         return {
             "k_eff": torch.full(lead, k, dtype=torch.int32, device=dev),
             "skew_ema": torch.zeros(lead, dtype=CTRL_DTYPE, device=dev),
             "deposit_age": torch.zeros(lead, dtype=CTRL_DTYPE, device=dev),
-            "shipped": torch.zeros(lead, dtype=torch.int32, device=dev),
+            "shipped": shipped,
         }
 
 
 def make_schedule(cfg: SyncConfig, mask, spec: FusionSpec) -> SyncSchedule:
     """The schedule of `cfg`: every configuration `SyncConfig` accepts in
-    the port is the static one (adaptive raises there)."""
+    the port is a static one, sync or overlap (adaptive raises there)."""
     return StaticSchedule(cfg, mask, spec)

@@ -78,8 +78,21 @@ writes a `torch.profiler` Chrome trace of the epoch loop, and
 
 The progress lines show the mean over ranks of the last epoch's losses,
 or of the report interval's finite ones where the last epoch skipped
-that half.  The exchange schedules other than `sync` (--sync-schedule,
---max-staleness) are ROADMAP.md queue A item 3: they raise.  The run
+that half.
+
+`--sync-schedule` takes `sync` (the default: a due outer epoch waits on
+the pod-boundary hop) and `overlap` (the grouped modes: the epoch
+before a due one ships its inner-synced payload across the pod
+boundary, and the due epoch adds it from the outer mailbox, one epoch
+old), on both backends and with every --problem, payload, cadence and
+--staleness:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --device cpu \
+        --mode rma_arar_arar --sync-schedule overlap --h 3 --ranks 4 \
+        --inner 2 --epochs 12
+
+The adaptive schedules (`adaptive`, `adaptive-overlap`, --max-staleness)
+are ROADMAP.md queue A item 3: they raise.  The run
 ends with the ensemble against the truth, the serving-path solve
 (`core.workflow.make_solver`) on the reference events, and the kernels'
 launches and plain calls.
@@ -231,9 +244,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--staleness", type=int, default=1,
                     help="RMA mailbox depth k (rma_arar_arar only)")
-    # the JAX example's flags that are not ported yet: they raise
-    ap.add_argument("--sync-schedule", default="sync")
-    ap.add_argument("--max-staleness", type=int, default=None)
+    ap.add_argument("--sync-schedule",
+                    choices=("sync", "overlap", "adaptive",
+                             "adaptive-overlap"), default="sync",
+                    help="sync, or overlap: ship the pod-boundary payload "
+                         "at epoch t, add it at t+1 (the adaptive ones "
+                         "are not ported yet and raise)")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="the adaptive schedule's k_max (not ported yet: "
+                         "raises)")
     ap.add_argument("--payload-precision", choices=PAYLOAD_PRECISIONS,
                     default="fp32",
                     help="wire dtype of the fused ring payload")
@@ -272,7 +291,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     later = [f for f, on in (
-        ("--sync-schedule", args.sync_schedule != "sync"),
+        (f"--sync-schedule {args.sync_schedule}",
+         args.sync_schedule.startswith("adaptive")),
         ("--max-staleness", args.max_staleness is not None)) if on]
     if later:
         raise NotImplementedError(f"{', '.join(later)}: not ported yet, "
@@ -284,6 +304,7 @@ def main(argv=None):
         base.sync, fuse_tensors=not args.no_fuse,
         payload_precision=args.payload_precision,
         ring_chunking=args.ring_chunking, staleness=args.staleness,
+        overlap=args.sync_schedule == "overlap",
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
     trace_dir = args.trace_dir
@@ -314,10 +335,12 @@ def main(argv=None):
                         if problem.param_shape else ("inverse_cdf",))
     data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), args.events, device=dev)
-    spec = workflow.make_schedule(wcfg).spec
+    schedule = workflow.make_schedule(wcfg)
+    spec = schedule.spec
     print(f"problem={args.problem} ({problem.n_params} params -> "
           f"{problem.obs_dim} observables) mode={wcfg.sync.mode} "
-          f"h={wcfg.sync.h} schedule=sync staleness={wcfg.sync.staleness} "
+          f"h={wcfg.sync.h} schedule={schedule.name} "
+          f"staleness={wcfg.sync.staleness} "
           f"payload={wcfg.sync.payload_precision} ring_chunking="
           f"{wcfg.sync.ring_chunking} ({spec.n_segments} segments) "
           f"ranks={n_outer}x{n_inner} "

@@ -51,8 +51,14 @@ deposit yet returns the warmup value.
 Rank layout matches `VmapComm`: global rank = outer * n_inner + inner
 (row-major), ring direction per Algorithm 1 (rank i receives from i-1).
 `recv_hypercube` (the dbtree mode) is unsupported, as in the JAX package:
-a log2(R)-stage barrier tree has no free-running reading.  The overlap
-ship (`ship_outer`) comes with its schedule, ROADMAP.md queue A item 3f.
+a log2(R)-stage barrier tree has no free-running reading.
+
+The overlap schedule's ship (`ship_outer`, the JAX package's lines
+205–221) crosses a channel of its own, "ship" (`mbx_*_ship.bin`, or
+`mbx_*_shipw<i>.bin` in windows), so its call count, one a ship epoch,
+never pairs with the outer ring's.  `cond_ship` branches in Python: an
+off-epoch moves no bytes and, in lock-step, every rank skips the same
+epochs, so the channels' call counters stay matched.
 """
 from __future__ import annotations
 
@@ -154,7 +160,7 @@ class ProcComm(Comm):
         if channel == "inner":
             return (o * I + (j + 1) % I,          # successor (my reader)
                     o * I + (j - 1) % I)          # predecessor (my writer)
-        if channel == "outer":
+        if channel in ("outer", "ship"):
             return (((o + 1) % O) * I + j,
                     ((o - 1) % O) * I + j)
         if channel == "all":
@@ -228,6 +234,21 @@ class ProcComm(Comm):
         if self.n_outer == 1:
             return tree
         return self._transfer("outer", tree)
+
+    def ship_outer(self, tree):
+        if self.n_outer == 1:
+            return tree
+        return self._transfer("ship", tree)
+
+    def cond_ship(self, ship_due, tree, fallback):
+        """A Python branch, not a select: an off-epoch moves no bytes.
+        `ship_due` is read back to the host (one scalar; the exchange
+        copies its payload to the host anyway).  In lock-step the
+        predicate is the same on every rank, so the ship channel's call
+        counters stay paired."""
+        if bool(ship_due):
+            return self.ship_outer(tree)
+        return fallback
 
     def pmean_all(self, tree):
         if self.n_ranks == 1:

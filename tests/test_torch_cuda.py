@@ -25,7 +25,8 @@ and backward on the generator's).  Flash attention is held at head dim
 MoE layer on the card is held against the CPU with capacity drops, and
 is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
-bitwise the CPU's on the same gradients.  The proc runtime's 2 worker processes on the card
+bitwise the CPU's on the same gradients, and so is the overlapped pod
+boundary's at depth 1 and 2.  The proc runtime's 2 worker processes on the card
 are bitwise their per-rank reference, with B1 on its kernel in both.
 The metrics channel's obs rows on the card equal the CPU's.
 """
@@ -1007,6 +1008,48 @@ def test_depth_k_exchange_and_training_on_the_card(sm90_card):
         assert t.device.type == "cuda" and bool(
             torch.isfinite(t.float()).all()), k
     assert bool(torch.isfinite(hist["d_loss"]).all())
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_overlap_exchange_on_the_card_is_bitwise_the_cpus(sm90_card, k):
+    """The overlapped pod boundary at h 2 (2 x 4 ranks, 6 epochs: ships
+    at 1, 3, 5, due combines at 0, 2, 4), at depth k, fp32 and bf16,
+    whole and at 65,536 B: outputs and SyncState bitwise the CPU's on the
+    same gradients; the outer mailbox changes on the ship epochs only."""
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    rng = np.random.default_rng(7)
+    widths = gan.gen_widths()
+    grads = [[{"w": rng.standard_normal((8, a, b)).astype(np.float32),
+               "b": rng.standard_normal((8, b)).astype(np.float32)}
+              for a, b in zip(widths[:-1], widths[1:])] for _ in range(6)]
+    for prec in ("fp32", "bf16"):
+        for chunk in (0, 65_536):
+            wcfg = W.WorkflowConfig(sync=sync.SyncConfig(
+                mode="rma_arar_arar", h=2, staleness=k, overlap=True,
+                payload_precision=prec, ring_chunking=chunk))
+            out = {}
+            for dev in ("cpu", sm90_card):
+                sched = W.make_schedule(wcfg)
+                st, runs = sched.init_state(8, dev), []
+                for e, g in enumerate(grads):
+                    synced, st = sched.exchange(
+                        VmapComm(2, 4), tree_map(lambda a: torch.from_numpy(
+                            a).to(dev), g), st,
+                        torch.tensor(e, dtype=torch.int32, device=dev))
+                    runs.append(tree_map(lambda t: t.cpu(), (synced, st)))
+                out[str(dev)] = runs
+            before = torch.zeros_like(out["cpu"][0][1]["outer_mailbox"])
+            for e, (got, want) in enumerate(zip(out[str(sm90_card)],
+                                                out["cpu"])):
+                for (key, a), b in zip(tree_paths(got), tree_leaves(want)):
+                    assert a.dtype == b.dtype and torch.equal(a, b), \
+                        (prec, chunk, e, key)
+                omb = got[1]["outer_mailbox"]
+                assert omb.dtype == sync.payload_dtype_of(prec)
+                assert torch.equal(omb, before) == (e % 2 == 0), (prec, e)
+                before = omb
 
 
 @pytest.mark.parametrize("name", ["proxy2d", "linear_blur", "imaging",

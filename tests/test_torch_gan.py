@@ -412,10 +412,10 @@ def test_sync_config_errors_match_jax(kw):
     ids=["staleness", "overlap", "adaptive", "chunking"])
 def test_schedule_features_raise_with_their_item(kw):
     """The features of queue A item 3 still to port raise with the item;
-    the chunked ring (3b) and the depth-k mailbox (3d) are ported and take
-    the JAX config as is."""
+    the chunked ring (3b), the depth-k mailbox (3d) and the overlapped pod
+    boundary (3f) are ported and take the JAX config as is."""
     want = JS.SyncConfig(**kw)          # valid in the JAX package
-    if "ring_chunking" in kw or "staleness" in kw:
+    if "adaptive" not in kw:
         assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
             dataclasses.asdict(want)
         return
@@ -688,9 +688,16 @@ def test_train_gan_cli_on_the_cpu(capsys):
     assert ("summed over the workers: 0 kernel launches, 6 plain calls, 6 "
             "backward passes") in out
     assert "serving-path solve" in out
-    for argv, item in ((["--sync-schedule", "overlap"], "item 3"),
-                       (["--sync-schedule", "adaptive"], "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
+    # the overlap schedule (3f) runs; the adaptive ones raise with item 3
+    train_gan.main(["--device", "cpu", "--ranks", "4", "--inner", "2",
+                    "--epochs", "4", "--h", "2", "--events", "2000",
+                    "--sync-schedule", "overlap"])
+    out = capsys.readouterr().out
+    assert "schedule=overlap" in out and "ranks=2x2" in out
+    for argv in (["--sync-schedule", "adaptive"],
+                 ["--sync-schedule", "adaptive-overlap"],
+                 ["--max-staleness", "3"]):
+        with pytest.raises(NotImplementedError, match="queue A item 3"):
             train_gan.main(["--device", "cpu"] + argv)
 
 

@@ -26,7 +26,8 @@ this epoch's payload into the same slot:
   resume      `train_stacked` at k 3: chunk 1 bitwise chunk 7, and a run
               checkpointed at epoch 4 (off the slot grid) resumed bitwise
   proc        2 lock-step workers at k 3 bitwise `lockstep_reference`,
-              and resumed from a per-process checkpoint at epoch 4
+              and resumed from a per-process checkpoint at epoch 4; at
+              k 2 with the bf16 payload and with the chunked one
   CLI         `train_gan --staleness 3`, both backends; JAX's error for
               another mode
 
@@ -34,6 +35,7 @@ The card's side is in tests/test_torch_cuda.py and `chip_smoke.py`
 phases 42-43.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -105,9 +107,13 @@ def test_config_takes_jax_fields_and_errors():
         with pytest.raises(ValueError) as got:
             sync.SyncConfig(**kw)
         assert str(got.value) == str(want.value)
-    for kw in (dict(overlap=True), dict(adaptive=True)):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            sync.SyncConfig(mode="rma_arar_arar", staleness=2, **kw)
+    # depth composes with the overlapped pod boundary (3f) as in JAX;
+    # adaptive staleness (3g) is not ported yet
+    kw = dict(mode="rma_arar_arar", staleness=2, overlap=True)
+    assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
+        dataclasses.asdict(JS.SyncConfig(**kw))
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        sync.SyncConfig(mode="rma_arar_arar", staleness=2, adaptive=True)
 
 
 # ----------------------------------------------------------------------------
@@ -370,6 +376,33 @@ def test_proc_lockstep_depth_k_is_bitwise_its_reference(tmp_path):
                    ckpt_every=4, resume=True, device="cpu", timeout=300)
     assert [s["start_epoch"] for s in res["summaries"]] == [4, 4]
     _bitwise(res["state"], ref, "resumed at epoch 4")
+
+
+PROC_PAYLOADS = [("bf16", 0), ("fp32", CHUNK)]
+
+
+@pytest.mark.parametrize("precision,chunk", PROC_PAYLOADS,
+                         ids=["bf16", "chunked"])
+def test_proc_lockstep_depth_k_payloads_are_bitwise_their_reference(
+        precision, chunk, tmp_path):
+    """2 lock-step workers at k 2 with the bf16 payload, then the chunked
+    one: bitwise `lockstep_reference`, the [1, 2, ...] buffers stored in
+    the wire dtype, the inner ring's deposit in its windows."""
+    from repro_torch.runtime.mailbox import _MBX_HDR
+    _, wcfg = _wcfgs(2, precision, chunk)
+    d = str(tmp_path / "run")
+    out = run_proc(wcfg, 1, 2, 5, _data(), seed=0, run_dir=d, device="cpu",
+                   timeout=300)
+    ref = lockstep_reference(0, wcfg, 1, 2, 5, _data(), device="cpu")
+    _bitwise(out["state"], ref, f"2 workers at k 2, {precision}, {chunk} B")
+    mb = out["state"]["sync"]["mailbox"][0]["w"]
+    assert mb.shape[:2] == (2, 2)
+    assert mb.dtype == sync.payload_dtype_of(precision)
+    assert all(bool(mb[:, s].float().any()) for s in range(2))
+    sizes = sorted(os.path.getsize(os.path.join(d, f)) - _MBX_HDR.size
+                   for f in os.listdir(d) if f.startswith("mbx_0to1_inner"))
+    assert sizes == ([101_632] if precision == "bf16" else
+                     [6_656, 65_536, 65_536, 65_536])
 
 
 # ----------------------------------------------------------------------------
