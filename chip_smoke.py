@@ -165,7 +165,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (the flat problems 1024 x 100 events a rank, the image problems 64 x
      32 with the capped generator step and the conv generator at
      CONV_CHANNELS (32, 32, 16)), 8 ranks as 2 x 4, rma_arar_arar, h
-     1000, fp32 with TF32 off, 200 epochs after an uncounted 2-epoch
+     1000, fp32 with TF32 off, 200 epochs (imaging_blur 50: phase 46
+     trains it for 200) after an uncounted 2-epoch
      warm-up, history every 20: every state leaf finite, the ensemble in
      (0, 1), every recorded d_loss finite and its minimum below the
      first; B1 launched once an epoch (u [8192, 100, 3] / [8192, 100, 4],
@@ -221,8 +222,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  32. train granite-moe-3b-a800m at full size (32 layers, d_model 1536,
      bf16, 3.3 B parameters, random weights from a seed) through
      `training.Trainer` (its donating step) at the `launch/train`
-     defaults: batch 8, seq 256, lr 3e-4, warmup 11, MOE_TRAIN_STEPS
-     steps after an uncounted forward and backward; 64 B4 launches a step
+     defaults: batch 8, seq 256, lr 3e-4, warmup 7, MOE_TRAIN_STEPS (30;
+     phase 33 steps it again) steps after an uncounted forward and
+     backward; 64 B4 launches a step
      (32 layers, forward and remat recompute), all on the bf16 route, 32
      backward passes through the plain VJP, no plain call; every loss
      finite, and the loss of 4 held-out batches lower after training than
@@ -257,10 +259,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
      events/s, the wall time from spawn to result and the workers'
      start-up, the summed B1 counts, beside phase 22's stacked epoch p50;
  36. the bf16 ring payload (`payload_precision="bf16"`, fp32 master
-     state), stacked: `PAPER` at R 8 for 200 epochs in `rma_arar_arar`
-     (h 1000) and `conv_arar` with phase 22's bars and counts, each epoch
-     p50/p99 and events/s beside phase 22's fp32 p50 of the same run, the
-     generator-parameter and residual gaps to phase 22's fp32 run printed;
+     state), stacked: `PAPER` at R 8 in `rma_arar_arar` (h 1000) for 50
+     epochs (phase 42 trains the bf16 payload in it for 200) and in
+     `conv_arar` for 200 with phase 22's bars and counts, each epoch
+     p50/p99 and events/s beside phase 22's fp32 p50 of the same run,
+     `conv_arar`'s generator-parameter and residual gaps to phase 22's
+     fp32 run printed;
      `for_problem("imaging_blur", PAPER)` at bf16 for 200 epochs with
      phase 26's bars and counts (B1 on u [512, 32], B3 on [512, 32, 32]
      and as its backward); one bf16 epoch card vs CPU as phase 23 (the
@@ -275,9 +279,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
      epoch p50 a rank beside phase 35's fp32 one;
  38. the chunked ring (`SyncConfig(ring_chunking=N)`: the fused payload
      crosses as ceil(bytes / N) segments, one `torch.roll` each), stacked:
-     `PAPER` at R 8 at 65,536 B (4 segments) for 200 epochs in both ring
-     modes with phase 22's bars and counts, each epoch p50 and events/s
-     beside phase 22's, the generator's gap to phase 22's printed; the
+     `PAPER` at R 8 at 65,536 B (4 segments) in both ring modes, for 50
+     epochs in `rma_arar_arar` (phase 42 trains it at 65,536 B for 200)
+     and 200 in `conv_arar`, with phase 22's bars and counts, each epoch
+     p50 and events/s beside phase 22's, `conv_arar`'s generator gap to
+     phase 22's printed; the
      first 10 epochs of each mode bitwise an unchunked run from the same
      seed; imaging_blur at 524,288 B (3 segments) for 50 epochs (phase
      46 trains it for 200 with overlap) with phase 26's bars and counts;
@@ -298,10 +304,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
      updates on epochs e with e % disc_every == 0, the generator with its
      exchange and Adam step on e % gen_every == 0; a skipped half launches
      nothing), stacked: `throughput(PAPER)` (the bf16 payload and
-     disc_every 2) in `rma_arar_arar` and `PAPER` at disc_every 2,
-     gen_every 3 in `conv_arar`, 200 epochs each, with phase 22's bars
+     disc_every 2) in `rma_arar_arar` for 50 epochs (phase 42 trains it
+     for 200) and `PAPER` at disc_every 2, gen_every 3 in `conv_arar`
+     for 200, with phase 22's bars
      read on the recorded epochs where the discriminator ran (the skipped
-     halves' losses must be NaN), imaging_blur at (2, 3) with phase 26's
+     halves' losses must be NaN), imaging_blur at (2, 3) for 50 epochs
+     (phase 46 trains it for 200) with phase 26's
      bars; B1 (and B3) launched once on each epoch where a half runs and
      backward on the generator's epochs, no plain call; the epoch p50 of
      each combination of halves and the mean epoch beside phase 22's
@@ -325,7 +333,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      beside phase 22's;
      `throughput(PAPER)` at k 2 and 65,536 B (bf16, chunked, disc_every
      2 and depth together) with phase 40's bars and counts; imaging_blur
-     at k 2 with phase 26's bars and counts (B1 on u [512, 32], B3 on
+     at k 2 for 50 epochs (phase 46 trains it for 200) with phase 26's
+     bars and counts (B1 on u [512, 32], B3 on
      [512, 32, 32] and as its backward); 8 epochs of the exchange at k 3,
      h 2, 2 x 4 ranks, at fp32 and bf16, whole and at 65,536 B, on
      gradients drawn on the card: outputs and sync state bitwise the
@@ -359,11 +368,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
  46. the overlapped pod boundary (`overlap`: the epoch before a due one
      ships its inner-synced payload across the pod boundary into the
      outer mailbox, and the due epoch adds it, one epoch old), stacked:
-     `PAPER` with overlap at h 10 in `arar_arar` and `rma_arar_arar`
-     with metrics and a metrics file, 200 epochs each, with phase 22's
-     bars and counts: the header's schedule `overlap`, a row's
-     ship_count its epoch / 10, the final ship_count 20 and
-     exchange_count 200 on every rank; imaging_blur with overlap at h 10
+     `PAPER` with overlap at h 10 in `arar_arar` for 200 epochs and
+     `rma_arar_arar` for 50 (phase 48 trains it with the adaptive
+     schedule's overlap for 200), with metrics and a metrics file, with
+     phase 22's bars and counts: the header's schedule `overlap`, a row's
+     ship_count its epoch / 10, the final ship_count 20 (5) and
+     exchange_count 200 (50) on every rank; imaging_blur with overlap at h 10
      and 524,288 B with phase 26's bars and counts (B3 and its backward
      an epoch), beside phase 26's p50; 6 epochs of the exchange at h 2,
      depth 2, 2 x 4 ranks, at fp32 whole and at 65,536 B and at bf16, on
@@ -380,7 +390,33 @@ Phases, each reported on its own lines; any failure exits non-zero:
      must end finite): each rank's span shares and epoch p50 side by
      side, the overlap traces' `exchange.ship` spans on the ship epochs
      only and no `exchange.outer`, the sync traces' `exchange.outer` on
-     every epoch.
+     every epoch;
+ 48. adaptive staleness (`adaptive`: a controller moves the RMA read
+     depth k_eff in [1, k_max] on the skew the deposits' epoch tags show,
+     and under overlap opens the ship gate up to k_eff epochs before a
+     due one, once a cycle), stacked: `PAPER` adaptive at k_max 3 in
+     `rma_arar_arar` (h 1000) with metrics for 200 epochs, with phase
+     22's bars and counts, every epoch's obs row k_eff 1, skew 0 and
+     deposit age 0, and the final state bitwise phase 22's static depth-1
+     run from the same seed; `adaptive-overlap` at k_max 3, h 10 for 200
+     epochs with phase 22's bars, ship_count 20 on every rank;
+     imaging_blur adaptive at k_max 3 and 524,288 B for 50 epochs with
+     phase 26's bars and counts (B3 and its backward an epoch); 20 epochs
+     of the exchange with overlap at h 2, 2 x 4 ranks, at fp32 and bf16,
+     whole and at 65,536 B, on gradients drawn on the card, with tags set
+     3-5 epochs old before epochs 4-6: outputs, sync state (payload,
+     tags, controller) and obs rows bitwise the CPU's exchange of the
+     card's gradients, k_eff 1 -> 3 -> 1, one ship a cycle, some opened
+     early by the stretched gate; static depth 1 and adaptive in turns
+     (`scripts/payload_ab.py --lane adaptive`, 25 epochs a turn), with the
+     exchange alone a call;
+ 49. adaptive staleness as 8 workers: `adaptive-overlap` at k_max 3, h
+     2, 10 lock-step epochs bitwise `lockstep_reference`, every rank's
+     max_skew_ema 0 and max_k_eff 1, the inner deposit its payload and
+     tag in one window; 50 free-running epochs adaptive at k_max 4 with
+     rank r sleeping 5r ms an epoch: every leaf and d_loss finite, some
+     rank's max_skew_ema > 0 and max_k_eff > 1, every k_eff in [1, 4],
+     epoch p50 a rank.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -390,8 +426,8 @@ refuses [16, 256, 256] is reported there, not failed.
 
 Each served path runs with every kernel count set to 0 just before it and
 read just after it; the worker processes of phases 34-35, 37, 39, 41, 43,
-45 and 47 count their own launches and report them (the kernels line adds
-them).  The last lines are the `kernels` JSON line, the card's
+45, 47 and 49 count their own launches and report them (the kernels line
+adds them).  The last lines are the `kernels` JSON line, the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`.  Without CUDA, or
 without the repo's `src/repro_torch` beside it, the script exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -482,7 +518,7 @@ MOE_Y = dict(rtol=1e-4, atol=1e-5)   # phase 29: y (fp32) against float64,
                                      # atol in units of max |y|
 AUX_RTOL = 1e-6                 # phase 29, the aux loss
 ROUTE_GAP = 1e-6                # a top-k choice may differ below this gap
-MOE_TRAIN_STEPS = 50            # phase 32
+MOE_TRAIN_STEPS = 30            # phase 32 (phase 33 steps it again)
 MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")  # models.moe's
 PROC_BITWISE = (("rma_arar_arar", 2), ("conv_arar", 2))   # phase 34: mode, h
 PROC_BITWISE_EPOCHS = 10        # phase 34
@@ -511,6 +547,12 @@ OVERLAP_BITWISE_H = 2           # ... the card-vs-CPU exchange, 8 workers
 OVERLAP_EXCHANGE_EPOCHS = 6     # phase 46: the exchange card vs CPU
 OVERLAP_AB_EPOCHS = 25          # phase 46: epochs a turn, sync vs overlap
 OBS_PROFILED = 10               # phase 44's epochs under profile_dir
+ADAPTIVE_K = 3                  # phases 48-49: the adaptive k_max
+ADAPTIVE_FREE_K = 4             # phase 49's free run (tests/test_runtime.py)
+ADAPTIVE_LAG_MS = 5.0           # ... rank r sleeps r x this an epoch
+ADAPTIVE_EXCHANGE_EPOCHS = 20   # phase 48: the exchange card vs CPU
+ADAPTIVE_DRIVE = {4: 3, 5: 4, 6: 5}   # ... tags set this much older
+                                # before the epoch: k_eff 1 -> 3 -> 1
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -1990,7 +2032,7 @@ def gan_phases(dev, all_counts):
     one epoch on the card against the CPU, and a profile of PAPER epochs.
     Returns B1's launches over the counted training runs and, by ring
     mode, phase 22's (epoch p50 in ms, final generator stack on the CPU,
-    final ensemble mean|r̂|)."""
+    final ensemble mean|r̂|, final state outside "sync" on the CPU)."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED
@@ -2011,7 +2053,8 @@ def gan_phases(dev, all_counts):
             "22", f"GAN PAPER {mode}", dev, paper(mode), data, all_counts,
             gan_expect(paper(mode), GAN_EPOCHS, all_counts), gan_healthy)
         launches += got["inverse_cdf"][0]
-        finals[mode] = (p50, final["gen"], final["residual"])
+        finals[mode] = (p50, final["gen"], final["residual"],
+                        final["state"])
 
     # -- 23. one epoch on the card against the CPU ---------------------------
     for mode in GAN_MODES:
@@ -2061,9 +2104,11 @@ def problem_phases(dev, all_counts):
             torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
             device=dev)
         wcfg = for_problem(name, PAPER)
+        # imaging_blur cut to CUT_EPOCHS: phase 46 trains it for GAN_EPOCHS
+        n = CUT_EPOCHS if name == "imaging_blur" else GAN_EPOCHS
         got, p50s[name], _ = train_and_check(
             "26", f"{name} for_problem(PAPER)", dev, wcfg, data, all_counts,
-            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+            gan_expect(wcfg, n, all_counts), gan_improving, n_epochs=n)
         for k in launches:
             launches[k] += got[k][0]
 
@@ -2169,7 +2214,9 @@ def preset_name(wcfg):
     if (wcfg.disc_every, wcfg.gen_every) != (1, 1):
         name += (f" at disc_every {wcfg.disc_every}, gen_every "
                  f"{wcfg.gen_every}")
-    if wcfg.sync.staleness > 1:
+    if wcfg.sync.adaptive:
+        name += f", adaptive at k_max {wcfg.sync.staleness}"
+    elif wcfg.sync.staleness > 1:
         name += f", staleness {wcfg.sync.staleness}"
     if wcfg.sync.overlap:
         name += ", overlap"
@@ -2181,9 +2228,12 @@ def check_dtypes(label, state, wcfg):
     fp32 (int32 steps), the mailbox's masked leaves and the flat outer
     mailbox are in the payload's dtype, its biases fp32, and every mailbox
     leaf is its generator leaf's shape with the depth axis [R, k, ...]
-    where `staleness` k > 1."""
+    where `staleness` k > 1; under `adaptive`, the sync state is the flat
+    [R, k_max, D] payload in the payload's dtype, its int32 [R, k_max]
+    tags, the outer mailbox and the controller, as JAX's."""
     import torch
     from repro_torch.core import gan
+    from repro_torch.core import workflow as W
     from repro_torch.core.sync import payload_dtype_of
     from repro_torch.core.tree import tree_leaves, tree_paths
     wire = payload_dtype_of(wcfg.sync.payload_precision)
@@ -2192,6 +2242,26 @@ def check_dtypes(label, state, wcfg):
                                                 "disc_opt")
            for key, t in tree_paths(state[top])
            if t.dtype not in (torch.float32, torch.int32)]
+    if wcfg.sync.adaptive:
+        # the max-depth flat mailbox [R, k_max, D], its int32 tags and the
+        # controller: JAX's layout
+        R = state["epoch"].shape[0]
+        D = W.make_schedule(wcfg).spec.total
+        want = {"mailbox/payload": ((R, k, D), wire),
+                "mailbox/tag": ((R, k), torch.int32),
+                "outer_mailbox": ((R, D), wire),
+                "ctrl/skew_ema": ((R,), torch.float32),
+                "ctrl/k_eff": ((R,), torch.int32),
+                "ctrl/shipped_for": ((R,), torch.int32)}
+        got = {key: (tuple(t.shape), t.dtype)
+               for key, t in tree_paths(state["sync"])}
+        bad += [f"sync/{key} {got.get(key)}, not {v}"
+                for key, v in want.items() if got.get(key) != v]
+        bad += [f"sync/{key}" for key in set(got) - set(want)]
+        if bad:
+            fail(f"{label}: leaves of the wrong dtype or shape {bad[:6]} "
+                 f"(master state fp32, the adaptive sync state as JAX's)")
+        return
     mb = state["sync"]["mailbox"]
     bad += [f"sync/mailbox/{key} {t.dtype}" for m, (key, t) in zip(
         tree_leaves(gan.weight_mask(mb)), tree_paths(mb))
@@ -2261,10 +2331,26 @@ def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
     check_dtypes(label, out["state"], wcfg)
     spec = W.make_schedule(wcfg).spec
     deposit = spec.total * spec.payload_dtype.itemsize
-    if sum(windows) != deposit or len(windows) != spec.n_segments:
+    # the adaptive deposit carries its int32 epoch tag in the same
+    # transfer, windowed as one payload
+    wire = deposit + (4 if wcfg.sync.adaptive else 0)
+    n_windows = spec.n_segments if not wcfg.sync.adaptive else (
+        -(-wire // chunk) if 0 < chunk < wire else 1)
+    if sum(windows) != wire or len(windows) != n_windows:
         fail(f"{label}: the ring's windows 0 -> 1 hold {windows} B, a "
-             f"deposit of {spec.total} scalars in {spec.payload_dtype} is "
-             f"{deposit} B in {spec.n_segments} segments")
+             f"deposit of {spec.total} scalars in {spec.payload_dtype}"
+             f"{' and its tag' if wcfg.sync.adaptive else ''} is {wire} B "
+             f"in {n_windows} windows")
+    if wcfg.sync.adaptive:
+        skew = [(s["max_skew_ema"], s["max_k_eff"]) for s in out["summaries"]]
+        if skew != [(0.0, 1)] * R:
+            fail(f"{label}: (max_skew_ema, max_k_eff) by rank {skew}; "
+                 f"lock-step workers deposit at the same epoch, so every "
+                 f"rank must read skew 0 and keep k_eff 1")
+        print(f"{label}: every rank's max_skew_ema 0.0 and max_k_eff 1 "
+              f"(lock-step: each deposit's tag is exactly k_eff = 1 epoch "
+              f"old); the inner deposit {wire:,} B, its payload and its "
+              f"int32 tag in one transfer")
     if ships is not None:
         want = [e for e in range(PROC_BITWISE_EPOCHS)
                 if (e + 1) % wcfg.sync.h == 0]
@@ -2285,14 +2371,16 @@ def proc_bitwise(tag, dev, wcfg, data, all_counts, twin=None):
         tree_leaves(stacked[top]), tree_leaves(out["state"][top])))
         for top in ("gen", "disc")}
     also = " and phase 34's unchunked run" if twin is not None else ""
+    sync_what = ("the adaptive mailbox and its tags, the controller" if
+                 wcfg.sync.adaptive else "the mailbox's weights")
     runs = ", ".join(f"{k} {n[0]} times (backward {n[2]} launches, {n[3]} "
                      f"in PyTorch)" for k, n in
                      proc_expect(wcfg, PROC_BITWISE_EPOCHS).items() if n[0])
     print(f"{label} ({GAN_OUTER} x {GAN_INNER}) on one card, lock-step, "
           f"{PROC_BITWISE_EPOCHS} epochs, fp32 compute (TF32 off): the "
           f"final state (gen, gen_opt, disc, disc_opt, sync, epoch) bitwise "
-          f"the per-rank reference computed in this process{also}, the "
-          f"mailbox's weights and the outer mailbox "
+          f"the per-rank reference computed in this process{also}, "
+          f"{sync_what} and the outer mailbox in "
           f"{spec.payload_dtype}, the master state fp32; {deposit:,} B a "
           f"deposit ({spec.total:,} scalars) in {len(windows)} window(s) "
           f"0 -> 1 of {', '.join(f'{w:,}' for w in windows)} B; in each "
@@ -2339,15 +2427,15 @@ def gan_improving(d):
 
 
 def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
-                  d_bar=gan_healthy, n_epochs=None, **kw):
+                  d_bar=gan_healthy, n_epochs=None, inspect=None, **kw):
     """Phases 35, 37, 39 and 41: `wcfg` for `n_epochs` (None:
     GAN_EPOCHS) epochs as 8 workers: every state leaf and d_loss finite,
     the ensemble in (0, 1) and `d_bar(d_loss by epoch)` (under an update
     cadence, by the discriminator's epochs: `disc_due_losses`); per-rank
     epoch p50/p99 (and under a cadence, p50 by the halves that ran) and
     peak memory, events/s, start-up and wall time beside `stacked_p50`
-    (ms).  Returns
-    (the workers' counts, each rank's epoch p50 in ms)."""
+    (ms).  `inspect(out)`, where given, then reads `run_proc`'s result.
+    Returns (the workers' counts, each rank's epoch p50 in ms)."""
     import torch
     from repro_torch.core import gan
     from repro_torch.core.ensemble import ensemble_response
@@ -2412,6 +2500,8 @@ def proc_workflow(tag, label, dev, wcfg, data, all_counts, stacked_p50,
           f"stacked epoch p50 in the same run {stacked_p50:.3f} ms "
           f"({R * K * E / stacked_p50 * 1e3:,.0f} events/s); phase "
           f"{time.perf_counter() - t0:.1f} s")
+    if inspect is not None:
+        inspect(out)
     counts = out["counts"]
     del out, state, hist
     torch.cuda.empty_cache()
@@ -2492,24 +2582,29 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         device=dev)
 
     # -- 36. stacked: PAPER in both ring modes, imaging_blur, card vs CPU ---
-    for mode in GAN_MODES:
+    # rma_arar_arar cut to CUT_EPOCHS: phase 42 trains the bf16 payload in
+    # rma_arar_arar (throughput(PAPER), chunked, at depth 2) for GAN_EPOCHS
+    for mode, n in zip(GAN_MODES, (CUT_EPOCHS, GAN_EPOCHS)):
         wcfg = bf16(PAPER, mode=mode)
         got, p50, final = train_and_check(
             "36", f"GAN PAPER {mode} bf16 payload", dev, wcfg, data,
-            all_counts, gan_expect(wcfg, GAN_EPOCHS, all_counts),
-            gan_healthy)
+            all_counts, gan_expect(wcfg, n, all_counts), gan_healthy,
+            n_epochs=n)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
         p50s[mode] = p50
-        p50_32, gen_32, r_32 = fp32[mode]
+        p50_32, gen_32, r_32 = fp32[mode][:3]
         gap = max(float((a - b).abs().max()) for a, b in zip(
             tree_leaves(final["gen"]), tree_leaves(gen_32)))
         print(f"[36] GAN PAPER {mode} bf16 payload: epoch p50 {p50:.3f} ms "
               f"beside phase 22's fp32 {p50_32:.3f} ms in the same run "
-              f"({p50 / p50_32:.3f}x); after {GAN_EPOCHS} epochs from one "
-              f"seed, the generator parameters max |bf16 - fp32| {gap:.3e}, "
-              f"the ensemble's mean|r̂| {final['residual']:.4f} against "
-              f"{r_32:.4f} (|gap| {abs(final['residual'] - r_32):.4f}; "
-              f"printed, the bars are the healthy ones)")
+              f"({p50 / p50_32:.3f}x)" + (
+                  f"; after {n} epochs from one seed, the generator "
+                  f"parameters max |bf16 - fp32| {gap:.3e}, the ensemble's "
+                  f"mean|r̂| {final['residual']:.4f} against {r_32:.4f} "
+                  f"(|gap| {abs(final['residual'] - r_32):.4f}; printed, "
+                  f"the bars are the healthy ones)" if n == GAN_EPOCHS
+                  else f"; {n} epochs (phase 22 trains {GAN_EPOCHS}: no "
+                  f"generator gap printed)"))
 
     name = "imaging_blur"
     wcfg = bf16(for_problem(name, PAPER))
@@ -2611,12 +2706,15 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
               f"{SEED} bitwise an unchunked run on the card (the whole "
               f"state)")
         del states
+        # rma_arar_arar cut to CUT_EPOCHS: phase 42 trains it at 65,536 B
+        # (throughput(PAPER), at depth 2) for GAN_EPOCHS
+        n = CUT_EPOCHS if mode == "rma_arar_arar" else GAN_EPOCHS
         got, p50, final = train_and_check(
             "38", f"GAN PAPER {mode} ring_chunking {RING_CHUNK:,} B", dev,
-            wcfg, data, all_counts, gan_expect(wcfg, GAN_EPOCHS, all_counts),
-            gan_healthy)
+            wcfg, data, all_counts, gan_expect(wcfg, n, all_counts),
+            gan_healthy, n_epochs=n)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
-        p50_32, gen_32, r_32 = fp32[mode]
+        p50_32, gen_32, r_32 = fp32[mode][:3]
         gap = max(float((a - b).abs().max()) for a, b in zip(
             tree_leaves(final["gen"]), tree_leaves(gen_32)))
         R, K, E = GAN_OUTER * GAN_INNER, PAPER.n_param_samples, \
@@ -2624,10 +2722,12 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
         print(f"[38] GAN PAPER {mode} chunked: epoch p50 {p50:.3f} ms "
               f"({R * K * E / p50 * 1e3:,.0f} events/s) beside phase 22's "
               f"unchunked {p50_32:.3f} ms ({R * K * E / p50_32 * 1e3:,.0f} "
-              f"events/s) in the same run ({p50 / p50_32:.3f}x); after "
-              f"{GAN_EPOCHS} epochs the generator max |chunked - phase 22| "
-              f"{gap:.3e}, mean|r̂| {final['residual']:.4f} against "
-              f"{r_32:.4f}")
+              f"events/s) in the same run ({p50 / p50_32:.3f}x)" + (
+                  f"; after {n} epochs the generator max |chunked - phase "
+                  f"22| {gap:.3e}, mean|r̂| {final['residual']:.4f} against "
+                  f"{r_32:.4f}" if n == GAN_EPOCHS else
+                  f"; {n} epochs (phase 22 trains {GAN_EPOCHS}: no "
+                  f"generator gap printed)"))
 
     name = "imaging_blur"
     wcfg = chunked(for_problem(name, PAPER), IMAGE_RING_CHUNK)
@@ -2732,7 +2832,7 @@ def flags_text(by_flags):
 
 
 def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
-                    d_bar, n_epochs=None):
+                    d_bar, n_epochs=None, watch=None):
     """Train `wcfg` at R 8 (GAN_OUTER x GAN_INNER) for `n_epochs` (None:
     GAN_EPOCHS) epochs after an uncounted 2-epoch warm-up (phases 22 and
     26).  Fails unless
@@ -2746,7 +2846,9 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
     epoch p50 (ms) and {"gen": the final generator stack on the CPU,
     "residual": the final ensemble's mean|r̂|, "mean": the mean epoch
     (ms), "by_flags": `p50_by_flags` of the epochs, "obs": the final obs
-    tree on the CPU, None without metrics}.  Under an update
+    tree on the CPU, None without metrics, "state": every leaf outside
+    "sync" and "obs" on the CPU}.  `watch(e, metrics)`, where given, sees
+    each epoch's metrics as the run enqueues them.  Under an update
     cadence the bars read the discriminator's recorded epochs
     (`disc_due_losses`), and the epoch p50 of each combination of
     halves that ran is printed beside the mean."""
@@ -2773,6 +2875,8 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
+        if watch is not None:
+            watch(e, metrics)
     torch.cuda.reset_peak_memory_stats(dev)
     for cnt in all_counts.values():
         cnt.reset()                    # --- the counted main-path run ---
@@ -2842,7 +2946,9 @@ def train_and_check(tag, label, dev, wcfg, data, all_counts, expect,
              "residual": float(prob.mean_abs_residual(p_hat)),
              "mean": float(steps.mean()), "by_flags": by_flags,
              "obs": (tree_map(lambda t: t.cpu(), state["obs"])
-                     if "obs" in state else None)}
+                     if "obs" in state else None),
+             "state": tree_map(lambda t: t.cpu(), {
+                 k: v for k, v in state.items() if k not in ("sync", "obs")})}
     del state, hist
     torch.cuda.empty_cache()
     return got, p50, final
@@ -3176,13 +3282,15 @@ def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     t0 = time.perf_counter()
 
     # -- 40. stacked ----------------------------------------------------------
-    for label, wcfg in (
-            ("throughput(PAPER)", throughput(PAPER)),
+    # throughput(PAPER) cut to CUT_EPOCHS: phase 42 trains it (at depth 2,
+    # chunked) for GAN_EPOCHS
+    for label, wcfg, n in (
+            ("throughput(PAPER)", throughput(PAPER), CUT_EPOCHS),
             (f"PAPER conv_arar at disc_every {D}, gen_every {G}",
-             cadenced(PAPER, mode="conv_arar"))):
+             cadenced(PAPER, mode="conv_arar"), GAN_EPOCHS)):
         got, p50, final = train_and_check(
             "40", f"GAN {label}", dev, wcfg, data, all_counts,
-            gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_healthy)
+            gan_expect(wcfg, n, all_counts), gan_healthy, n_epochs=n)
         add_launches(launches, got)
         p50_22 = fp32[wcfg.sync.mode][0]
         print(f"[40] GAN {label}: mean epoch {final['mean']:.3f} ms "
@@ -3195,10 +3303,11 @@ def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
-    got, _, final = train_and_check(
+    got, _, final = train_and_check(          # phase 46 trains it for 200
         "40", f"{name} for_problem(PAPER) at disc_every {D}, gen_every {G}",
         dev, wcfg, blur_data, all_counts,
-        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+        gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_improving,
+        n_epochs=CUT_EPOCHS)
     add_launches(launches, got)
     print(f"[40] {name} at disc_every {D}, gen_every {G}: mean epoch "
           f"{final['mean']:.3f} ms beside phase 26's every-epoch p50 "
@@ -3399,10 +3508,11 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
-    got, p50, _ = train_and_check(
+    got, p50, _ = train_and_check(            # phase 46 trains it for 200
         "42", f"{name} for_problem(PAPER) at staleness {STALENESS}", dev,
         wcfg, blur_data, all_counts,
-        gan_expect(wcfg, GAN_EPOCHS, all_counts), gan_improving)
+        gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_improving,
+        n_epochs=CUT_EPOCHS)
     add_launches(launches, got)
     print(f"[42] {name} at staleness {STALENESS}: epoch p50 {p50:.3f} ms "
           f"beside phase 26's depth-1 p50 {imaging_blur_p50:.3f} ms in the "
@@ -3789,43 +3899,46 @@ def overlap_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
     R, n, h = GAN_OUTER * GAN_INNER, GAN_EPOCHS, OVERLAP_H
-    ships = [e for e in range(n) if (e + 1) % h == 0]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
     t0 = time.perf_counter()
     try:
         # -- 46. stacked ------------------------------------------------------
-        for mode in ("arar_arar", "rma_arar_arar"):
+        # rma_arar_arar cut to CUT_EPOCHS: phase 48 trains it with the
+        # adaptive schedule's overlap at h 10 for GAN_EPOCHS
+        for mode, m in (("arar_arar", n), ("rma_arar_arar", CUT_EPOCHS)):
             out = os.path.join(tmp, f"{mode}.jsonl")
+            ships = [e for e in range(m) if (e + 1) % h == 0]
             wcfg = dataclasses.replace(
                 overlapped(PAPER, mode=mode),
                 obs=ObsConfig(metrics=True, metrics_out=out))
-            label = f"GAN PAPER {mode} with overlap at h {h}, metrics on"
+            label = (f"GAN PAPER {mode} with overlap at h {h}, metrics on, "
+                     f"{m} epochs")
             got, p50, final = train_and_check(
                 "46", label, dev, wcfg, data, all_counts,
-                gan_expect(wcfg, n, all_counts), gan_healthy)
+                gan_expect(wcfg, m, all_counts), gan_healthy, n_epochs=m)
             add_launches(launches, got)
             header, rows = metrics_rows(out)
             want = {"schema": 1, "kind": "header", "problem": "proxy1d",
                     "schedule": "overlap", "payload_bytes": 203_264,
-                    "n_ranks": R, "n_epochs": n}
+                    "n_ranks": R, "n_epochs": m}
             got_rows = [(r["epoch"], r["ship_count"], r["exchange_count"])
                         for r in rows]
-            want_rows = [(e, e // h, e) for e in row_epochs(n)]
+            want_rows = [(e, e // h, e) for e in row_epochs(m)]
             obs = final["obs"]
             if header != want or got_rows != want_rows or \
                     obs["ship_count"].tolist() != [len(ships)] * R or \
-                    obs["exchange_count"].tolist() != [n] * R:
+                    obs["exchange_count"].tolist() != [m] * R:
                 fail(f"[46] {label}: the metrics file's header {header} "
                      f"(want {want}), its rows (epoch, ship_count, "
                      f"exchange_count) {got_rows} (want {want_rows}), or "
                      f"the final ship_count {obs['ship_count'].tolist()} "
                      f"and exchange_count {obs['exchange_count'].tolist()}"
-                     f" (want {len(ships)} and {n} on every rank)")
+                     f" (want {len(ships)} and {m} on every rank)")
             p50_22 = fp32.get(mode, (float("nan"),))[0]
             print(f"[46] {label}: header schedule 'overlap', "
                   f"{len(rows)} rows, each ship_count its epoch / {h}; "
                   f"ship_count {len(ships)} (epochs {ships[0]}, "
-                  f"{ships[1]}, ..., {ships[-1]}) and exchange_count {n} "
+                  f"{ships[1]}, ..., {ships[-1]}) and exchange_count {m} "
                   f"on every rank; epoch p50 {p50:.3f} ms beside phase "
                   f"22's sync p50 at h 1000 in {mode} {p50_22:.3f} ms "
                   f"(same run; nan where phase 22 trains no {mode})")
@@ -3945,6 +4058,280 @@ def overlap_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
               f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adaptive_exchange(dev):
+    """Phase 48's exchange on the card: ADAPTIVE_EXCHANGE_EPOCHS epochs of
+    `AdaptiveSchedule.exchange_with_obs` at k_max ADAPTIVE_K with overlap
+    at h OVERLAP_BITWISE_H, 2 x 4 ranks, at fp32 and bf16, whole and at
+    RING_CHUNK, on gradients drawn on the card, with skew driven in: the
+    tags of every written slot set ADAPTIVE_DRIVE[e] epochs old on the
+    card (and on the CPU) before epoch e.  Fails unless the outputs, the
+    SyncState (payload, tags, controller, outer mailbox) and the obs rows
+    are bitwise the same exchange run on the CPU from the card's
+    gradients, k_eff widens to k_max and narrows back to 1, and the
+    stretched ship gate ships once in each cycle of h."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER
+    from repro_torch.core import workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+
+    t0 = time.perf_counter()
+    R, n, h, k = GAN_OUTER * GAN_INNER, ADAPTIVE_EXCHANGE_EPOCHS, \
+        OVERLAP_BITWISE_H, ADAPTIVE_K
+    comm = VmapComm(GAN_OUTER, GAN_INNER)
+    example = W.make_schedule(PAPER).spec.zeros(None, "cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED + 48)
+    grads = [tree_map(lambda t: torch.randn((R,) + tuple(t.shape),
+                                            generator=g, device=dev),
+                      example) for _ in range(n)]
+    for prec in ("fp32", "bf16"):
+        for chunk in (0, RING_CHUNK):
+            sched = W.make_schedule(dataclasses.replace(
+                PAPER, sync=dataclasses.replace(
+                    PAPER.sync, h=h, staleness=k, adaptive=True,
+                    overlap=True, payload_precision=prec,
+                    ring_chunking=chunk)))
+            runs = []               # the card's, then the CPU's
+            for d in (dev, torch.device("cpu")):
+                st, outs = sched.init_state(R, d), []
+                for e in range(n):
+                    if e in ADAPTIVE_DRIVE:
+                        tags = st["mailbox"]["tag"]
+                        st["mailbox"]["tag"] = torch.where(
+                            tags >= 0, tags - ADAPTIVE_DRIVE[e], tags)
+                    synced, st, row = sched.exchange_with_obs(
+                        comm, tree_map(lambda t: t.to(d), grads[e]), st,
+                        torch.tensor(e, dtype=torch.int32, device=d))
+                    outs.append(tree_map(lambda t: t.cpu(),
+                                         (synced, st, row)))
+                runs.append(outs)
+            label = (f"[48] the adaptive exchange at k_max {k}, overlap at "
+                     f"h {h}, {prec} payload, ring_chunking {chunk:,} B, "
+                     f"skew driven in")
+            for e, (card, cpu) in enumerate(zip(*runs)):
+                diff = [key for (key, a), b in zip(
+                    tree_paths(card), tree_leaves(cpu))
+                    if a.dtype != b.dtype or not torch.equal(a, b)]
+                if diff:
+                    fail(f"{label}, epoch {e}: the card's outputs, sync "
+                         f"state or obs row differ from the CPU's exchange "
+                         f"of the card's gradients in {diff[:6]}")
+            rows = [c[2] for c in runs[0]]
+            ks = [int(r["k_eff"][0]) for r in rows]
+            ships = [int(r["shipped"][0]) for r in rows]
+            cycles = [sum(ships[c:c + h]) for c in range(0, n, h)]
+            early = [e for e in range(n) if ships[e] and (e + 1) % h]
+            if max(ks) != k or ks[-1] != 1 or cycles != [1] * (n // h) \
+                    or not early:
+                fail(f"{label}: k_eff by epoch {ks} (want it to widen to "
+                     f"{k} and narrow back to 1), ships by epoch {ships} "
+                     f"(want one a cycle of {h}, some opened early by the "
+                     f"stretched gate)")
+            ema = [round(float(r["skew_ema"][0]), 3) for r in rows]
+            print(f"{label} ({ADAPTIVE_DRIVE}: epoch -> epochs older): {n} "
+                  f"epochs on 2 x 4 ranks bitwise the CPU's exchange of the "
+                  f"card's gradients (outputs, the [{R}, {k}, "
+                  f"{sched.spec.total:,}] payload in "
+                  f"{sched.spec.payload_dtype}, the int32 tags, the "
+                  f"controller, the outer mailbox, the obs rows); k_eff by "
+                  f"epoch {ks}, skew EMA {ema}; ships at epochs "
+                  f"{[e for e in range(n) if ships[e]]}, one a cycle of "
+                  f"{h}, {early} opened {h - 1} epoch(s) before the "
+                  f"static gate")
+    print(f"[48] the adaptive exchange card vs CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+    """Phases 48-49: adaptive staleness (`adaptive`) on the card.  48,
+    stacked: PAPER adaptive at ADAPTIVE_K in `rma_arar_arar` (h 1000)
+    with metrics, phase 22's bars and counts, every epoch's obs row k_eff
+    1, skew 0 and deposit age 0, and the final state bitwise phase 22's
+    static run (`fp32`: mode -> (p50 ms, gen, residual, state)); PAPER
+    `adaptive-overlap` at ADAPTIVE_K and OVERLAP_H with phase 22's bars,
+    ship_count GAN_EPOCHS / OVERLAP_H on every rank; imaging_blur adaptive
+    at ADAPTIVE_K and IMAGE_RING_CHUNK for CUT_EPOCHS with phase 26's
+    bars and counts beside phase 26's p50 (`imaging_blur_p50`); the
+    exchange card vs CPU under driven skew (`adaptive_exchange`); static
+    depth 1 and adaptive in turns (`scripts/payload_ab.py --lane
+    adaptive`).  49, 8 workers: `adaptive-overlap` at ADAPTIVE_K, h
+    OVERLAP_BITWISE_H, bitwise `lockstep_reference` with skew 0 and k_eff
+    1 on every rank; PROC_FREE_EPOCHS free-running at ADAPTIVE_FREE_K,
+    rank r ADAPTIVE_LAG_MS x r late an epoch: finite, skew measured and
+    k_eff widened, beside phase 35's p50 a rank (`proc_p50`).  Returns
+    each kernel's launches over the counted runs."""
+    import dataclasses
+    import importlib.util
+    import io
+    import torch
+    from repro_torch.configs.sagips_gan import PAPER, for_problem
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.obs import ObsConfig
+    from repro_torch.problems import get_problem
+    from repro_torch.runtime import JitterConfig
+
+    def adaptive(wcfg, k=ADAPTIVE_K, metrics=False, **sync):
+        out = dataclasses.replace(wcfg, sync=dataclasses.replace(
+            wcfg.sync, staleness=k, adaptive=True, **sync))
+        return dataclasses.replace(out, obs=ObsConfig(metrics=True)) \
+            if metrics else out
+
+    launches = {k: 0 for k in all_counts}
+    data = get_problem("proxy1d").make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    R, n = GAN_OUTER * GAN_INNER, GAN_EPOCHS
+    t0 = time.perf_counter()
+
+    # -- 48. stacked ----------------------------------------------------------
+    # (a) PAPER adaptive, h 1000: zero skew, so bitwise phase 22's depth 1
+    wcfg = adaptive(PAPER, metrics=True)
+    off = []                    # an epoch whose row is not (1, 0, 0), on device
+
+    def watch(e, metrics):
+        o = metrics["obs"]
+        off.append((o["k_eff"] != 1).any() | (o["skew_ema"] != 0).any()
+                   | (o["deposit_age"] != 0).any())
+    label = f"GAN PAPER adaptive at k_max {ADAPTIVE_K}, metrics on"
+    got, p50, final = train_and_check(
+        "48", label, dev, wcfg, data, all_counts,
+        gan_expect(wcfg, n, all_counts), gan_healthy, watch=watch)
+    add_launches(launches, got)
+    bad_epochs = torch.nonzero(torch.stack(off)).flatten().tolist()
+    if bad_epochs or final["obs"]["exchange_count"].tolist() != [n] * R:
+        fail(f"[48] {label}: epochs {bad_epochs[:8]} have an obs row with "
+             f"k_eff != 1, skew != 0 or deposit age != 0, or the final "
+             f"exchange_count is {final['obs']['exchange_count'].tolist()} "
+             f"(want {n} on every rank)")
+    p50_22, _, _, state_22 = fp32[PAPER.sync.mode]
+
+    def differs(a, b):
+        return [k for (k, x), y in zip(tree_paths(a), tree_leaves(b))
+                if x.dtype != y.dtype or not torch.equal(x, y)]
+    diff = differs(final["state"], state_22)
+    if diff:
+        # is it the adaptive schedule, or does the card not repeat even
+        # phase 22's static run from the same seed?
+        from repro_torch.core import workflow as W
+        again, _ = W.train_stacked(SEED, PAPER, GAN_OUTER, GAN_INNER, n,
+                                   data, checkpoint_every=GAN_EVERY,
+                                   device=dev)
+        again = {k: v for k, v in again.items() if k != "sync"}
+        repeat = differs(tree_map(lambda t: t.cpu(), again), state_22)
+        fail(f"[48] {label}: the final state differs from phase 22's static "
+             f"rma_arar_arar run from the same seed in {diff[:6]}; phase "
+             f"22's static run again from that seed "
+             + (f"differs from phase 22's in {repeat[:6]}: the card does "
+                f"not repeat phase 22's run bitwise" if repeat else
+                "is bitwise phase 22's: the adaptive run is not"))
+    print(f"[48] {label}: every one of the {n} epochs' obs rows reads k_eff "
+          f"1, skew EMA 0, deposit age 0 (every rank deposits at the same "
+          f"epoch); the final state (gen, gen_opt, disc, disc_opt, epoch) "
+          f"bitwise phase 22's static depth-1 rma_arar_arar run from seed "
+          f"{SEED}; epoch p50 {p50:.3f} ms beside phase 22's {p50_22:.3f} "
+          f"ms in the same run ({p50 / p50_22:.3f}x)")
+    # (b) adaptive-overlap at h 10: phase 22's bars, a ship a cycle
+    h = OVERLAP_H
+    wcfg = adaptive(PAPER, metrics=True, overlap=True, h=h)
+    label = (f"GAN PAPER adaptive-overlap at k_max {ADAPTIVE_K}, h {h}, "
+             f"metrics on")
+    got, p50, final = train_and_check(
+        "48", label, dev, wcfg, data, all_counts,
+        gan_expect(wcfg, n, all_counts), gan_healthy)
+    add_launches(launches, got)
+    obs = final["obs"]
+    if obs["ship_count"].tolist() != [n // h] * R or \
+            obs["k_eff"].tolist() != [1] * R:
+        fail(f"[48] {label}: final ship_count {obs['ship_count'].tolist()}"
+             f" and k_eff {obs['k_eff'].tolist()}, want {n // h} and 1 on "
+             f"every rank")
+    print(f"[48] {label}: ship_count {n // h} and k_eff 1 on every rank; "
+          f"epoch p50 {p50:.3f} ms beside phase 22's {p50_22:.3f} ms")
+    # (c) imaging_blur adaptive, chunked
+    name = "imaging_blur"
+    wcfg = adaptive(for_problem(name, PAPER), ring_chunking=IMAGE_RING_CHUNK)
+    blur_data = get_problem(name).make_reference_data(
+        torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
+        device=dev)
+    got, p50, _ = train_and_check(
+        "48", f"{name} for_problem(PAPER) adaptive at k_max {ADAPTIVE_K}, "
+        f"ring_chunking {IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data,
+        all_counts, gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_improving,
+        n_epochs=CUT_EPOCHS)
+    add_launches(launches, got)
+    print(f"[48] {name} adaptive, {IMAGE_RING_CHUNK:,} B segments: epoch "
+          f"p50 {p50:.3f} ms beside phase 26's static whole p50 "
+          f"{imaging_blur_p50:.3f} ms (same run)")
+    del blur_data
+    # (d) the exchange alone, card vs CPU, skew driven in
+    adaptive_exchange(dev)
+    # (e) static depth 1 against adaptive, in turns
+    spec = importlib.util.spec_from_file_location(
+        "payload_ab", os.path.join(ROOT, "scripts", "payload_ab.py"))
+    payload_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(payload_ab)
+    argv = ["--lane", "adaptive", "--staleness", str(ADAPTIVE_K),
+            "--epochs", str(OVERLAP_AB_EPOCHS), "--device", dev.type]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        p50s, ex_ms = payload_ab.run(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"[48] payload_ab {' '.join(argv)}: {line}")
+    ratio = statistics.median(p50s["adaptive"]) / statistics.median(
+        p50s["static"])
+    print(f"[48] PAPER rma_arar_arar, in turns static depth 1, adaptive at "
+          f"k_max {ADAPTIVE_K}, adaptive, static: epoch p50 static "
+          + ", ".join(f"{v:.3f}" for v in p50s["static"]) + " ms, adaptive "
+          + ", ".join(f"{v:.3f}" for v in p50s["adaptive"])
+          + f" ms (adaptive / static {ratio:.3f}x); the exchange alone "
+          f"{ex_ms['static']:.4f} / {ex_ms['adaptive']:.4f} ms a call "
+          f"(+{ex_ms['adaptive'] - ex_ms['static']:.4f} ms)")
+    print(f"[48] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 49. as 8 worker processes -------------------------------------------
+    t0 = time.perf_counter()
+    counts, _ = proc_bitwise("49", dev, adaptive(
+        PAPER, overlap=True, h=OVERLAP_BITWISE_H), data, all_counts)
+    add_launches(launches, counts)
+    k_free, lag = ADAPTIVE_FREE_K, ADAPTIVE_LAG_MS
+    seen = {}
+
+    def inspect(out):
+        seen["skew"] = [s["max_skew_ema"] for s in out["summaries"]]
+        seen["k"] = [s["max_k_eff"] for s in out["summaries"]]
+        seen["hist"] = out["history"]["k_eff"]
+    counts, p50 = proc_workflow(
+        "49", f"free-running adaptive at k_max {k_free}, rank r sleeps r x "
+        f"{lag} ms an epoch", dev, adaptive(PAPER, k=k_free), data,
+        all_counts, fp32[PAPER.sync.mode][0],
+        d_bar=lambda d: (True, "finite"), n_epochs=PROC_FREE_EPOCHS,
+        inspect=inspect, lockstep=False,
+        jitter=JitterConfig(seed=SEED, rank_lag_ms=lag))
+    add_launches(launches, counts)
+    ks = seen["hist"]
+    if not (max(seen["skew"]) > 0 and max(seen["k"]) > 1
+            and float(ks.min()) >= 1 and float(ks.max()) <= k_free):
+        fail(f"[49] free-running adaptive, rank r {lag} ms x r late: "
+             f"max_skew_ema by rank {seen['skew']}, max_k_eff by rank "
+             f"{seen['k']}, k_eff in [{float(ks.min())}, {float(ks.max())}]"
+             f"; want some rank's skew > 0 and k_eff > 1, every k_eff in "
+             f"[1, {k_free}]")
+    first = [int(np.argmax(ks[:, r].numpy() > 1)) if bool((ks[:, r] > 1)
+             .any()) else None for r in range(R)]
+    print(f"[49] free-running adaptive at k_max {k_free}, rank r {lag} ms x "
+          f"r late, {PROC_FREE_EPOCHS} epochs: max_skew_ema by rank "
+          + ", ".join(f"{v:.3f}" for v in seen["skew"])
+          + f"; max_k_eff by rank {seen['k']} (first epoch above 1 by rank "
+          f"{first}); every k_eff in [1, {k_free}]; epoch p50 a rank "
+          f"{np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
+          f"{np.median(p50):.3f}) beside phase 35's lock-step static "
+          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms; phase "
+          f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return launches
 
@@ -4645,6 +5032,13 @@ def main():
         launches[k] = launches.get(k, 0) + v
 
     clock("46-47")
+    # -- 48-49. adaptive staleness, stacked and as workers -----------------
+    n = adaptive_phases(dev, all_counts, gan_fp32,
+                        problem_p50["imaging_blur"], proc_p50)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+
+    clock("48-49")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

@@ -3,15 +3,19 @@
 in turns, on one card: fp32 against bf16 (`--lane payload`, the default),
 the fp32 payload unchunked against chunked (`--lane chunked`), the RMA
 mailbox at depth 1 against depth k (`--lane depth`, `--staleness K`,
-default 2), or the sync schedule against the overlapped pod boundary
+default 2), the sync schedule against the overlapped pod boundary
 (`--lane overlap`, at `--h H`, default 10: a ship and a due combine
-every H epochs).
+every H epochs), or static depth 1 against adaptive staleness at k_max
+`--staleness K` (`--lane adaptive`: stacked, the skew is 0 and k_eff
+stays 1, so the two differ by the adaptive exchange's own work).
 
     PYTHONPATH=src python scripts/payload_ab.py [--problem imaging_blur]
     PYTHONPATH=src python scripts/payload_ab.py --lane chunked \
         [--problem imaging_blur] [--ring-chunking BYTES]
     PYTHONPATH=src python scripts/payload_ab.py --lane depth [--staleness 3]
     PYTHONPATH=src python scripts/payload_ab.py --lane overlap [--h 10]
+    PYTHONPATH=src python scripts/payload_ab.py --lane adaptive \
+        [--staleness 3]
     PYTHONPATH=src python scripts/payload_ab.py --device cpu --epochs 4
 
 Each turn trains `PAPER` (or `for_problem(name, PAPER)`) stacked at R 8 as
@@ -22,7 +26,8 @@ two variants), so a drift of the card shows as a gap between the two
 runs of one variant.  The chunked lane cuts the payload into segments of
 `--ring-chunking` bytes (default 65,536, and 524,288 for the image
 problems: 4 and 3 segments).  Then `StaticSchedule.exchange` alone on
-random gradients at the generator's widths: its time a call (CUDA events
+random gradients at the generator's widths (`AdaptiveSchedule.exchange`
+in the adaptive lane): its time a call (CUDA events
 over 200 calls, after warm-up, the epoch counter advancing a call) for
 each variant.  `--h` sets the outer ring's period in every lane (default:
 the preset's, 1,000; 10 in the overlap lane).  `--profile N` then runs N
@@ -52,12 +57,14 @@ def run(argv=None):
     ap.add_argument("--problem", default="proxy1d")
     ap.add_argument("--epochs", type=int, default=200)
     ap.add_argument("--lane", choices=("payload", "chunked", "depth",
-                                       "overlap"), default="payload")
+                                       "overlap", "adaptive"),
+                    default="payload")
     ap.add_argument("--h", type=int, default=None,
                     help="the outer ring's period (default: the preset's; "
                          "10 in the overlap lane)")
     ap.add_argument("--staleness", type=int, default=2,
-                    help="the depth lane's RMA mailbox depth k")
+                    help="the depth lane's RMA mailbox depth k, the "
+                         "adaptive lane's k_max")
     ap.add_argument("--ring-chunking", type=int, default=None,
                     help="the chunked lane's segment size in bytes")
     ap.add_argument("--turns", default=None,
@@ -101,17 +108,20 @@ def run(argv=None):
     problem = get_problem(args.problem)
     chunk = args.ring_chunking or (524_288 if problem.param_shape
                                    else 65_536)
-    # variant -> (payload precision, ring chunking, mailbox depth, overlap)
+    # variant -> (payload precision, ring chunking, mailbox depth (k_max
+    # when adaptive), overlap, adaptive)
     variants = {
-        "payload": {"fp32": ("fp32", 0, 1, False),
-                    "bf16": ("bf16", 0, 1, False)},
-        "chunked": {"unchunked": ("fp32", 0, 1, False),
-                    "chunked": ("fp32", chunk, 1, False)},
-        "depth": {"depth1": ("fp32", 0, 1, False),
+        "payload": {"fp32": ("fp32", 0, 1, False, False),
+                    "bf16": ("bf16", 0, 1, False, False)},
+        "chunked": {"unchunked": ("fp32", 0, 1, False, False),
+                    "chunked": ("fp32", chunk, 1, False, False)},
+        "depth": {"depth1": ("fp32", 0, 1, False, False),
                   f"depth{args.staleness}": ("fp32", 0, args.staleness,
-                                             False)},
-        "overlap": {"sync": ("fp32", 0, 1, False),
-                    "overlap": ("fp32", 0, 1, True)},
+                                             False, False)},
+        "overlap": {"sync": ("fp32", 0, 1, False, False),
+                    "overlap": ("fp32", 0, 1, True, False)},
+        "adaptive": {"static": ("fp32", 0, 1, False, False),
+                     "adaptive": ("fp32", 0, args.staleness, False, True)},
     }[args.lane]
     a, b = variants
     turns = (args.turns or f"{a},{b},{b},{a}").split(",")
@@ -119,10 +129,10 @@ def run(argv=None):
     h = args.h or (10 if args.lane == "overlap" else base.sync.h)
 
     def wcfg_of(variant):
-        prec, ring_chunking, depth, overlap = variants[variant]
+        prec, ring_chunking, depth, overlap, adaptive = variants[variant]
         return dataclasses.replace(base, sync=dataclasses.replace(
             base.sync, payload_precision=prec, ring_chunking=ring_chunking,
-            staleness=depth, overlap=overlap, h=h))
+            staleness=depth, overlap=overlap, adaptive=adaptive, h=h))
 
     data = problem.make_reference_data(
         torch.Generator(device=dev).manual_seed(99), 50_000, device=dev)
@@ -138,8 +148,8 @@ def run(argv=None):
           f"h {h}, {args.epochs} epochs a turn, lane {args.lane}: "
           + ", ".join(f"{v} = {p} payload, ring_chunking {c}, "
                       f"staleness {k}, schedule "
-                      f"{'overlap' if o else 'sync'}"
-                      for v, (p, c, k, o) in variants.items())
+                      f"{W.make_schedule(wcfg_of(v)).name}"
+                      for v, (p, c, k, _, _) in variants.items())
           + f", on {name}", flush=True)
     epochs = {}
     for variant in turns:

@@ -18,8 +18,16 @@ device: bitwise JAX's `lax.cond`, which selects between the same two
 values, and the epoch reads nothing back.  `ProcComm` branches in
 Python instead, so an off-epoch moves no bytes.
 
+Deposit tags (`make_deposit_tag`, the JAX package's lines 39–52): the
+adaptive schedule (`core.sync.AdaptiveSchedule`) stamps every RMA
+mailbox deposit with the producer's epoch counter.  The tag rides the
+same `recv_ring_inner` transfer as the payload, one tree holding both,
+so the reader's `epoch - tag` is the deposit's true age: 0 skew on
+`VmapComm`, where every rank deposits at the same epoch, and the
+measured skew of free-running `ProcComm` workers.
+
 The mesh backend (`ShardComm`, ranks on several cards) is ROADMAP.md
-queue A item 6; the deposit tags of the adaptive schedule are item 3.
+queue A item 6.
 """
 from __future__ import annotations
 
@@ -28,6 +36,16 @@ import dataclasses
 import torch
 
 from .tree import tree_map
+
+
+def make_deposit_tag(epoch, n_lead: int):
+    """The int32 epoch tag [n_lead] deposited beside a ring payload: the
+    device epoch counter `epoch` (a 0-d tensor) expanded on its device,
+    nothing read back.  The port's backends are stacked-first, so
+    `n_lead` is the leading axis: n_ranks on `VmapComm`, 1 for a
+    `ProcComm` worker (the JAX package's per-rank scalar)."""
+    e = torch.as_tensor(epoch)
+    return e.to(torch.int32).reshape(1).expand(n_lead)
 
 
 class Comm:

@@ -2,8 +2,8 @@
 
 Counterpart of `repro.core.sync`: the strategy layer (`sync_gradients`,
 `_sync_core`, lines 494–647) and the schedule layer (`SyncSchedule`,
-`StaticSchedule`, `make_schedule`, lines 654–802, with the metrics
-channel), over any stacked-first
+`StaticSchedule`, `AdaptiveSchedule`, `make_schedule`, lines 654–1065,
+with the metrics channel), over any stacked-first
 `ring.Comm`: the simulated ranks of `ring.VmapComm` or one worker process
 of `runtime.proccomm.ProcComm`.
 
@@ -86,8 +86,25 @@ joined back around the exchange, so chunked and whole are bitwise equal.
 The metrics row's ship flag is `(epoch + 1) % h == 0` under overlap
 with more than one pod, made on the device.
 
-Not ported yet, raising `NotImplementedError` from `SyncConfig`
-(ROADMAP.md queue A item 3): adaptive staleness (`adaptive`).
+Adaptive staleness (`SyncConfig.adaptive`, rma_arar_arar with a fused
+payload; the JAX package's lines 805–1065): `AdaptiveSchedule` keeps a
+max-depth mailbox of k_max = `staleness` slots, each deposit tagged with
+its producer's epoch (`ring.make_deposit_tag`), and reads the slot
+deposited k_eff epochs ago.  A controller (`adaptive_controller_step`)
+smooths the observed skew, `epoch - tag - k_eff` clamped at 0 and
+averaged over the ranks (`Comm.pmean_all`), into an EMA and moves
+k_eff in [1, k_max] with a deadband; under overlap the ship gate opens
+up to k_eff epochs before a due one, once a cycle (`shipped_for`).  The
+payload and its tag cross the ring as one tree, and the deposit enters
+`_sync_core` through its `deposit` argument.  On `VmapComm` every rank
+deposits at the same epoch, so the skew is 0, k_eff stays 1 and the run
+is bitwise depth-1 rma_arar_arar; free-running `ProcComm` workers
+measure a real skew.  Slot, tag, controller and gate stay on the
+device, so an epoch on `VmapComm` reads nothing back.
+
+Schedules (`make_schedule`): `StaticSchedule` (`name` "sync" or
+"overlap") for every configuration but `adaptive`, which builds
+`AdaptiveSchedule` (`name` "adaptive").
 """
 from __future__ import annotations
 
@@ -97,7 +114,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from .ring import Comm
+from .ring import Comm, make_deposit_tag
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 MODES = ("ensemble", "allreduce", "conv_arar", "arar_arar", "rma_arar_arar",
@@ -110,8 +127,6 @@ PAYLOAD_PRECISIONS = ("fp32", "bf16")
 
 # modes with a distinct inner/outer ring split
 GROUPED_MODES = ("arar_arar", "rma_arar_arar")
-
-SCHEDULE_ITEM = "ROADMAP.md queue A item 3 (the schedule layer)"
 
 # dtype of the obs tree's float gauges (the JAX package's CTRL_DTYPE)
 CTRL_DTYPE = torch.float32
@@ -128,10 +143,6 @@ def payload_dtype_of(precision: str):
         f"{PAYLOAD_PRECISIONS}")
 
 
-def _later(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: {SCHEDULE_ITEM}")
-
-
 @dataclasses.dataclass(frozen=True)
 class SyncConfig:
     mode: str = "arar_arar"
@@ -140,12 +151,12 @@ class SyncConfig:
     staleness: int = 1             # RMA mailbox depth k (paper: 1)
     fuse_tensors: bool = True      # one fused ring payload per exchange
     overlap: bool = False          # pipelined pod-boundary exchange
-    adaptive: bool = False         # queue A item 3
+    adaptive: bool = False         # adaptive staleness (AdaptiveSchedule)
     payload_precision: str = "fp32"  # wire dtype of the fused payload
     ring_chunking: int = 0         # ring segment size in bytes (0: one)
 
     def __post_init__(self):
-        # the JAX package's validation, message for message ...
+        # the JAX package's validation, message for message
         if self.mode not in MODES:
             raise ValueError(f"unknown sync mode {self.mode!r}")
         if self.payload_precision not in PAYLOAD_PRECISIONS:
@@ -199,9 +210,6 @@ class SyncConfig:
                 "ring_chunking only changes how the fused ring payload "
                 f"crosses the ring; mode={self.mode!r} has no ring payload "
                 f"(ring modes: {RING_MODES})")
-        # ... then what is valid there but not ported yet
-        if self.adaptive:
-            _later("adaptive staleness (adaptive=True, AdaptiveSchedule)")
 
 
 # ----------------------------------------------------------------------------
@@ -456,12 +464,14 @@ def sync_gradients(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
 
 
 def _sync_core(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
-               mask=None, outer_mb=None, ship_due=None):
+               mask=None, outer_mb=None, ship_due=None, deposit=None):
     """Returns (synced, new_mailbox, new_outer_mb).  `outer_mb` is read
     and written only by the grouped modes under `cfg.overlap`, with more
     than one pod; every other path passes it through.  `ship_due`
     overrides the overlap ship's predicate (None: the next epoch is
-    due)."""
+    due).  `deposit` is the rma mode's fresh deposit when the caller
+    already received it (the adaptive schedule's bundled payload and
+    tag); None receives it here with `recv_ring_inner(grads)`."""
     mode, combine = cfg.mode, cfg.combine
     if mode == "ensemble":
         return grads, mailbox, outer_mb
@@ -494,7 +504,9 @@ def _sync_core(comm: Comm, cfg: SyncConfig, grads, mailbox, epoch,
         synced = tree_map(lambda a, b: _comb(a, b, combine), grads, mailbox)
         # ... and deposit this epoch's fresh local grads for the successor;
         # unmasked mailbox leaves keep their old (never-read) contents
-        new_mailbox = _masked(mask, comm.recv_ring_inner(grads), mailbox)
+        if deposit is None:
+            deposit = comm.recv_ring_inner(grads)
+        new_mailbox = _masked(mask, deposit, mailbox)
     else:
         raise ValueError(f"unknown sync mode {mode!r}")
 
@@ -636,7 +648,205 @@ class StaticSchedule(SyncSchedule):
         }
 
 
+# the adaptive controller's constants: the EMA's smoothing of the observed
+# skew, and the deadband that holds k_eff while the EMA hovers at a
+# rounding boundary
+ADAPT_ALPHA = 0.2
+ADAPT_DEADBAND = 0.25
+
+
+def adaptive_k_eff(skew_ema, k_max: int):
+    """The read depth the smoothed skew implies: 1 + round(ema) (half to
+    even, as `jnp.round`), clipped to [1, k_max], int32."""
+    return torch.clamp(torch.round(1.0 + skew_ema), 1, k_max).to(torch.int32)
+
+
+def adaptive_controller_step(ctrl, observed_skew, k_max: int,
+                             alpha: float = ADAPT_ALPHA,
+                             deadband: float = ADAPT_DEADBAND):
+    """One EMA step of the staleness controller, on the device: the EMA
+    takes `(1 - alpha)·ema + alpha·skew` in fp32, in that order, and
+    k_eff moves to `adaptive_k_eff(ema)` only when the implied depth
+    `1 + ema` lies more than `0.5 + deadband` from the current one
+    (deadband 0: the plain rounding controller).  Zero skew decays the
+    EMA to 0 and holds k_eff at 1.  `ctrl` holds "skew_ema" (fp32) and
+    "k_eff" (int32) in any layout; returns them stepped."""
+    ema = (1.0 - alpha) * ctrl["skew_ema"] + alpha * observed_skew
+    k_cur = torch.clamp(ctrl["k_eff"], 1, k_max).to(torch.int32)
+    implied = 1.0 + ema
+    move = (implied - k_cur.to(CTRL_DTYPE)).abs() > 0.5 + deadband
+    k_new = torch.where(move, adaptive_k_eff(ema, k_max), k_cur)
+    return {"skew_ema": ema, "k_eff": k_new.to(torch.int32)}
+
+
+class AdaptiveSchedule(SyncSchedule):
+    """Adaptive staleness (`SyncConfig.adaptive`, mode rma_arar_arar).
+
+    SyncState, with the leading rank axis [L] (R on `VmapComm`, 1 in a
+    `ProcComm` worker):
+      mailbox.payload  [L, k_max, D] in the payload dtype: slot e % k_max
+                       takes epoch e's deposit, slot (e - k_eff) % k_max
+                       is read
+      mailbox.tag      [L, k_max] int32, each slot's producer epoch (-1:
+                       never written; such a read is the zero payload and
+                       counts 0 skew)
+      outer_mailbox    [L, D], the overlap pod-boundary window
+      ctrl.skew_ema    [L] fp32, the EMA of the observed skew
+      ctrl.k_eff       [L] int32, the read depth, always in [1, k_max]
+      ctrl.shipped_for [L] int32, the due epoch the last overlap ship
+                       served (-1: none), so the stretched gate ships once
+                       a cycle however k_eff moves
+
+    The controller is pmean-reduced, so the ranks of one `VmapComm` hold
+    the same k_eff; rank 0's copy picks the slot, as in the JAX package.
+    Every step is a device op on the epoch counter: no read-back."""
+
+    @property
+    def name(self) -> str:
+        return "adaptive"
+
+    @property
+    def k_max(self) -> int:
+        return self.cfg.staleness
+
+    def init_state(self, n_ranks: Optional[int], device=None):
+        lead = () if n_ranks is None else (n_ranks,)
+        return {
+            "mailbox": {
+                "payload": torch.zeros(lead + (self.k_max, self.spec.total),
+                                       dtype=self.spec.payload_dtype,
+                                       device=device),
+                "tag": torch.full(lead + (self.k_max,), -1,
+                                  dtype=torch.int32, device=device),
+            },
+            "outer_mailbox": self.spec.zero_payload(n_ranks, device),
+            "ctrl": {
+                "skew_ema": torch.zeros(lead, dtype=CTRL_DTYPE,
+                                        device=device),
+                "k_eff": torch.ones(lead, dtype=torch.int32, device=device),
+                "shipped_for": torch.full(lead, -1, dtype=torch.int32,
+                                          device=device),
+            },
+        }
+
+    def exchange(self, comm: Comm, grads, sync_state, epoch):
+        synced, new_state, _ = self._exchange(comm, grads, sync_state,
+                                              epoch, with_obs=False)
+        return synced, new_state
+
+    def exchange_with_obs(self, comm: Comm, grads, sync_state, epoch):
+        # the row holds the exchange's own values: the post-step k_eff and
+        # EMA, the clamped observed age and the ship decision
+        return self._exchange(comm, grads, sync_state, epoch, with_obs=True)
+
+    def _exchange(self, comm: Comm, grads, sync_state, epoch,
+                  with_obs: bool):
+        cfg, spec, k_max = self.cfg, self.spec, self.k_max
+        payload = sync_state["mailbox"]["payload"]
+        tags = sync_state["mailbox"]["tag"]
+        ctrl = sync_state["ctrl"]
+        obs_shape = ctrl["skew_ema"].shape       # the rank layout [L]
+        dev = payload.device
+        if spec.total == 0:        # all-False mask: nothing rides the ring
+            row = {
+                "k_eff": ctrl["k_eff"].expand(obs_shape),
+                "skew_ema": ctrl["skew_ema"],
+                "deposit_age": torch.zeros(obs_shape, dtype=CTRL_DTYPE,
+                                           device=dev),
+                "shipped": torch.zeros(obs_shape, dtype=torch.int32,
+                                       device=dev),
+            } if with_obs else None
+            return grads, sync_state, row
+        epoch = torch.as_tensor(epoch, device=dev)
+
+        # -- read the slot deposited k_eff epochs ago (a [1] device index;
+        # `%` is a floor modulo: epoch - k_eff is negative at epoch 0)
+        k_eff = ctrl["k_eff"][0]
+        slot_r = ((epoch - k_eff) % k_max).reshape(1).to(torch.int64)
+        mb_flat = payload.index_select(1, slot_r).squeeze(1)
+        tag_read = tags.index_select(1, slot_r).squeeze(1)
+
+        # -- the controller: the observed age beyond k_eff, clamped at 0
+        # (only a lagging producer widens the window), 0 for an unwritten
+        # slot, averaged over the ranks
+        observed = torch.where(
+            tag_read >= 0, (epoch - tag_read - k_eff).to(CTRL_DTYPE),
+            torch.zeros_like(tag_read, dtype=CTRL_DTYPE))
+        observed = torch.clamp_min(observed, 0.0)
+        skew = comm.pmean_all(observed)
+        new_ctrl = adaptive_controller_step(
+            {"skew_ema": ctrl["skew_ema"], "k_eff": ctrl["k_eff"]}, skew,
+            k_max)
+        new_k = new_ctrl["k_eff"][0]
+
+        # -- the overlap ship gate, stretched by k_eff: open at the first
+        # epoch within `lead` of the next due one, once a cycle
+        shipped_for = ctrl["shipped_for"]
+        sf = shipped_for[0]
+        lead = torch.clamp(new_k, 1, cfg.h)
+        to_due = cfg.h - epoch % cfg.h
+        next_due = epoch + to_due
+        ship_now = (to_due <= lead) & (sf != next_due)
+        if cfg.overlap:
+            new_ctrl["shipped_for"] = torch.where(
+                ship_now, next_due, sf).to(torch.int32).expand(
+                    shipped_for.shape)
+        else:                      # no pod-boundary pipeline: no ships
+            new_ctrl["shipped_for"] = shipped_for
+
+        # -- payload and tag cross the ring in one transfer, so a worker's
+        # tag always describes the payload it came with
+        tag_self = make_deposit_tag(epoch, obs_shape[0])
+        nseg = spec.n_segments
+        fg_w = spec.flatten(grads, True)
+        fmb_w = mb_flat
+        fmask = {"w": True}
+        if nseg > 1:
+            fg_w, fmb_w = spec.split_payload(fg_w), spec.split_payload(fmb_w)
+            fmask = {"w": (True,) * nseg}
+        bundle = comm.recv_ring_inner({"w": fg_w, "tag": tag_self})
+
+        fomb = None
+        if cfg.overlap:
+            fomb = {"w": sync_state["outer_mailbox"] if nseg == 1 else
+                    spec.split_payload(sync_state["outer_mailbox"])}
+        fsynced, fdeposit, fnew_omb = _sync_core(
+            comm, cfg, {"w": fg_w}, {"w": fmb_w}, epoch, fmask,
+            outer_mb=fomb, ship_due=ship_now, deposit={"w": bundle["w"]})
+        synced = spec.unflatten(spec.join_payload(fsynced["w"]) if nseg > 1
+                                else fsynced["w"], grads, True)
+        deposit_w = spec.join_payload(fdeposit["w"]) if nseg > 1 \
+            else fdeposit["w"]
+        new_omb = sync_state["outer_mailbox"]
+        if fnew_omb is not None:
+            new_omb = spec.join_payload(fnew_omb["w"]) if nseg > 1 \
+                else fnew_omb["w"]
+
+        # -- slot e % k_max takes the deposit and its tag, out of place
+        # (stored flat: the buffer does not depend on chunking)
+        slot_w = (epoch % k_max).reshape(1).to(torch.int64)
+        new_payload = payload.index_copy(
+            1, slot_w, deposit_w.unsqueeze(1).to(payload.dtype))
+        new_tags = tags.index_copy(1, slot_w, bundle["tag"].unsqueeze(1))
+        row = None
+        if with_obs:
+            shipped = ship_now if cfg.overlap else torch.zeros(
+                (), dtype=torch.bool, device=dev)
+            row = {
+                "k_eff": new_k.expand(obs_shape).to(torch.int32),
+                "skew_ema": new_ctrl["skew_ema"],
+                "deposit_age": observed,
+                "shipped": shipped.expand(obs_shape).to(torch.int32),
+            }
+        return synced, {
+            "mailbox": {"payload": new_payload, "tag": new_tags},
+            "outer_mailbox": new_omb,
+            "ctrl": new_ctrl,
+        }, row
+
+
 def make_schedule(cfg: SyncConfig, mask, spec: FusionSpec) -> SyncSchedule:
-    """The schedule of `cfg`: every configuration `SyncConfig` accepts in
-    the port is a static one, sync or overlap (adaptive raises there)."""
-    return StaticSchedule(cfg, mask, spec)
+    """The schedule of `cfg`: `AdaptiveSchedule` under `cfg.adaptive`,
+    else `StaticSchedule` (sync or overlap, at any RMA depth)."""
+    cls = AdaptiveSchedule if cfg.adaptive else StaticSchedule
+    return cls(cfg, mask, spec)

@@ -91,9 +91,20 @@ old), on both backends and with every --problem, payload, cadence and
         --mode rma_arar_arar --sync-schedule overlap --h 3 --ranks 4 \
         --inner 2 --epochs 12
 
-The adaptive schedules (`adaptive`, `adaptive-overlap`, --max-staleness)
-are ROADMAP.md queue A item 3: they raise.  The run
-ends with the ensemble against the truth, the serving-path solve
+`adaptive` (rma_arar_arar only, as in the JAX example) reads the RMA
+mailbox k_eff epochs old, k_eff in [1, --max-staleness] moved by a
+controller on the skew the deposits' epoch tags show, and
+`adaptive-overlap` adds the overlapped pod boundary with its ship gate
+stretched by k_eff.  Stacked, every rank deposits at the same epoch, so
+k_eff stays 1; free-running workers measure the skew, and each rank's
+line then shows its max_skew_ema and max_k_eff:
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gan --backend proc \
+        --num-procs 2 --device cpu --mode rma_arar_arar --sync-schedule \
+        adaptive --max-staleness 4 --jitter-rank-lag-ms 40 --epochs 25 \
+        --param-samples 16 --events 2000
+
+The run ends with the ensemble against the truth, the serving-path solve
 (`core.workflow.make_solver`) on the reference events, and the kernels'
 launches and plain calls.
 """
@@ -111,7 +122,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import sagips_gan
 from repro_torch.core import gan, workflow
 from repro_torch.core.ensemble import ensemble_response
-from repro_torch.core.sync import MODES, PAYLOAD_PRECISIONS, SCHEDULE_ITEM
+from repro_torch.core.sync import MODES, PAYLOAD_PRECISIONS
 from repro_torch.kernels import build
 from repro_torch.kernels.imaging import blur_counts, mask_counts
 from repro_torch.kernels.inverse_cdf import counts as icdf_counts
@@ -190,8 +201,10 @@ def proc_backend(args, wcfg, n_outer, n_inner, data, dev):
         obs = (f"; obs: {obs['exchange_count']} exchanges of "
                f"{obs['payload_bytes']:,} B, {obs['ship_count']} ships, max "
                f"deposit age {obs['max_deposit_age']:g}" if obs else "")
+        skew = (f" max_skew_ema={s['max_skew_ema']:.2f} "
+                f"max_k_eff={s['max_k_eff']}" if wcfg.sync.adaptive else "")
         print(f"  rank {s['rank']} on {s['device']}: {n} epochs from "
-              f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s{obs}")
+              f"{s['start_epoch']}, {p50}, {s['wall_s']:.2f} s{obs}{skew}")
     h = out["history"]
     if len(h["d_loss"]):
         rows = [{k: h[k][i] for k in ("d_loss", "g_loss")}
@@ -247,12 +260,13 @@ def main(argv=None):
     ap.add_argument("--sync-schedule",
                     choices=("sync", "overlap", "adaptive",
                              "adaptive-overlap"), default="sync",
-                    help="sync, or overlap: ship the pod-boundary payload "
-                         "at epoch t, add it at t+1 (the adaptive ones "
-                         "are not ported yet and raise)")
-    ap.add_argument("--max-staleness", type=int, default=None,
-                    help="the adaptive schedule's k_max (not ported yet: "
-                         "raises)")
+                    help="sync; overlap: ship the pod-boundary payload "
+                         "at epoch t, add it at t+1; adaptive: a controller "
+                         "moves the RMA read depth k_eff in [1, "
+                         "--max-staleness] on the measured skew "
+                         "(rma_arar_arar only); adaptive-overlap: both")
+    ap.add_argument("--max-staleness", type=int, default=4,
+                    help="the adaptive schedules' widest read depth k_max")
     ap.add_argument("--payload-precision", choices=PAYLOAD_PRECISIONS,
                     default="fp32",
                     help="wire dtype of the fused ring payload")
@@ -290,21 +304,19 @@ def main(argv=None):
                          "of the epoch loop (trace.json) in this directory")
     args = ap.parse_args(argv)
 
-    later = [f for f, on in (
-        (f"--sync-schedule {args.sync_schedule}",
-         args.sync_schedule.startswith("adaptive")),
-        ("--max-staleness", args.max_staleness is not None)) if on]
-    if later:
-        raise NotImplementedError(f"{', '.join(later)}: not ported yet, "
-                                  f"{SCHEDULE_ITEM}")
-    dev = resolve_device(args.device)
+    adaptive = args.sync_schedule.startswith("adaptive")
     base = {"paper": sagips_gan.PAPER,
             "reduced": sagips_gan.REDUCED}[args.preset]
+    if adaptive and (args.mode or base.sync.mode) != "rma_arar_arar":
+        ap.error("--sync-schedule adaptive needs --mode rma_arar_arar "
+                 "(the only mode with an RMA mailbox)")
+    dev = resolve_device(args.device)
     sync = dataclasses.replace(
         base.sync, fuse_tensors=not args.no_fuse,
         payload_precision=args.payload_precision,
-        ring_chunking=args.ring_chunking, staleness=args.staleness,
-        overlap=args.sync_schedule == "overlap",
+        ring_chunking=args.ring_chunking,
+        staleness=args.max_staleness if adaptive else args.staleness,
+        overlap=args.sync_schedule.endswith("overlap"), adaptive=adaptive,
         **{k: v for k, v in (("mode", args.mode), ("h", args.h))
            if v is not None})
     trace_dir = args.trace_dir

@@ -17,9 +17,9 @@ host scheduler happens to do:
 
 The sleeps land BEFORE the epoch's compute, i.e. they model a slow
 sampler/pipeline stage, and the deposit tags then carry the resulting
-epoch-count skew into the exchange (the adaptive controller that reads it
-is ROADMAP.md queue A item 3) — no part of the schedule layer knows
-jitter exists.
+epoch-count skew into the exchange, where the adaptive schedule's
+controller (`core.sync.AdaptiveSchedule`) reads it and widens its read
+depth k_eff — no part of the schedule layer knows jitter exists.
 """
 from __future__ import annotations
 

@@ -32,7 +32,12 @@ so the span covers the compute and not its dispatch.  With `metrics` the
 exchange is `exchange_with_obs`, the state carries the obs tree, the
 history keeps `deposit_age` and `shipped` (the tracer gets the
 `deposit_age` counter) and the summary an "obs" entry (payload_bytes,
-ship_count, exchange_count, max_deposit_age).
+ship_count, exchange_count, max_deposit_age).  Under the adaptive
+schedule the history also keeps each epoch's `skew_ema` and `k_eff`
+(rank 0's copy of the controller, as the JAX worker reads it; the
+tracer gets counters of those names), and every summary has
+`max_skew_ema` and `max_k_eff` (0 and 1 when the schedule is not
+adaptive).
 
 The parent stacks the final states into the `[R, ...]` layout and the
 histories into `[T, R, ...]`, so what reads a `train_stacked` result reads
@@ -515,8 +520,11 @@ def _worker_main(rank: int, run_dir: str) -> int:
     barrier.arrive_and_wait("run start")
     t_start = time.time()
     obs_on = wcfg.obs.metrics
+    adaptive = wcfg.sync.adaptive
     hist = {"d_loss": [], "g_loss": [], "epoch_s": [], "residuals": [],
             "pred_params": []}
+    if adaptive:
+        hist["skew_ema"], hist["k_eff"] = [], []
     if obs_on:
         hist["deposit_age"], hist["shipped"] = [], []
     span = obs_trace.span
@@ -558,6 +566,13 @@ def _worker_main(rank: int, run_dir: str) -> int:
             hist[k].append(float(metrics[k][0]))
         for k in ("residuals", "pred_params"):
             hist[k].append(metrics[k][0].tolist())
+        if adaptive:
+            ctrl = state["sync"]["ctrl"]
+            hist["skew_ema"].append(float(ctrl["skew_ema"][0]))
+            hist["k_eff"].append(int(ctrl["k_eff"][0]))
+            if tracer is not None:
+                tracer.counter("skew_ema", hist["skew_ema"][-1])
+                tracer.counter("k_eff", hist["k_eff"][-1])
         if obs_on:
             hist["deposit_age"].append(float(state["obs"]["deposit_age"][0]))
             hist["shipped"].append(int(state["obs"]["shipped"][0]))
@@ -582,6 +597,8 @@ def _worker_main(rank: int, run_dir: str) -> int:
                               if cuda else None),
         "counts": {k: [c.launches, c.plain_calls, c.backward_launches,
                        c.backward_plain] for k, c in counts.items()},
+        "max_skew_ema": max(hist.get("skew_ema") or [0.0]),
+        "max_k_eff": max(hist.get("k_eff") or [1]),
         "history": hist,
     }
     if obs_on:

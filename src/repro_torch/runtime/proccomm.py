@@ -53,6 +53,14 @@ Rank layout matches `VmapComm`: global rank = outer * n_inner + inner
 `recv_hypercube` (the dbtree mode) is unsupported, as in the JAX package:
 a log2(R)-stage barrier tree has no free-running reading.
 
+The adaptive schedule's deposit is one tree, {"w": payload or its
+segments, "tag": int32 [1] producer epoch}, so it crosses `_transfer`
+as one serialized payload (the tag's 4 bytes first, in `jax.tree.leaves`
+order), windowed as `window_bytes` says: a tag always arrives with the
+payload it describes, and a free-running read before the first deposit
+is zeros with a -1 tag.  Its skew crosses `pmean_all`'s board as one
+fp32 [1].
+
 The overlap schedule's ship (`ship_outer`, the JAX package's lines
 205–221) crosses a channel of its own, "ship" (`mbx_*_ship.bin`, or
 `mbx_*_shipw<i>.bin` in windows), so its call count, one a ship epoch,
@@ -243,9 +251,11 @@ class ProcComm(Comm):
     def cond_ship(self, ship_due, tree, fallback):
         """A Python branch, not a select: an off-epoch moves no bytes.
         `ship_due` is read back to the host (one scalar; the exchange
-        copies its payload to the host anyway).  In lock-step the
-        predicate is the same on every rank, so the ship channel's call
-        counters stay paired."""
+        copies its payload to the host anyway).  The adaptive schedule's
+        stretched gate (k_eff and `shipped_for`) reaches it the same way,
+        as the `ship_due` of `_sync_core`.  In lock-step the predicate is
+        the same on every rank, so the ship channel's call counters stay
+        paired."""
         if bool(ship_due):
             return self.ship_outer(tree)
         return fallback

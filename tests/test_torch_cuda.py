@@ -1052,6 +1052,58 @@ def test_overlap_exchange_on_the_card_is_bitwise_the_cpus(sm90_card, k):
                 before = omb
 
 
+ADAPTIVE_CARD = [(ov, p, c) for ov in (False, True)
+                 for p, c in (("fp32", 0), ("fp32", 65_536), ("bf16", 0))]
+
+
+@pytest.mark.parametrize("overlap,prec,chunk", ADAPTIVE_CARD,
+                         ids=[f"{'overlap' if ov else 'sync'}-{p}-{c}"
+                              for ov, p, c in ADAPTIVE_CARD])
+def test_adaptive_exchange_with_driven_skew_is_bitwise_the_cpus(
+        sm90_card, overlap, prec, chunk):
+    """Adaptive staleness at k_max 3, h 4 (2 x 4 ranks, 20 epochs), with
+    skew driven in through tags set 3-5 epochs old before epochs 4-6:
+    the outputs, the SyncState (payload, tags, controller) and the obs
+    rows on the card are bitwise the CPU's on the same gradients; k_eff
+    widens to 3 and narrows back to 1, and under overlap the stretched
+    gate ships once in each cycle of 4."""
+    from repro_torch.core import sync, workflow as W
+    from repro_torch.core.ring import VmapComm
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    rng = np.random.default_rng(11)
+    widths = gan.gen_widths()
+    grads = [[{"w": rng.standard_normal((8, a, b)).astype(np.float32),
+               "b": rng.standard_normal((8, b)).astype(np.float32)}
+              for a, b in zip(widths[:-1], widths[1:])] for _ in range(20)]
+    drive = {4: 3, 5: 4, 6: 5}
+    wcfg = W.WorkflowConfig(sync=sync.SyncConfig(
+        mode="rma_arar_arar", h=4, staleness=3, adaptive=True,
+        overlap=overlap, payload_precision=prec, ring_chunking=chunk))
+    out = {}
+    for dev in ("cpu", sm90_card):
+        sched = W.make_schedule(wcfg)
+        st, runs = sched.init_state(8, dev), []
+        for e, g in enumerate(grads):
+            if e in drive:
+                tags = st["mailbox"]["tag"]
+                st["mailbox"]["tag"] = torch.where(tags >= 0,
+                                                   tags - drive[e], tags)
+            synced, st, row = sched.exchange_with_obs(
+                VmapComm(2, 4), tree_map(lambda a: torch.from_numpy(
+                    a).to(dev), g), st,
+                torch.tensor(e, dtype=torch.int32, device=dev))
+            runs.append(tree_map(lambda t: t.cpu(), (synced, st, row)))
+        out[str(dev)] = runs
+    for e, (got, want) in enumerate(zip(out[str(sm90_card)], out["cpu"])):
+        for (key, a), b in zip(tree_paths(got), tree_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (e, key)
+    ks = [int(r[2]["k_eff"][0]) for r in out["cpu"]]
+    ships = [int(r[2]["shipped"][0]) for r in out["cpu"]]
+    assert max(ks) == 3 and ks[-1] == 1
+    assert [sum(ships[c:c + 4]) for c in range(0, 20, 4)] == \
+        ([1] * 5 if overlap else [0] * 5)
+
+
 @pytest.mark.parametrize("name", ["proxy2d", "linear_blur", "imaging",
                                   "imaging_blur"])
 def test_every_problem_trains_on_its_kernels(sm90_card, name):

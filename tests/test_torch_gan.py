@@ -411,16 +411,15 @@ def test_sync_config_errors_match_jax(kw):
     dict(ring_chunking=4096, mode="arar_arar")],
     ids=["staleness", "overlap", "adaptive", "chunking"])
 def test_schedule_features_raise_with_their_item(kw):
-    """The features of queue A item 3 still to port raise with the item;
-    the chunked ring (3b), the depth-k mailbox (3d) and the overlapped pod
-    boundary (3f) are ported and take the JAX config as is."""
+    """Every feature of queue A item 3 is ported: the depth-k mailbox
+    (3d), the overlapped pod boundary (3f), adaptive staleness (3g) and
+    the chunked ring (3b) take the JAX config as is, and build the JAX
+    package's schedule."""
     want = JS.SyncConfig(**kw)          # valid in the JAX package
-    if "adaptive" not in kw:
-        assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
-            dataclasses.asdict(want)
-        return
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        sync.SyncConfig(**kw)
+    got = sync.SyncConfig(**kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert workflow.make_schedule(workflow.WorkflowConfig(sync=got)).name \
+        == JW.make_schedule(JW.WorkflowConfig(sync=want)).name
 
 
 def test_workflow_features_raise_with_their_item():
@@ -688,17 +687,16 @@ def test_train_gan_cli_on_the_cpu(capsys):
     assert ("summed over the workers: 0 kernel launches, 6 plain calls, 6 "
             "backward passes") in out
     assert "serving-path solve" in out
-    # the overlap schedule (3f) runs; the adaptive ones raise with item 3
-    train_gan.main(["--device", "cpu", "--ranks", "4", "--inner", "2",
-                    "--epochs", "4", "--h", "2", "--events", "2000",
-                    "--sync-schedule", "overlap"])
-    out = capsys.readouterr().out
-    assert "schedule=overlap" in out and "ranks=2x2" in out
-    for argv in (["--sync-schedule", "adaptive"],
-                 ["--sync-schedule", "adaptive-overlap"],
-                 ["--max-staleness", "3"]):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            train_gan.main(["--device", "cpu"] + argv)
+    # the overlap schedule (3f) and the adaptive ones (3g) run
+    for sched, k in (("overlap", 1), ("adaptive", 3),
+                     ("adaptive-overlap", 3)):
+        train_gan.main(["--device", "cpu", "--ranks", "4", "--inner", "2",
+                        "--epochs", "4", "--h", "2", "--events", "2000",
+                        "--sync-schedule", sched, "--max-staleness", "3"])
+        out = capsys.readouterr().out
+        name = "adaptive" if sched.startswith("adaptive") else "overlap"
+        assert f"schedule={name} staleness={k}" in out and \
+            "ranks=2x2" in out
 
 
 def test_train_gan_cli_without_device_raises_here():

@@ -11,12 +11,14 @@ against the JAX package, on the CPU:
               tests/test_obs.py::test_chunk_row_reduces_last_epoch
   trajectory  4 epochs of `train_stacked` against JAX's `train_vmap` with
               metrics and a metrics file, 2 x 2, in `rma_arar_arar` at
-              k 2, in `conv_arar` and at disc_every 2, gen_every 3: the
+              k 2, adaptive at k_max 3 with overlap, in `conv_arar` and
+              at disc_every 2, gen_every 3: the
               history's obs integer fields, the file's header and the
               rows' obs fields exactly equal
   inert       metrics on against off: every leaf outside "obs" bitwise;
               with metrics off no obs method runs and the state has no
-              "obs" key; an epoch with metrics on reads nothing back
+              "obs" key; an epoch with metrics on reads nothing back,
+              under the static and the adaptive schedule
   proc        a 2-worker free run with `trace_dir` and jitter, whose
               traces `scripts/obsview.py` merges with the span and
               counter names of tests/test_obs.py; 2 lock-step workers
@@ -179,6 +181,8 @@ def test_chunk_row_reduces_last_epoch():
 
 TRAJECTORY = {
     "rma-k2": (dict(mode="rma_arar_arar", h=2, staleness=2), {}),
+    "adaptive-k3": (dict(mode="rma_arar_arar", h=2, staleness=3,
+                         adaptive=True, overlap=True), {}),
     "conv": (dict(mode="conv_arar", h=2), {}),
     "cadence-2-3": (dict(mode="rma_arar_arar", h=2),
                     dict(disc_every=2, gen_every=3)),
@@ -277,6 +281,29 @@ def test_epoch_with_metrics_reads_nothing_back(monkeypatch):
     assert metrics["obs"]["k_eff"].tolist() == [2] * 4
 
 
+def test_adaptive_epoch_with_metrics_reads_nothing_back(monkeypatch):
+    """The adaptive schedule's epoch (slot, tag, controller, pmean and
+    stretched ship gate) stays on the device too."""
+    _, wcfg = _wcfgs(dict(mode="rma_arar_arar", h=2, staleness=3,
+                          adaptive=True, overlap=True), dict(metrics=True))
+    g = torch.Generator().manual_seed(0)
+    state, data = workflow.init_run(g, 4, wcfg, _data(), "cpu")
+    epoch = workflow.make_epoch_fn(2, 2, wcfg)
+    draws = [workflow.make_draws(g, wcfg, 4, data.shape[1])
+             for _ in range(3)]
+    for name in ("item", "tolist", "__int__", "__index__", "__float__",
+                 "__bool__"):
+        def refuse(*_, name=name):
+            raise AssertionError(f"Tensor.{name}: a read-back")
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    for e in range(3):
+        state, metrics = epoch(state, data, draws[e], e)
+    monkeypatch.undo()
+    assert metrics["obs"]["exchange_count"].tolist() == [3] * 4
+    assert metrics["obs"]["k_eff"].tolist() == [1] * 4
+    assert metrics["obs"]["ship_count"].tolist() == [1] * 4
+    assert state["sync"]["mailbox"]["tag"][0].tolist() == [0, 1, 2]
+
 # ----------------------------------------------------------------------------
 # the proc runtime's traces
 
@@ -284,8 +311,9 @@ def test_epoch_with_metrics_reads_nothing_back(monkeypatch):
 def test_proc_free_run_traces_merge_with_obsview(tmp_path):
     """2 free-running workers with jitter and `trace_dir`: rank trace
     files that `scripts/obsview.py` merges, with the spans and counters
-    of tests/test_obs.py's proc run (the adaptive counters come with
-    queue A item 3g), and each summary's obs entry."""
+    of tests/test_obs.py's proc run under the static schedule (the
+    adaptive schedule's `skew_ema` and `k_eff` counters are pinned in
+    tests/test_torch_adaptive.py), and each summary's obs entry."""
     _, wcfg = _wcfgs(dict(mode="rma_arar_arar", h=1000),
                      dict(metrics=True, trace_dir="trace"))
     run_dir = str(tmp_path / "run")

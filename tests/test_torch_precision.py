@@ -470,13 +470,11 @@ def test_throughput_preset_matches_jax():
                     p.gen_lr) == (j.disc_every, j.gen_every,
                                   j.n_param_samples, j.gen_lr)
     assert sagips_gan.throughput().disc_every == 2
-    # 3g still raises; 3b (the chunked ring), 3d (the depth-k mailbox)
-    # and 3f (the overlapped pod boundary) take the JAX config
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        sync.SyncConfig(mode="rma_arar_arar", payload_precision="bf16",
-                        adaptive=True)
+    # 3b (the chunked ring), 3d (the depth-k mailbox), 3f (the
+    # overlapped pod boundary) and 3g (adaptive staleness) take the JAX
+    # config at the bf16 payload
     for extra in (dict(ring_chunking=4096), dict(staleness=2),
-                  dict(overlap=True)):
+                  dict(overlap=True), dict(staleness=3, adaptive=True)):
         kw = dict(mode="rma_arar_arar", payload_precision="bf16", **extra)
         assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
             dataclasses.asdict(JS.SyncConfig(**kw))

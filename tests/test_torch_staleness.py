@@ -107,13 +107,12 @@ def test_config_takes_jax_fields_and_errors():
         with pytest.raises(ValueError) as got:
             sync.SyncConfig(**kw)
         assert str(got.value) == str(want.value)
-    # depth composes with the overlapped pod boundary (3f) as in JAX;
-    # adaptive staleness (3g) is not ported yet
-    kw = dict(mode="rma_arar_arar", staleness=2, overlap=True)
-    assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
-        dataclasses.asdict(JS.SyncConfig(**kw))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        sync.SyncConfig(mode="rma_arar_arar", staleness=2, adaptive=True)
+    # depth composes with the overlapped pod boundary (3f) and with
+    # adaptive staleness (3g, the depth as k_max) as in JAX
+    for kw in (dict(mode="rma_arar_arar", staleness=2, overlap=True),
+               dict(mode="rma_arar_arar", staleness=2, adaptive=True)):
+        assert dataclasses.asdict(sync.SyncConfig(**kw)) == \
+            dataclasses.asdict(JS.SyncConfig(**kw))
 
 
 # ----------------------------------------------------------------------------
