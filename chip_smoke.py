@@ -115,8 +115,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (each step's batch is new random tokens, and the spread between
      batches is larger than what 50 steps at lr 3e-4 take off, so a
      step's loss against another's is not the test); step time p50/p99,
-     tokens/s, peak memory; then profile 3 steps: the card's busy share
-     and B5's share of its time;
+     tokens/s, peak memory; then profile PROFILED_STEPS (1) step: the
+     card's busy share and B5's share of its time;
  20. one training step on the card and on the CPU from the same weights
      and batch, at full width, depth 2, fp32, TF32 off: mamba2-130m at
      batch 1, seq 1024 (two chunks, so the state carries across chunks)
@@ -229,7 +229,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      backward passes through the plain VJP, no plain call; every loss
      finite, and the loss of 4 held-out batches lower after training than
      before; step p50/p99, tokens/s, peak memory, the aux loss, the drops;
-     then profile 3 steps: the card's busy share and the shares of the
+     then profile PROFILED_STEPS (1) step: the card's busy share and the
+     shares of the
      expert GEMMs, the routing and dispatch (sort, scatter, gather,
      forward and backward) and B4;
  33. one granite-moe-3b-a800m training step on the card and on the CPU as
@@ -416,7 +417,31 @@ Phases, each reported on its own lines; any failure exits non-zero:
      tag in one window; 50 free-running epochs adaptive at k_max 4 with
      rank r sleeping 5r ms an epoch: every leaf and d_loss finite, some
      rank's max_skew_ema > 0 and max_k_eff > 1, every k_eff in [1, 4],
-     epoch p50 a rank.
+     epoch p50 a rank;
+ 50. B4 at hubert-xlarge's calls (16 heads of 80, G 1, no mask, row
+     stride 2,560 B): `flash_attention_model` on q [8, 1024, 16, 1, 80]
+     (the encode pass) and [8, 256, 16, 1, 80] (a training step) bf16,
+     the wgmma route, against its plain version at 2e-2 (the largest
+     error joins the kernels line's); each timed as phase 12 times
+     tinyllama's, beside the plain version,
+     `scaled_dot_product_attention(is_causal=False)` (timed, never used
+     by the port) and the bound (4·B·H·hd·S² FLOP at the bf16 peak, or
+     q, k, v and o's bytes);
+ 51. hubert-xlarge's encode pass at full size (48 layers, bf16, random
+     weights from a seed, `param_count` 1,259,715,840), batch 8 x 1024
+     frames under `torch.no_grad`: 48 B4 launches a pass, all wgmma, no
+     plain call, logits [8, 1024, 504] finite; pass p50 / p99 over 20
+     counted passes after an uncounted one, frames/s, peak memory, a
+     profile of one pass; then full width, depth 2, fp32 with TF32 off,
+     batch 1, 256 frames on the card and on the CPU from one seed's
+     weights: logits within 1e-3;
+ 52. hubert-xlarge trained at full size by `training.Trainer` through
+     `TokenStream` at the `launch/train` defaults (batch 8, 256 frames,
+     lr 3e-4) for 30 steps: 96 B4 launches (forward and remat
+     recompute) and 48 plain-VJP backward passes a step, no plain
+     forward, every loss finite, the loss of 4 held-out batches lower
+     after than before; step p50 / p99, frames/s, peak memory, a profile
+     of PROFILED_STEPS (1) step.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -519,6 +544,8 @@ MOE_Y = dict(rtol=1e-4, atol=1e-5)   # phase 29: y (fp32) against float64,
 AUX_RTOL = 1e-6                 # phase 29, the aux loss
 ROUTE_GAP = 1e-6                # a top-k choice may differ below this gap
 MOE_TRAIN_STEPS = 30            # phase 32 (phase 33 steps it again)
+PROFILED_STEPS = 1              # phases 19, 32, 52: steps under the profiler
+                                # (reading a step's events back takes ~6 s)
 MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")  # models.moe's
 PROC_BITWISE = (("rma_arar_arar", 2), ("conv_arar", 2))   # phase 34: mode, h
 PROC_BITWISE_EPOCHS = 10        # phase 34
@@ -553,6 +580,11 @@ ADAPTIVE_LAG_MS = 5.0           # ... rank r sleeps r x this an epoch
 ADAPTIVE_EXCHANGE_EPOCHS = 20   # phase 48: the exchange card vs CPU
 ADAPTIVE_DRIVE = {4: 3, 5: 4, 6: 5}   # ... tags set this much older
                                 # before the epoch: k_eff 1 -> 3 -> 1
+AUDIO_ARCH = "hubert-xlarge"    # phases 50-52
+HUBERT_PARAMS = 1_259_715_840   # the JAX init's leaves
+ENCODE_BATCH, ENCODE_FRAMES = 8, 1024   # phase 51: the encoder's prefill
+ENCODE_PASSES = 20              # phase 51's counted passes
+AUDIO_TRAIN_STEPS = 30          # phase 52, as phase 32's granite
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -1376,14 +1408,17 @@ def train_phases(dev, all_counts):
                               ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.run(stream, 3, log_every=3, log=lambda s: None)
+        trainer.run(stream, PROFILED_STEPS, log_every=PROFILED_STEPS,
+                    log=lambda s: None)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    n_prof = PROFILED_STEPS
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not on_card:
-        print(f"[19] {TRAIN_ARCH} 3 profiled steps: the profiler recorded no "
-              f"device events: the card's busy share is not measured")
+        print(f"[19] {TRAIN_ARCH} {n_prof} profiled step(s): the profiler "
+              f"recorded no device events: the card's busy share is not "
+              f"measured")
     else:
         busy, groups = {}, {}
         for e in on_card:
@@ -1396,18 +1431,21 @@ def train_phases(dev, all_counts):
                    "backward of B5)")
             groups[grp] = groups.get(grp, 0.0) + us
         total = sum(busy.values())
-        print(f"[19] {TRAIN_ARCH} 3 profiled steps: {wall_us / 3e3:.2f} ms "
-              f"a step on the host clock under the profiler, card busy "
-              f"{total / 3e3:.2f} ms a step ({100 * total / wall_us:.1f}%), "
-              f"{len(on_card) // 3} device ops a step")
+        print(f"[19] {TRAIN_ARCH} {n_prof} profiled step(s): "
+              f"{wall_us / n_prof / 1e3:.2f} ms a step on the host clock "
+              f"under the profiler, card busy {total / n_prof / 1e3:.2f} ms "
+              f"a step ({100 * total / wall_us:.1f}%), "
+              f"{len(on_card) // n_prof} device ops a step")
         for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
+            print(f"[19]   {us / n_prof / 1e3:9.3f} ms a step "
+                  f"({100 * us / total:5.1f}"
                   f"%)  {grp}")
         b5 = groups.get("B5 ssd_kernel", 0.0)
         print(f"[19] {TRAIN_ARCH}: B5's share of the card's time "
-              f"{100 * b5 / total:.1f}% ({b5 / 3e3:.3f} ms a step)")
+              f"{100 * b5 / total:.1f}% ({b5 / n_prof / 1e3:.3f} ms a step)")
         for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"[19]   {us / 3e3:9.3f} ms a step ({100 * us / total:5.1f}"
+            print(f"[19]   {us / n_prof / 1e3:9.3f} ms a step "
+                  f"({100 * us / total:5.1f}"
                   f"%)  {name[:90]}")
     launches = got["ssd_scan"][0]
     del trainer, stream, events, losses, prof
@@ -1857,11 +1895,12 @@ def moe_phases(dev, all_counts):
                               ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.run(stream, 3, log_every=3, log=lambda s: None)
+        trainer.run(stream, PROFILED_STEPS, log_every=PROFILED_STEPS,
+                    log=lambda s: None)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile("32", MOE_TRAIN_ARCH, prof, wall_us, 3, "step",
-                   moe_step_part)
+    report_profile("32", MOE_TRAIN_ARCH, prof, wall_us, PROFILED_STEPS,
+                   "step", step_part)
     del trainer, stream, events, losses, auxes, prof, held_out
     torch.cuda.empty_cache()
 
@@ -1872,10 +1911,10 @@ def moe_phases(dev, all_counts):
 
 def report_profile(tag, what, prof, wall_us, n, unit, label):
     """Print the profile `prof` of `n` `unit`s that took `wall_us` on the
-    host's clock (phases 24, 28 and 32): the card's busy share, device ops
-    a unit, the card's time by `label(lower kernel name, the profiler's
-    CPU op that launched the kernel)` with the share of it so traced, and
-    the ten longest kernels.  Returns (label -> us, busy us), or None when
+    host's clock (phases 24, 28, 32, 51 and 52): the card's busy share,
+    device ops a unit, the card's time by `label(lower kernel name, the
+    profiler's CPU op that launched the kernel)` with the share of it so
+    traced, and the ten longest kernels.  Returns (label -> us, busy us), or None when
     the profiler recorded no device events."""
     import torch
     kind = torch.autograd.DeviceType
@@ -1912,13 +1951,14 @@ def report_profile(tag, what, prof, wall_us, n, unit, label):
     return groups, total
 
 
-def moe_step_part(low, op):
-    """Phase 32's label of a kernel: B4 by its name; else by the outermost
-    labelled range or autograd node it was launched from: the MoE ranges
-    of `models.moe` ("moe.experts"; "moe.dispatch" and "moe.combine") and
-    the backward nodes of the expert matmuls (BmmBackward) and of the
-    dispatch's sorts, scatters and gathers; B4's backward is the node of
-    its wrapper (the VJP of the plain version); the rest by kernel name."""
+def step_part(low, op):
+    """Phases 32's, 51's and 52's label of a kernel: B4 by its name; else
+    by the outermost labelled range or autograd node it was launched from:
+    the MoE ranges of `models.moe` ("moe.experts"; "moe.dispatch" and
+    "moe.combine") and the backward nodes of the expert matmuls
+    (BmmBackward) and of the dispatch's sorts, scatters and gathers; B4's
+    backward is the node of its wrapper (the VJP of the plain version);
+    the rest by kernel name."""
     def part(name):
         if name == MOE_RANGES[1] or "BmmBackward" in name:
             return "expert GEMMs and SwiGLU (forward, recompute, backward)"
@@ -1937,7 +1977,7 @@ def moe_step_part(low, op):
     while op is not None:                 # the outermost label wins
         grp = part(op.name) or grp
         op = op.cpu_parent
-    return grp or ("other GEMMs (projections, LM head)" if any(
+    return grp or ("other GEMMs (projections, dense MLPs, LM head)" if any(
         w in low for w in ("gemm", "xmma", "cutlass", "nvjet", "sm90_"))
         else "other (elementwise, norms, loss, optimizer, copies)")
 
@@ -4336,6 +4376,290 @@ def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     return launches
 
 
+def hubert_phases(dev, all_counts):
+    """Phases 50-52: B4 at hubert-xlarge's shapes (non-causal, head dim
+    80, G 1) against its plain version and timed; hubert-xlarge's encode
+    pass at full size, and at full width and depth 2 on the card against
+    the CPU; hubert-xlarge trained at full size.  Returns (B4's launches
+    over the counted runs of phases 51 and 52, the largest |kernel -
+    plain| of phase 50's calls)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as T
+
+    cfg = get_config(AUDIO_ARCH)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    if hd != 80 or cfg.num_kv_heads != H or cfg.causal:
+        fail(f"{AUDIO_ARCH}: {H} heads over {cfg.num_kv_heads}, head dim "
+             f"{hd}, causal {cfg.causal}; expected G 1, hd 80, non-causal")
+
+    # -- 50. B4 at hubert's shapes, bf16, non-causal -------------------------
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 50)
+    worst, inputs = 0.0, {}
+    for what, (b, s) in (("encode pass", (ENCODE_BATCH, ENCODE_FRAMES)),
+                         ("training step", (TRAIN_BATCH, TRAIN_SEQ))):
+        q = torch.randn((b, s, H, 1, hd), generator=g).to(dev, torch.bfloat16)
+        k, v = (torch.randn((b, s, H, hd), generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+        fa.counts.reset()
+        o = fa.flash_attention_model(q, k, v, False, None)
+        torch.cuda.synchronize()
+        ok, err = close(o, fa._plain_model(q, k, v, False, None), **BF16)
+        if (not ok or o.dtype != q.dtype or o.shape != q.shape
+                or fa.counts.routes != {"fma": 0, "wgmma": 1}):
+            fail(f"phase 50: flash_attention_model disagrees with its plain "
+                 f"version at {AUDIO_ARCH}'s {what} call q{list(q.shape)} "
+                 f"bf16 non-causal (max {err:.3e}, routes "
+                 f"{fa.counts.routes})")
+        worst = max(worst, err)
+        inputs[what] = (q, k, v)
+        print(f"[50] flash_attention_model q{list(q.shape)} "
+              f"k/v{list(k.shape)} bf16 non-causal ({AUDIO_ARCH}'s {what} "
+              f"call, wgmma route, tiles {fa.TC_BLOCK_Q}x{fa.TC_BLOCK_K}, "
+              f"row stride {H * hd * 2} B): max |kernel - plain| = "
+              f"{err:.3e} (bf16 2e-2) ok")
+        del o
+    for what, (q, k, v) in inputs.items():
+        B, S = q.shape[:2]
+        qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=False)
+        ok, err = close(library(), flash_attention_ref(qh, kh, vh, False,
+                                                       None), **BF16)
+        if not ok:
+            fail(f"phase 50: scaled_dot_product_attention computes another "
+                 f"function than the plain version (max err {err:.3e})")
+        ms = cuda_ms(lambda: fa.flash_attention_model(q, k, v, False, None),
+                     True)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qh, kh, vh, False,
+                                                       None), True,
+                           inner=3, samples=10, warmup=3)
+        lib_ms = cuda_ms(library, True)
+        n_bytes = 4 * q.numel() * q.element_size()
+        n_ops = 4 * B * H * hd * S * S            # QK^T and PV, no mask
+        bound_ms, bound_by = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+        print(f"[50] flash_attention_model q{list(q.shape)} bf16 non-causal "
+              f"({what}), card time: kernel {ms:.5f} ms "
+              f"({n_ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.1%} of its "
+              f"bound), plain {plain_ms:.5f} ms, "
+              f"scaled_dot_product_attention(is_causal=False) {lib_ms:.5f} "
+              f"ms (on [B, H, S, hd]; max err against the plain version "
+              f"{err:.3e}); bound {bound_ms:.6f} ms by {bound_by} "
+              f"({n_bytes} B, {n_ops:.4g} FLOP at the bf16 tensor-core "
+              f"peak)")
+        del qh, kh, vh
+    del inputs, q, k, v
+    torch.cuda.empty_cache()
+    print(f"[50] phase 50 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 51. the encode pass at full size ------------------------------------
+    t0 = t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    n_params = M.param_count(params)
+    if n_params != HUBERT_PARAMS or "embed" in params:
+        fail(f"{AUDIO_ARCH}: {n_params} parameters (expected "
+             f"{HUBERT_PARAMS}), keys {sorted(params)}")
+    batch = make_batch(cfg, ENCODE_BATCH, ENCODE_FRAMES, seed=SEED,
+                       device=dev)
+    torch.cuda.synchronize()
+    print(f"[51] {AUDIO_ARCH}: param_count {n_params:,} ({cfg.dtype}, {L} "
+          f"layers, d_model {cfg.d_model}, {H} heads of {hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, frame features "
+          f"{M.AUDIO_FEAT_DIM}, non-causal) made on the card from seed "
+          f"{SEED} in {time.perf_counter() - t0:.2f}s; batch {ENCODE_BATCH} "
+          f"x {ENCODE_FRAMES} frames, {ENCODE_PASSES} counted passes")
+    with torch.no_grad():
+        M.forward(params, batch, cfg)        # warm-up, not counted
+        torch.cuda.synchronize()
+        events, finite = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        start.record()
+        for _ in range(ENCODE_PASSES):
+            logits, _ = M.forward(params, batch, cfg)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            finite.append(torch.isfinite(logits).all())
+        events[-1].synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        routes = dict(all_counts["flash_attention"].routes)
+        # ------------------------------------------------------------------
+    n = L * ENCODE_PASSES
+    expect = {k: ((n if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or routes != {"fma": 0, "wgmma": n}:
+        fail(f"{AUDIO_ARCH} encode: (kernel launches, plain calls) {got}, B4 "
+             f"routes {routes}; expected {expect} ({L} B4 launches a pass), "
+             f"all on the bf16 route")
+    shape = (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_size)
+    if tuple(logits.shape) != shape or not bool(torch.stack(finite).all()):
+        fail(f"{AUDIO_ARCH} encode: logits {tuple(logits.shape)} (expected "
+             f"{shape}) or non-finite")
+    launches = n
+    passes = np.array([a.elapsed_time(b) for a, b in
+                       zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(passes, 50))
+    print(f"[51] {AUDIO_ARCH} encode: B4 launches {n} ({n // ENCODE_PASSES} "
+          f"a pass; by route {routes}), plain calls "
+          f"{got['flash_attention'][1]}; no other kernel; logits "
+          f"{list(logits.shape)} {str(logits.dtype)[6:]} finite")
+    print(f"[51] {AUDIO_ARCH} encode pass p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(passes, 99)):.3f} ms, first "
+          f"{passes[0]:.3f} ms (on the card's clock, pass end to pass end); "
+          f"{ENCODE_BATCH * ENCODE_FRAMES / p50 * 1e3:,.0f} frames/s at p50 "
+          f"({2 * n_params * ENCODE_BATCH * ENCODE_FRAMES / p50 / 1e9:.1f} "
+          f"TFLOP/s in the matmuls of the parameters); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    with torch.no_grad(), tprofile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile("51", f"{AUDIO_ARCH} encode", prof, wall_us, 1, "forward",
+                   step_part)
+    del params, batch, logits, finite, prof
+    torch.cuda.empty_cache()
+
+    c = cfg.replace(num_layers=2, dtype="float32")
+    small = M.init(torch.Generator().manual_seed(SEED + 4), c, "cpu")
+    b1 = make_batch(c, 1, 256, seed=SEED + 5, device="cpu")
+    runs = {}
+    for d in ("cpu", dev):
+        fa.counts.reset()
+        with torch.no_grad():
+            lg, _ = M.forward(M.map_params(lambda x: x.to(d), small),
+                              {k: v.to(d) for k, v in b1.items()}, c)
+        runs[str(d)] = (lg.cpu(), fa.counts.launches, fa.counts.plain_calls)
+    (lg_c, l_c, p_c), (lg_g, l_g, p_g) = runs["cpu"], runs[str(dev)]
+    err = float((lg_g - lg_c).abs().max())
+    if (l_c, p_c, l_g, p_g) != (0, 2, 2, 0) or err > LOGIT_ATOL:
+        fail(f"phase 51: {AUDIO_ARCH} depth 2 fp32 card logits differ from "
+             f"the CPU's by {err:.3e} (> {LOGIT_ATOL}), or B4 (launches, "
+             f"plain calls) card {(l_g, p_g)}, CPU {(l_c, p_c)}")
+    print(f"[51] {AUDIO_ARCH} full width, depth 2, fp32 (TF32 off), batch "
+          f"1, 256 frames, from one seed's weights: logits card vs CPU max "
+          f"|diff| {err:.3e} (<= {LOGIT_ATOL}; |logits| up to "
+          f"{float(lg_c.abs().max()):.2f}); B4 2 launches on the card (fp32 "
+          f"route), 2 plain calls on the CPU")
+    del small, runs, lg
+    print(f"[51] phase 51 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 52. train hubert-xlarge at full size --------------------------------
+    tcfg = T.TrainConfig(lr=3e-4, warmup=min(20, AUDIO_TRAIN_STEPS // 5 + 1),
+                         total_steps=AUDIO_TRAIN_STEPS)
+    t0 = t_phase = time.perf_counter()
+    trainer = T.Trainer(cfg, tcfg, SEED, device=dev)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in M.leaves(trainer.state))
+    print(f"[52] {AUDIO_ARCH}: the train state ({n_params:,} bf16 "
+          f"parameters, fp32 moments) {state_bytes / 1e9:.2f} GB made on "
+          f"the card from seed {SEED} in {time.perf_counter() - t0:.2f}s; "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} frames, lr {tcfg.lr}, warmup "
+          f"{tcfg.warmup}, {AUDIO_TRAIN_STEPS} steps")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=dev)
+    held_out = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=HELD_OUT_SEED + i,
+                           device=dev) for i in range(HELD_OUT_BATCHES)]
+
+    def held_out_loss():
+        with torch.no_grad():
+            return float(torch.stack([M.loss_fn(trainer.state["params"], b,
+                                                cfg)[0]
+                                      for b in held_out]).mean())
+    before = held_out_loss()
+    # warm-up, not counted: one forward and backward at these shapes (the
+    # donating step would train the state)
+    T._compute_grads(trainer.state["params"], next(TokenStream(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 11, device=dev)), cfg, tcfg)
+    torch.cuda.synchronize()
+    events, losses = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    start.record()
+    trainer.run(stream, AUDIO_TRAIN_STEPS, log_every=AUDIO_TRAIN_STEPS,
+                log=lambda s: print(f"[52]   {s}"), on_step=on_step)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    routes = dict(all_counts["flash_attention"].routes)
+    backward = all_counts["flash_attention"].backward_plain
+    # ----------------------------------------------------------------------
+    n = 2 * L * AUDIO_TRAIN_STEPS
+    expect = {k: ((n if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or backward != L * AUDIO_TRAIN_STEPS \
+            or routes != {"fma": 0, "wgmma": n}:
+        fail(f"{AUDIO_ARCH} training: (kernel launches, plain calls) {got}, "
+             f"B4 routes {routes}, B4 backward passes {backward}; expected "
+             f"{expect}, all on the bf16 route, and {L * AUDIO_TRAIN_STEPS} "
+             f"backward passes (B4 twice a layer a step: the forward and the "
+             f"remat recompute)")
+    loss = torch.stack(losses).float().cpu().numpy()
+    after = held_out_loss()
+    if not np.isfinite(loss).all() or not np.isfinite([before, after]).all():
+        fail(f"{AUDIO_ARCH}: non-finite loss {loss}, held out {before} -> "
+             f"{after}")
+    if not after < before:
+        fail(f"{AUDIO_ARCH}: the loss did not fall: held-out loss "
+             f"{before:.4f} before training, {after:.4f} after")
+    launches += n
+    steps = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(steps, 50))
+    print(f"[52] {AUDIO_ARCH} training: B4 launches {n} "
+          f"({n // AUDIO_TRAIN_STEPS} a step; by route {routes}), plain "
+          f"calls {got['flash_attention'][1]}, B4 backward passes (the VJP "
+          f"of the plain version) {backward}; no other kernel")
+    print(f"[52] {AUDIO_ARCH} loss on the {HELD_OUT_BATCHES} held-out "
+          f"batches: {before:.4f} before training, {after:.4f} after (fell "
+          f"by {before - after:.4f}; ln {cfg.vocab_size} = "
+          f"{np.log(cfg.vocab_size):.4f}: the labels are random); every "
+          f"step's loss finite")
+    print(f"[52] {AUDIO_ARCH} training loss by step (each a new random "
+          f"batch): " + " ".join(f"{v:.4f}" for v in loss))
+    print(f"[52] {AUDIO_ARCH} step time p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms, first "
+          f"{steps[0]:.3f} ms (on the card's clock, from one step's end to "
+          f"the next); {TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:,.0f} frames/s "
+          f"at p50; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(stream, PROFILED_STEPS, log_every=PROFILED_STEPS,
+                    log=lambda s: None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile("52", f"{AUDIO_ARCH} training", prof, wall_us,
+                   PROFILED_STEPS, "step", step_part)
+    del trainer, stream, events, losses, prof, held_out
+    torch.cuda.empty_cache()
+    print(f"[52] phase 52 {time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
 def time_phase(dev, strict):
     """Phase 4: each kernel, its plain version and the library call timed
     at the main-path shapes, B1 also at the trainer's and B3 at large
@@ -5039,6 +5363,12 @@ def main():
         launches[k] = launches.get(k, 0) + v
 
     clock("48-49")
+    # -- 50-52. the audio family: hubert-xlarge encoded and trained ---------
+    n, err = hubert_phases(dev, all_counts)
+    launches["flash_attention"] += n
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+
+    clock("50-52")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

@@ -173,7 +173,9 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
     """An LLM's parameters in the JAX `models.model.init` layout, as a
     nested dict of numpy arrays ({"periods": {"sub0": {"attn": {"wq":
     ...}}}, "final_norm", "embed", ["lm_head"]}, the blocks stacked with a
-    leading n_periods axis) -> the port's params on `device`, same keys.
+    leading n_periods axis; an audio encoder has "frontend": {"proj"} and
+    "lm_head" in place of "embed") -> the port's params on `device`, same
+    keys.
 
     The blocks may be attention blocks ("attn", "ln1", "ln2", and "mlp"
     or a MoE's "moe": `router` [D, E], fp32 in a bf16 model; `we1`, `we3`
@@ -188,14 +190,21 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
     dev = resolve_device(device)
     dt = None if dtype is None else torch_dtype(dtype)
     keys = set(tree)
-    if not {"periods", "final_norm", "embed"} <= keys \
+    audio = "frontend" in keys and "embed" not in keys
+    inputs = {"frontend", "lm_head"} if audio else {"embed"}
+    if not {"periods", "final_norm"} | inputs <= keys \
             or not isinstance(tree["periods"], dict):
         raise ValueError(f"not an LLM parameter tree: expected 'periods', "
-                         f"'final_norm' and 'embed', got {sorted(keys)}")
-    extra = keys - {"periods", "final_norm", "embed", "lm_head"}
+                         f"'final_norm' and 'embed', or an audio encoder's "
+                         f"'frontend' and 'lm_head', got {sorted(keys)}")
+    extra = keys - {"periods", "final_norm", "lm_head"} - inputs
+    if audio and (not isinstance(tree["frontend"], dict)
+                  or set(tree["frontend"]) != {"proj"}):
+        extra.add("frontend")
     if extra:
         raise ValueError(f"unexpected leaves {sorted(extra)} (the port runs "
-                         f"text-only decoders)")
+                         f"text decoders and the audio encoder, whose "
+                         f"frontend is {{'proj'}})")
     depth = {np.shape(a)[0] for a in leaves(tree["periods"])}
     if len(depth) != 1:
         raise ValueError(f"the stacked blocks disagree on n_periods: "

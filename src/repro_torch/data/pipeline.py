@@ -1,9 +1,11 @@
-"""Synthetic token batches, counterpart of `repro.data.pipeline`.
+"""Synthetic batches per model family, counterpart of
+`repro.data.pipeline`.
 
-Both draw with numpy's `RandomState(seed).randint`, as the JAX package
-does, and the stream uses its seed formula, so the port's batches are
-bitwise the JAX package's.  Only the text family is ported: the audio
-and VLM frontends raise.
+Both draw from one numpy `RandomState(seed)`, as the JAX package does
+(the audio batch: `randn` for the frame features first, then `randint`
+for the labels), and the stream uses its seed formula, so the port's
+batches are bitwise the JAX package's.  The VLM batch raises: its
+frontend is not ported.
 """
 from __future__ import annotations
 
@@ -14,18 +16,29 @@ import torch
 
 from .. import resolve_device
 from ..models.config import ModelConfig
+from ..models.layers import torch_dtype
+from ..models.model import AUDIO_FEAT_DIM
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                device=None):
-    """{"tokens": [batch, seq] int32} on `device` (CUDA by default)."""
-    if cfg.family in ("audio", "vlm"):
+    """{"tokens": [batch, seq] int32}, or for the audio family
+    {"features": [batch, seq, AUDIO_FEAT_DIM] in cfg.dtype, "labels":
+    [batch, seq] int32}, on `device` (CUDA by default)."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} batches come with their frontends "
+            f"{cfg.name}: the vlm batches come with the vision frontend "
             f"(ROADMAP.md queue A item 10)")
+    dev = resolve_device(device)
     rng = np.random.RandomState(seed)
+    if cfg.family == "audio":
+        # float64 -> cfg.dtype in one rounding, as jnp.asarray casts
+        feats = torch.from_numpy(rng.randn(batch, seq, AUDIO_FEAT_DIM))
+        labels = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        return {"features": feats.to(dev, torch_dtype(cfg.dtype)),
+                "labels": torch.from_numpy(labels).to(dev)}
     toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+    return {"tokens": torch.from_numpy(toks).to(dev)}
 
 
 class TokenStream:

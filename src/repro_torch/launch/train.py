@@ -6,6 +6,11 @@
         --smoke --device cpu --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
+        --steps 30
+
+`--seq` counts tokens, or frames for the audio family (hubert-xlarge:
+the stubbed frame features and their labels, `data.make_batch`).
 
 The flags are the JAX launcher's plus `--device` (CUDA unless `cpu` is
 asked for) and `--seed` (the random weights; the JAX launcher uses key 0).

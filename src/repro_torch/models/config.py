@@ -3,7 +3,7 @@
 The port's own copy of `repro.models.config` (plain Python, the same
 fields, defaults and counts).  One dataclass describes every family
 (dense / moe / ssm / hybrid / audio / vlm); family-specific fields are
-zero / None when unused.  The port runs the dense, moe and ssm
+zero / None when unused.  The port runs the dense, moe, ssm and audio
 families (`models.blocks`); `attn_impl` routes prefill attention and the
 SSM scan: "chunked" (the default) and "pallas" to the flash-attention
 kernel B4 and the SSD kernel B5, "naive" to the plain PyTorch versions.

@@ -1,13 +1,19 @@
-"""Unified decoder LM: embed, the layer stack, final norm, LM head; the
-training loss; prefill and one-token decode for serving.  Counterpart of
+"""Unified LM: embed, the layer stack, final norm, LM head; the training
+loss; prefill and one-token decode for serving.  Counterpart of
 `repro.models.model` for the text-only decoders of the dense, moe and
-ssm families.
+ssm families and the encoder-only audio family (hubert-xlarge).
+
+Batch formats, as in the JAX package:
+    text  {"tokens": [B, S] int32}
+    audio {"features": [B, S, AUDIO_FEAT_DIM], "labels": [B, S] int32}
 
 Parameters keep the JAX package's layout, so checkpoint and parameter
 keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
 stacked with a leading `n_periods` axis (one period of one layer for a
-homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head".
-Where JAX scans over that axis, the port loops over it in Python.
+homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head";
+the audio family has "frontend": {"proj": [AUDIO_FEAT_DIM, D]} and
+"lm_head" in place of "embed".  Where JAX scans over that axis, the port
+loops over it in Python.
 
 The decode cache is {"pos": int, "blocks": {"sub{j}": ...}} with
 attention's k/v [n_periods, B, W, KV, hd] or the SSM's state
@@ -38,11 +44,15 @@ def period_structure(cfg: ModelConfig):
     return cfg.num_layers // plen, plen, kinds, mlp_kinds
 
 
-def _check_text_decoder(cfg: ModelConfig):
-    if cfg.family in ("audio", "vlm") or cfg.frontend is not None:
+AUDIO_FEAT_DIM = 512     # stubbed conv-feature-extractor output (w2v2/HuBERT)
+
+
+def _check_frontend(cfg: ModelConfig):
+    if cfg.family == "vlm" or cfg.frontend == "vision":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported; the port "
-            f"runs text-only decoders (ROADMAP.md queue A item 10)")
+            f"{cfg.name}: the vision frontend is not ported; the port runs "
+            f"text decoders and the audio encoder (ROADMAP.md queue A item "
+            f"10)")
 
 
 def map_params(fn, tree):
@@ -87,7 +97,7 @@ def init(gen, cfg: ModelConfig, device=None):
     the order the periods are drawn, so the peak holds one period beside
     the model (qwen2-moe-a2.7b's 28 GB in bf16 would double if the
     periods were made apart and then stacked)."""
-    _check_text_decoder(cfg)
+    _check_frontend(cfg)
     dtype = layers.torch_dtype(cfg.dtype)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
@@ -107,11 +117,16 @@ def init(gen, cfg: ModelConfig, device=None):
     del first
     p = {"periods": stacked}
     p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
-    p["embed"] = layers.kaiming(gen, (cfg.vocab_size, cfg.d_model), dtype,
-                                fan_in=cfg.d_model, device=device)
-    if not cfg.tie_embeddings:
+    audio = cfg.family == "audio"
+    if not audio:
+        p["embed"] = layers.kaiming(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                                    fan_in=cfg.d_model, device=device)
+    if not cfg.tie_embeddings or audio:
         p["lm_head"] = layers.kaiming(gen, (cfg.d_model, cfg.vocab_size),
                                       dtype, device=device)
+    if cfg.frontend == "audio":
+        p["frontend"] = {"proj": layers.kaiming(
+            gen, (AUDIO_FEAT_DIM, cfg.d_model), dtype, device=device)}
     return p
 
 
@@ -124,8 +139,15 @@ def param_count(params) -> int:
 
 
 def embed_inputs(params, batch, cfg: ModelConfig):
-    """Text batch {"tokens": [B, S]} -> (x [B,S,D], labels, loss_mask)."""
-    _check_text_decoder(cfg)
+    """Text batch {"tokens": [B, S]} or audio batch {"features": [B, S,
+    AUDIO_FEAT_DIM], "labels": [B, S]} -> (x [B,S,D], labels, loss_mask
+    fp32)."""
+    _check_frontend(cfg)
+    if cfg.family == "audio":
+        labels = batch["labels"]
+        x = torch.matmul(batch["features"], params["frontend"]["proj"])
+        return x, labels, torch.ones(labels.shape, dtype=torch.float32,
+                                     device=labels.device)
     tok = batch["tokens"]
     x = params["embed"][tok]
     return x, tok, torch.ones(tok.shape, dtype=torch.float32,
@@ -218,7 +240,10 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, tap=None):
     """One decode step. tokens [B,1] (text-only decode).
 
     Returns (logits [B,1,V], cache), the cache updated in place with
-    pos + 1."""
+    pos + 1.  Raises ValueError for an encoder-only config."""
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only (supports_decode is "
+                         f"False): it has no decode step")
     n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
     x = params["embed"][tokens]
     pos = cache["pos"]
@@ -235,7 +260,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, tap=None):
 
 def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
             last_logits_only: bool = False, tap=None):
-    """Run the full prompt, building the decode cache.
+    """Run the full prompt (a text or an audio batch), building the
+    decode cache.
 
     Returns (logits [B,S,V], or [B,1,V] with last_logits_only, the serving
     path that never makes the full-sequence logits; and the cache).  The

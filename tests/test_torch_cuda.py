@@ -21,8 +21,10 @@ inputs (the GAN trainer: B1 once an epoch, forward and backward; every
 registered problem on its kernels, with the conv generator's backward in
 full fp32; under the update cadences, B1 on each epoch where a half runs
 and backward on the generator's).  Flash attention is held at head dim
-80 on both routes, and at GQA group 3 (granite-moe-3b-a800m's).  The
-MoE layer on the card is held against the CPU with capacity drops, and
+80 on both routes, and at GQA group 3 (granite-moe-3b-a800m's);
+non-causal at head dim 80 in the model layout at hubert-xlarge's heads,
+with a depth-2 hubert forward on the card against the CPU.  The MoE
+layer on the card is held against the CPU with capacity drops, and
 is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
 bitwise the CPU's on the same gradients, and so is the overlapped pod
@@ -513,6 +515,55 @@ def test_flash_kernel_at_gqa_group_3(sm90_card, dtype):
     assert fa.counts.routes[route] == 1 and fa.counts.launches == 1
     torch.testing.assert_close(o.float(), fa._plain_model(
         q, k, v, True, None).float(), **tol)
+
+
+def test_flash_tc_non_causal_at_hubert_heads(sm90_card):
+    """hubert-xlarge's attention: 16 heads of 80 (G 1), no mask, in the
+    model layout q [2, 256, 16, 1, 80] bf16 on the wgmma route, forward
+    and backward, against the plain version."""
+    g = torch.Generator().manual_seed(50)
+    xs = [torch.randn(2, 256, 16, 1, 80, generator=g),
+          torch.randn(2, 256, 16, 80, generator=g),
+          torch.randn(2, 256, 16, 80, generator=g)]
+    w = torch.randn(2, 256, 16, 1, 80, generator=g).to(sm90_card)
+    outs, grads = [], []
+    for fn in (fa.flash_attention_model, fa._plain_model):
+        ts = [x.to(sm90_card, torch.bfloat16).requires_grad_() for x in xs]
+        fa.counts.reset()
+        o = fn(*ts, False, None)
+        (o.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        outs.append(o.detach().float())
+        grads.append([t.grad.float() for t in ts])
+        if fn is fa.flash_attention_model:
+            assert fa.counts.routes == {"fma": 0, "wgmma": 1}
+            assert fa.counts.backward_plain == 1
+    torch.testing.assert_close(outs[0], outs[1], **BF16)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **BF16)
+
+
+def test_hubert_forward_on_the_card_matches_the_cpu(sm90_card):
+    """hubert-xlarge at full width, depth 2, fp32 (TF32 off), batch 1, 64
+    frames: one B4 launch a layer on the card (the fp32 route), none on
+    the CPU, and the logits agree within 1e-3."""
+    from repro_torch.data import make_batch
+    cfg = get_config("hubert-xlarge").replace(num_layers=2, dtype="float32")
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = make_batch(cfg, 1, 64, seed=1, device="cpu")
+    runs = {}
+    for dev in ("cpu", sm90_card):
+        fa.counts.reset()
+        with torch.no_grad():
+            logits, _ = M.forward(
+                M.map_params(lambda t: t.to(dev), params),
+                {k: v.to(dev) for k, v in batch.items()}, cfg)
+        runs[str(dev)] = (logits.cpu(), fa.counts.launches,
+                          fa.counts.plain_calls)
+    (lg_c, l_c, p_c), (lg_g, l_g, p_g) = runs.values()
+    assert (l_c, p_c) == (0, 2) and (l_g, p_g) == (2, 0)
+    assert lg_g.shape == (1, 64, 504) and torch.isfinite(lg_g).all()
+    torch.testing.assert_close(lg_g, lg_c, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("window", [None, 8])

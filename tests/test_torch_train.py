@@ -309,7 +309,7 @@ def test_make_batch_and_token_stream_are_bitwise_jax():
         np.testing.assert_array_equal(next(ours)["tokens"].numpy(),
                                       np.asarray(next(theirs)["tokens"]))
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        make_batch(cfg.replace(family="audio"), 1, 4, device="cpu")
+        make_batch(cfg.replace(family="vlm"), 1, 4, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "sgd_momentum"])
