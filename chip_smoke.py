@@ -61,7 +61,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      training step [8, 256, 8, 3, 64]; the largest error is the kernels
      line's), and over a sweep of GQA
      groups (1, 3 (granite-moe-3b-a800m's), 4, 8), head dims (32, 64, 80
-     (hubert-xlarge's), 128), masks (causal, full, window 64 and 256),
+     (hubert-xlarge's), 128), and G 7 (internvl2-1b's 14 heads over 2) at
+     head dim 64, masks (causal, full, window 64 and 256),
      ragged lengths (1, 100, 1000) and tiles (block_q, block_k in 32,
      64, 128), at fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; in fp32
      every pair of tiles within rtol 1e-5 / atol 1e-6 of the first, in
@@ -70,16 +71,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
      projection) against the plain version;
  12. time B4 at the prefill shape in bf16 as in phase 4: the prefill's
      call checked in phase 11 (the kernels line's time), the same kernel
-     in the [B, H, S, hd] layout, its plain version, `scaled_dot_product_attention` (causal, GQA;
+     in the [B, H, S, hd] layout, its plain version (median of 10 samples
+     of 3 calls, as phases 50 and 53 time theirs),
+     `scaled_dot_product_attention` (causal, GQA;
      timed, never used by the port) and the bound (the causal half's
      FLOPs at the bf16 tensor-core peak, or its bytes); the model-layout
      call without copies against the transposing copies it replaced; the
-     fp32 route at the same shape;
+     fp32 route at the same shape (10 samples of 5 calls, as phase 17
+     times B5's fp32 route);
  13. serve tinyllama-1.1b at full size (22 layers, d_model 2048, bf16,
      random weights from a seed) through `serving.engine.generate`: batch
      8, prompt 1024, 64 greedy tokens, then again with a sliding window of
      256 (the window mask and the ring buffer's wrap), each after an
-     uncounted warm-up run at the same shapes; 22 B4 launches per prefill,
+     uncounted warm-up run at the same shapes (the prefill and 4 greedy
+     tokens at the same context); 22 B4 launches per prefill,
      all on the bf16 route, and no plain call; prefill ms, decode ms a
      step, tok/s;
  14. the same model at full width, depth 2, fp32 (TF32 off), batch 1,
@@ -127,7 +132,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      parameters against the CPU's own step are reported (where |g| is
      near Adam's eps, the gradients' last bits move an entry by up to
      lr_t);
- 21. serve mamba2-130m (batch 8, prompt 1024, 64 greedy tokens) through
+ 21. serve mamba2-130m (batch 8, prompt 1024, 64 greedy tokens, after a
+     warm-up of 4) through
      `serving.engine.generate`: SSM prefill and decode are plain PyTorch,
      so no kernel launches; prefill ms, decode ms a step;
  22. train the paper's GAN at full width through `core.workflow
@@ -266,7 +272,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      p50/p99 and events/s beside phase 22's fp32 p50 of the same run,
      `conv_arar`'s generator-parameter and residual gaps to phase 22's
      fp32 run printed;
-     `for_problem("imaging_blur", PAPER)` at bf16 for 200 epochs with
+     `for_problem("imaging_blur", PAPER)` at bf16 for 50 epochs (phase
+     46 trains imaging_blur for 200, phases 41-42 the bf16 payload) with
      phase 26's bars and counts (B1 on u [512, 32], B3 on [512, 32, 32]
      and as its backward); one bf16 epoch card vs CPU as phase 23 (the
      CPU's exchange of the card's gradients bitwise the card's).  Every
@@ -281,10 +288,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  38. the chunked ring (`SyncConfig(ring_chunking=N)`: the fused payload
      crosses as ceil(bytes / N) segments, one `torch.roll` each), stacked:
      `PAPER` at R 8 at 65,536 B (4 segments) in both ring modes, for 50
-     epochs in `rma_arar_arar` (phase 42 trains it at 65,536 B for 200)
-     and 200 in `conv_arar`, with phase 22's bars and counts, each epoch
-     p50 and events/s beside phase 22's, `conv_arar`'s generator gap to
-     phase 22's printed; the
+     epochs each (phase 42 trains the ring at 65,536 B for 200), with
+     phase 22's bars and counts, each epoch p50 and events/s beside
+     phase 22's; the
      first 10 epochs of each mode bitwise an unchunked run from the same
      seed; imaging_blur at 524,288 B (3 segments) for 50 epochs (phase
      46 trains it for 200 with overlap) with phase 26's bars and counts;
@@ -296,8 +302,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
      each bitwise `lockstep_reference` and phase 34's unchunked state;
      imaging_blur as 8 workers at 524,288 B (3 windows, 1,161,792 B a
      deposit; a lock-step run on the card picks deterministic cuDNN
-     algorithms): 10 epochs bitwise `lockstep_reference`, then 200
-     lock-step epochs with phase 26's bars, B1 on u [64, 32] and B3 on
+     algorithms): 10 epochs bitwise `lockstep_reference`, then 50
+     lock-step epochs (phase 46 trains imaging_blur at 524,288 B for 200,
+     phase 41 lock-step workers) with phase 26's bars, B1 on u [64, 32]
+     and B3 on
      [64, 32, 32] and as its backward in every worker, epoch p50 a rank,
      start-up and peak memory a worker; and a free-running imaging_blur
      run of 50 epochs with phase 35's lag, which must end finite;
@@ -348,8 +356,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      of 50 epochs at k 2 with phase 35's lag, which must end finite,
      epoch p50 a rank;
  44. the telemetry (`ObsConfig`), stacked: `PAPER` at k 2 with metrics
-     and a metrics file for 50 epochs in chunks of 20 (phase 46 trains
-     `PAPER` with a metrics file for 200), with phase 22's bars and
+     and a metrics file for 50 epochs in chunks of 20 (phase 48 trains
+     `PAPER` with metrics for 200), with phase 22's bars and
      counts: 1 header (schedule `sync`, payload_bytes 203,264) and 3
      rows, each k_eff 2 and exchange_count its epoch, epoch p50 beside
      phase 22's; 20 epochs with metrics on and off from one seed,
@@ -369,12 +377,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
  46. the overlapped pod boundary (`overlap`: the epoch before a due one
      ships its inner-synced payload across the pod boundary into the
      outer mailbox, and the due epoch adds it, one epoch old), stacked:
-     `PAPER` with overlap at h 10 in `arar_arar` for 200 epochs and
-     `rma_arar_arar` for 50 (phase 48 trains it with the adaptive
-     schedule's overlap for 200), with metrics and a metrics file, with
-     phase 22's bars and counts: the header's schedule `overlap`, a row's
-     ship_count its epoch / 10, the final ship_count 20 (5) and
-     exchange_count 200 (50) on every rank; imaging_blur with overlap at h 10
+     `PAPER` with overlap at h 10 in `arar_arar` and `rma_arar_arar` for
+     50 epochs each (phase 48 trains the overlap, with the adaptive
+     schedule, for 200), with metrics and a metrics file, with phase 22's
+     bars and counts: the header's schedule `overlap`, a row's ship_count
+     its epoch / 10, the final ship_count 5 and exchange_count 50 on
+     every rank; imaging_blur with overlap at h 10
      and 524,288 B with phase 26's bars and counts (B3 and its backward
      an epoch), beside phase 26's p50; 6 epochs of the exchange at h 2,
      depth 2, 2 x 4 ranks, at fp32 whole and at 65,536 B and at bf16, on
@@ -441,7 +449,35 @@ Phases, each reported on its own lines; any failure exits non-zero:
      recompute) and 48 plain-VJP backward passes a step, no plain
      forward, every loss finite, the loss of 4 held-out batches lower
      after than before; step p50 / p99, frames/s, peak memory, a profile
-     of PROFILED_STEPS (1) step.
+     of PROFILED_STEPS (1) step;
+ 53. B4 at internvl2-1b's calls (14 heads over 2: GQA group 7, hd 64,
+     causal, row stride 1,792 B): `flash_attention_model` on q [8, 1024,
+     2, 7, 64] (the prefill) and [8, 512, 2, 7, 64] (a training step)
+     bf16, the wgmma route, against its plain version at 2e-2 (the
+     largest error joins the kernels line's); each timed as phase 12
+     times tinyllama's, beside the plain version,
+     `scaled_dot_product_attention(is_causal=True)` with GQA (timed,
+     never used by the port) and the bound (2·B·H·hd·S(S+1) FLOP at the
+     bf16 peak, or q, k, v and o's bytes);
+ 54. internvl2-1b served at full size (24 layers, bf16, random weights
+     from a seed, `param_count` 494,698,496): the image-plus-prompt batch
+     of `data.make_batch` (8 requests of 256 patch embeddings and 768
+     prompt tokens) through `serving.make_prefill_fn` at context 1024 +
+     64 with last logits only, 10 counted prefills after an uncounted
+     one, then 64 greedy steps of `make_serve_step`: 24 B4 launches a
+     prefill, all wgmma, none in decode, no plain call, the cache's pos
+     1024 after the prefill, every logit finite; prefill p50 / p99,
+     decode step p50 / p99, tok/s including the prefill, peak memory;
+     then full width, depth 2, fp32 with TF32 off, batch 1, 16 patches
+     and 16 tokens, prefill and 4 greedy steps on the card and on the CPU
+     from one seed's weights: logits within 1e-3, greedy ids equal;
+ 55. internvl2-1b trained at full size by `training.Trainer` through
+     `TokenStream` at batch 8 and seq 512 (the whole 256-patch image and
+     256 text tokens a sequence; lr 3e-4) for 30 steps: 48 B4 launches
+     (forward and remat recompute) and 24 plain-VJP backward passes a
+     step, no plain forward, every loss finite, the loss of 4 held-out
+     batches lower after than before; step p50 / p99, text tokens/s and
+     positions/s, peak memory, a profile of PROFILED_STEPS (1) step.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -500,6 +536,7 @@ SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
 RANKS = 16
 LLM_ARCH = "tinyllama-1.1b"
 LLM_BATCH, LLM_PROMPT, LLM_NEW = 8, 1024, 64
+WARM_NEW = 4                    # phases 13, 21: the warm-up's greedy tokens
 LLM_WINDOW = 256
 FLASH_Q = (8, 32, 1024, 64)     # B4 q at the prefill shape; k/v have 4 heads
 FLASH_KV_HEADS = 4
@@ -557,8 +594,10 @@ CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
 PROC_FREE_EPOCHS = 50           # free runs (35, 39, 41, 43)
 CUT_EPOCHS = 50                 # paths a later phase drives again for
                                 # GAN_EPOCHS: 35's and 37's lock-step runs
-                                # (41's), 38's bf16 chunked run (42's),
-                                # 42's PAPER at staleness 2 (44's)
+                                # (41's), 38's chunked runs (42's), 42's
+                                # PAPER at staleness 2 (44's), 36's, 38's
+                                # and 39's imaging_blur (46's), 46's
+                                # overlap (48's)
 CADENCE = (2, 3)                # phases 40-41: disc_every, gen_every (the
 #                                 JAX package's fp32_cadence row)
 CADENCE_PROFILED = 4            # phase 40's profiled epochs
@@ -585,6 +624,13 @@ HUBERT_PARAMS = 1_259_715_840   # the JAX init's leaves
 ENCODE_BATCH, ENCODE_FRAMES = 8, 1024   # phase 51: the encoder's prefill
 ENCODE_PASSES = 20              # phase 51's counted passes
 AUDIO_TRAIN_STEPS = 30          # phase 52, as phase 32's granite
+VLM_ARCH = "internvl2-1b"       # phases 53-55
+INTERNVL2_PARAMS = 494_698_496  # the JAX init's leaves
+VLM_BATCH, VLM_SEQ, VLM_NEW = 8, 1024, 64   # phase 54: 256 patches + 768
+VLM_PREFILLS = 10               # ... prompt tokens; counted prefills
+VLM_CHECK_SEQ, VLM_CHECK_NEW = 32, 4   # phase 54's depth-2 card vs CPU
+VLM_TRAIN_SEQ = 512             # phase 55: 256 patches + 256 text tokens
+VLM_TRAIN_STEPS = 30            # phase 55, as phase 52's hubert
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -771,8 +817,11 @@ def flash_phases(dev):
     masks = {"causal": (True, None), "full": (False, None),
              "window64": (True, 64), "window256": (True, 256)}
     worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
-    for G, d, (mname, (causal, window)), L, dtype in itertools.product(
-            (1, 3, 4, 8), (32, 64, 80, 128), masks.items(), (1, 100, 1000),
+    # every group at every head dim, and G 7 (internvl2-1b's 14 heads over
+    # 2, odd and not a power of two) at its head dim 64
+    sweep = [(G, d) for G in (1, 3, 4, 8) for d in (32, 64, 80, 128)]
+    for (G, d), (mname, (causal, window)), L, dtype in itertools.product(
+            sweep + [(7, 64)], masks.items(), (1, 100, 1000),
             (torch.float32, torch.bfloat16)):
         bq, bk = TILES[n % len(TILES)]
         n += 1
@@ -780,8 +829,9 @@ def flash_phases(dev):
                        *qkv(2, 2 * G, 2, L, d, dtype), causal, window, bq, bk)
         worst[dtype] = max(worst[dtype], err)
     print(f"[11] flash_attention sweep: {n} cases (G 1/3/4/8 (3: "
-          f"granite-moe-3b-a800m's), hd 32/64/80/128 "
-          f"(80: hubert-xlarge's 1280 / 16), causal/full/window 64/window "
+          f"granite-moe-3b-a800m's) at hd 32/64/80/128 "
+          f"(80: hubert-xlarge's 1280 / 16), and G 7 (internvl2-1b's 14 "
+          f"heads over 2) at hd 64; causal/full/window 64/window "
           f"256, S 1/100/1000, fp32 and bf16, all 9 tile pairs in turn) "
           f"within fp32 rtol 1e-4 / atol 1e-5 and bf16 2e-2; max |kernel - "
           f"plain| fp32 {worst[torch.float32]:.3e}, bf16 "
@@ -860,7 +910,8 @@ def flash_phases(dev):
     tq, tk = fa.TC_BLOCK_Q, fa.TC_BLOCK_K       # the prefill's bf16 tiles
     # the prefill's call, checked in phase 11: the model layout by strides
     t = dict(ms=cuda_ms(lambda: fa.flash_attention_model(qm, km, vm), True),
-             plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), True),
+             plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), True,
+                              inner=3, samples=10, warmup=3),
              library_ms=cuda_ms(lambda: library(*lib_args), True))
     public_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True, None, tq,
                                                    tk), True)
@@ -900,7 +951,8 @@ def flash_phases(dev):
           f"{copies_ms:.5f} ms for three transposing copies, the kernel and "
           f"the output's copy")
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    ms32 = cuda_ms(lambda: fa.flash_attention(q32, k32, v32), True)
+    ms32 = cuda_ms(lambda: fa.flash_attention(q32, k32, v32), True,
+                   inner=5, samples=10, warmup=2)
     print(f"[12] flash_attention fp32 at the same shape: fp32 route "
           f"(flash_attention.cu) {ms32:.5f} ms")
     return main_err, t
@@ -938,7 +990,10 @@ def llm_phases(dev, all_counts):
         c = cfg.replace(sliding_window=window)
         # warm-up at the same shapes, not counted: the first call at a
         # shape grows the allocator's pool and picks the GEMMs' kernels
-        generate(params, c, prompts, LLM_NEW)
+        # (the same context, so the same cache; a decode step's shapes do
+        # not change from step to step)
+        generate(params, c, prompts, WARM_NEW,
+                 context_len=LLM_PROMPT + LLM_NEW)
         events, finite = [], []
 
         def on_logits(i, lg):
@@ -1460,7 +1515,8 @@ def train_phases(dev, all_counts):
     params = M.init(gen, cfg, dev)
     prompts = torch.randint(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT),
                             generator=gen, device=dev)
-    generate(params, cfg, prompts, LLM_NEW)        # warm-up, not counted
+    generate(params, cfg, prompts, WARM_NEW,       # warm-up, not counted
+             context_len=LLM_PROMPT + LLM_NEW)
     events, finite = [], []
 
     def on_logits(i, lg):
@@ -1911,7 +1967,7 @@ def moe_phases(dev, all_counts):
 
 def report_profile(tag, what, prof, wall_us, n, unit, label):
     """Print the profile `prof` of `n` `unit`s that took `wall_us` on the
-    host's clock (phases 24, 28, 32, 51 and 52): the card's busy share,
+    host's clock (phases 24, 28, 32, 51, 52 and 55): the card's busy share,
     device ops a unit, the card's time by `label(lower kernel name, the
     profiler's CPU op that launched the kernel)` with the share of it so
     traced, and the ten longest kernels.  Returns (label -> us, busy us), or None when
@@ -1952,7 +2008,7 @@ def report_profile(tag, what, prof, wall_us, n, unit, label):
 
 
 def step_part(low, op):
-    """Phases 32's, 51's and 52's label of a kernel: B4 by its name; else
+    """Phases 32's, 51's, 52's and 55's label of a kernel: B4 by its name; else
     by the outermost labelled range or autograd node it was launched from:
     the MoE ranges of `models.moe` ("moe.experts"; "moe.dispatch" and
     "moe.combine") and the backward nodes of the expert matmuls
@@ -2601,7 +2657,8 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     the card.  36: PAPER stacked at R 8 in both ring modes with phase 22's
     bars and counts, beside phase 22's fp32 runs (`fp32`: mode -> (p50
     ms, final generator on the CPU, final ensemble mean|r̂|)); imaging_blur
-    with phase 26's bars and counts beside its fp32 p50; one epoch card
+    for CUT_EPOCHS with phase 26's bars and counts beside its fp32 p50;
+    one epoch card
     vs CPU.  37: the proc runtime, lock-step bitwise its reference in
     both modes and PAPER for CUT_EPOCHS epochs with phase 35's bars,
     beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
@@ -2651,11 +2708,13 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
+    # cut to CUT_EPOCHS: phase 46 trains imaging_blur for GAN_EPOCHS, and
+    # phases 41 and 42 the bf16 payload
     got, p50, _ = train_and_check("36", f"{name} for_problem(PAPER) bf16 "
                                   "payload", dev, wcfg, blur_data,
                                   all_counts,
-                                  gan_expect(wcfg, GAN_EPOCHS, all_counts),
-                                  gan_improving)
+                                  gan_expect(wcfg, CUT_EPOCHS, all_counts),
+                                  gan_improving, n_epochs=CUT_EPOCHS)
     for k in launches:
         launches[k] += got[k][0]
     from repro_torch.core import workflow as W
@@ -2691,9 +2750,9 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
 def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
                    proc_states, proc_p50):
     """Phases 38-39: the chunked ring (`ring_chunking`) on the card.  38:
-    PAPER stacked at R 8 in both ring modes at RING_CHUNK with phase 22's
-    bars and counts beside phase 22's runs (`fp32`: mode -> (p50 ms, final
-    generator on the CPU, final mean|r̂|)), CHUNK_BITWISE_EPOCHS epochs of
+    PAPER stacked at R 8 in both ring modes at RING_CHUNK for CUT_EPOCHS
+    with phase 22's bars and counts beside phase 22's runs (`fp32`: mode
+    -> (p50 ms, ...)), CHUNK_BITWISE_EPOCHS epochs of
     each bitwise an unchunked run; imaging_blur at IMAGE_RING_CHUNK for
     CUT_EPOCHS with phase 26's bars and counts beside its p50
     (`imaging_blur_p50`); PAPER
@@ -2701,7 +2760,7 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     by mode).  39:
     the proc runtime, phase 34's bitwise runs chunked, bitwise their
     reference and phase 34's states (`proc_states` by mode);
-    imaging_blur as 8 workers, bitwise its reference, then GAN_EPOCHS
+    imaging_blur as 8 workers, bitwise its reference, then CUT_EPOCHS
     lock-step epochs with phase 26's bars beside its stacked p50, and a
     free run with phase 35's lag (finite); PAPER's lock-step epoch a rank
     is phase 35's (`proc_p50`).  Returns each kernel's launches over the
@@ -2746,28 +2805,23 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
               f"{SEED} bitwise an unchunked run on the card (the whole "
               f"state)")
         del states
-        # rma_arar_arar cut to CUT_EPOCHS: phase 42 trains it at 65,536 B
-        # (throughput(PAPER), at depth 2) for GAN_EPOCHS
-        n = CUT_EPOCHS if mode == "rma_arar_arar" else GAN_EPOCHS
-        got, p50, final = train_and_check(
+        # both modes cut to CUT_EPOCHS: phase 42 trains the ring at 65,536 B
+        # (throughput(PAPER), at depth 2) for GAN_EPOCHS, phase 46 the
+        # image problem's at 524,288 B
+        got, p50, _ = train_and_check(
             "38", f"GAN PAPER {mode} ring_chunking {RING_CHUNK:,} B", dev,
-            wcfg, data, all_counts, gan_expect(wcfg, n, all_counts),
-            gan_healthy, n_epochs=n)
+            wcfg, data, all_counts, gan_expect(wcfg, CUT_EPOCHS, all_counts),
+            gan_healthy, n_epochs=CUT_EPOCHS)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
-        p50_32, gen_32, r_32 = fp32[mode][:3]
-        gap = max(float((a - b).abs().max()) for a, b in zip(
-            tree_leaves(final["gen"]), tree_leaves(gen_32)))
+        p50_32 = fp32[mode][0]
         R, K, E = GAN_OUTER * GAN_INNER, PAPER.n_param_samples, \
             PAPER.events_per_sample
         print(f"[38] GAN PAPER {mode} chunked: epoch p50 {p50:.3f} ms "
               f"({R * K * E / p50 * 1e3:,.0f} events/s) beside phase 22's "
               f"unchunked {p50_32:.3f} ms ({R * K * E / p50_32 * 1e3:,.0f} "
-              f"events/s) in the same run ({p50 / p50_32:.3f}x)" + (
-                  f"; after {n} epochs the generator max |chunked - phase "
-                  f"22| {gap:.3e}, mean|r̂| {final['residual']:.4f} against "
-                  f"{r_32:.4f}" if n == GAN_EPOCHS else
-                  f"; {n} epochs (phase 22 trains {GAN_EPOCHS}: no "
-                  f"generator gap printed)"))
+              f"events/s) in the same run ({p50 / p50_32:.3f}x); "
+              f"{CUT_EPOCHS} epochs (phase 22 trains {GAN_EPOCHS}: no "
+              f"generator gap printed)")
 
     name = "imaging_blur"
     wcfg = chunked(for_problem(name, PAPER), IMAGE_RING_CHUNK)
@@ -2823,10 +2877,12 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
              {"lockstep": False,
               "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
         locked = label == "lock-step"
+        # the lock-step run cut to CUT_EPOCHS: phase 46 trains imaging_blur
+        # at 524,288 B for GAN_EPOCHS, phase 41 lock-step workers
         counts, p50[label] = proc_workflow(
             "39", label, dev, wcfg, blur_data, all_counts, blur_p50,
             d_bar=gan_improving if locked else (lambda d: (True, "finite")),
-            n_epochs=None if locked else PROC_FREE_EPOCHS, **kw)
+            n_epochs=CUT_EPOCHS if locked else PROC_FREE_EPOCHS, **kw)
         add_launches(launches, counts)
     lock = p50["lock-step"]
     print(f"[39] {name} as 8 workers at ring_chunking {IMAGE_RING_CHUNK:,} "
@@ -3902,7 +3958,8 @@ def overlap_exchange(dev):
 def overlap_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     """Phases 46-47: the overlapped pod boundary (`overlap`) on the card.
     46, stacked: PAPER with overlap at OVERLAP_H in `arar_arar` and
-    `rma_arar_arar` with metrics and a metrics file (phase 22's bars and
+    `rma_arar_arar` for CUT_EPOCHS with metrics and a metrics file (phase
+    22's bars and
     counts; the header's schedule, the rows' and the final ship and
     exchange counts), beside phase 22's p50 (`fp32`: mode -> (p50 ms,
     ...)); imaging_blur with overlap at OVERLAP_H and IMAGE_RING_CHUNK
@@ -3943,9 +4000,10 @@ def overlap_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     t0 = time.perf_counter()
     try:
         # -- 46. stacked ------------------------------------------------------
-        # rma_arar_arar cut to CUT_EPOCHS: phase 48 trains it with the
-        # adaptive schedule's overlap at h 10 for GAN_EPOCHS
-        for mode, m in (("arar_arar", n), ("rma_arar_arar", CUT_EPOCHS)):
+        # both modes cut to CUT_EPOCHS: phase 48 trains the overlap at h
+        # 10 (with the adaptive schedule) for GAN_EPOCHS
+        for mode, m in (("arar_arar", CUT_EPOCHS),
+                        ("rma_arar_arar", CUT_EPOCHS)):
             out = os.path.join(tmp, f"{mode}.jsonl")
             ships = [e for e in range(m) if (e + 1) % h == 0]
             wcfg = dataclasses.replace(
@@ -4660,6 +4718,355 @@ def hubert_phases(dev, all_counts):
     return launches, worst
 
 
+def vlm_phases(dev, all_counts):
+    """Phases 53-55: B4 at internvl2-1b's shapes (causal, GQA group 7, head
+    dim 64) against its plain version and timed; internvl2-1b's
+    image-plus-prompt prefill and greedy decode at full size, and at full
+    width and depth 2 on the card against the CPU; internvl2-1b trained at
+    full size.  Returns (B4's launches over the counted runs of phases 54
+    and 55, the largest |kernel - plain| of phase 53's calls)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.serving import make_prefill_fn, make_serve_step
+    from repro_torch.training import trainer as T
+
+    cfg = get_config(VLM_ARCH)
+    L, H, KV, hd = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    G = H // KV
+    if (G, hd) != (7, 64) or not cfg.causal or cfg.family != "vlm":
+        fail(f"{VLM_ARCH}: {H} heads over {KV}, head dim {hd}, causal "
+             f"{cfg.causal}, family {cfg.family}; expected G 7, hd 64, a "
+             f"causal vlm")
+    n_vis = min(cfg.num_vision_tokens, VLM_SEQ // 2)
+
+    # -- 53. B4 at internvl2's shapes, bf16, causal, G 7 ---------------------
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 53)
+    worst, inputs = 0.0, {}
+    for what, (b, s) in (("prefill", (VLM_BATCH, VLM_SEQ)),
+                         ("training step", (VLM_BATCH, VLM_TRAIN_SEQ))):
+        q = torch.randn((b, s, KV, G, hd), generator=g).to(dev,
+                                                           torch.bfloat16)
+        k, v = (torch.randn((b, s, KV, hd), generator=g).to(dev,
+                                                            torch.bfloat16)
+                for _ in range(2))
+        fa.counts.reset()
+        o = fa.flash_attention_model(q, k, v, True, None)
+        torch.cuda.synchronize()
+        ok, err = close(o, fa._plain_model(q, k, v, True, None), **BF16)
+        if (not ok or o.dtype != q.dtype or o.shape != q.shape
+                or fa.counts.routes != {"fma": 0, "wgmma": 1}):
+            fail(f"phase 53: flash_attention_model disagrees with its plain "
+                 f"version at {VLM_ARCH}'s {what} call q{list(q.shape)} "
+                 f"bf16 causal (max {err:.3e}, routes {fa.counts.routes})")
+        worst = max(worst, err)
+        inputs[what] = (q, k, v)
+        print(f"[53] flash_attention_model q{list(q.shape)} "
+              f"k/v{list(k.shape)} bf16 causal ({VLM_ARCH}'s {what} call, "
+              f"GQA group {G}, wgmma route, tiles "
+              f"{fa.TC_BLOCK_Q}x{fa.TC_BLOCK_K}, row stride {H * hd * 2} "
+              f"B): max |kernel - plain| = {err:.3e} (bf16 2e-2) ok")
+        del o
+    for what, (q, k, v) in inputs.items():
+        B, S = q.shape[:2]
+        qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+        ok, err = close(library(), flash_attention_ref(qh, kh, vh, True,
+                                                       None), **BF16)
+        if not ok:
+            fail(f"phase 53: scaled_dot_product_attention computes another "
+                 f"function than the plain version (max err {err:.3e})")
+        ms = cuda_ms(lambda: fa.flash_attention_model(q, k, v, True, None),
+                     True)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qh, kh, vh, True,
+                                                       None), True,
+                           inner=3, samples=10, warmup=3)
+        lib_ms = cuda_ms(library, True)
+        n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        n_ops = 4 * B * H * hd * (S * (S + 1) // 2)    # QK^T and PV, causal
+        bound_ms, bound_by = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+        print(f"[53] flash_attention_model q{list(q.shape)} bf16 causal "
+              f"({what}), card time: kernel {ms:.5f} ms "
+              f"({n_ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.1%} of its "
+              f"bound), plain {plain_ms:.5f} ms, "
+              f"scaled_dot_product_attention(is_causal=True) {lib_ms:.5f} ms "
+              f"(enable_gqa=True, on [B, H, S, hd]; max err against the "
+              f"plain version {err:.3e}); bound {bound_ms:.6f} ms by "
+              f"{bound_by} "
+              f"({n_bytes} B, {n_ops:.4g} FLOP at the bf16 tensor-core "
+              f"peak)")
+        del qh, kh, vh
+    del inputs, q, k, v
+    torch.cuda.empty_cache()
+    print(f"[53] phase 53 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 54. the image-plus-prompt prefill and greedy decode -----------------
+    t0 = t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    n_params = M.param_count(params)
+    if n_params != INTERNVL2_PARAMS or "lm_head" in params \
+            or tuple(params["frontend"]["proj"].shape) != (
+                M.VISION_EMB_DIM, cfg.d_model):
+        fail(f"{VLM_ARCH}: {n_params} parameters (expected "
+             f"{INTERNVL2_PARAMS}), keys {sorted(params)}")
+    batch = make_batch(cfg, VLM_BATCH, VLM_SEQ, seed=SEED, device=dev)
+    n_text = batch["tokens"].shape[1]
+    if tuple(batch["vision"].shape) != (VLM_BATCH, n_vis, M.VISION_EMB_DIM):
+        fail(f"{VLM_ARCH}: vision {tuple(batch['vision'].shape)}, expected "
+             f"{(VLM_BATCH, n_vis, M.VISION_EMB_DIM)}")
+    torch.cuda.synchronize()
+    print(f"[54] {VLM_ARCH}: param_count {n_params:,} ({cfg.dtype}, {L} "
+          f"layers, d_model {cfg.d_model}, {H} heads over {KV} KV heads of "
+          f"{hd}, qkv bias, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied, "
+          f"patch embeddings {M.VISION_EMB_DIM}) made on the card from seed "
+          f"{SEED} in {time.perf_counter() - t0:.2f}s; batch {VLM_BATCH} x "
+          f"({n_vis} patches + {n_text} prompt tokens), context "
+          f"{VLM_SEQ + VLM_NEW}, {VLM_PREFILLS} counted prefills, then "
+          f"{VLM_NEW} greedy decode steps")
+    prefill_fn, step = make_prefill_fn(cfg), make_serve_step(cfg)
+    ctx = VLM_SEQ + VLM_NEW
+
+    def serve(n_prefills, n_steps, mark):
+        """n_prefills prefills, then n_steps greedy decode steps from the
+        last one's cache; `mark()` after each.  Returns (the tokens picked,
+        the last cache, every logits tensor's finiteness)."""
+        finite = []
+        for _ in range(n_prefills):
+            last, cache = prefill_fn(params, batch, ctx,
+                                     last_logits_only=True)
+            mark()
+            finite.append(torch.isfinite(last).all())
+        pos = cache["pos"]
+        toks = [torch.argmax(last, dim=-1)]
+        for _ in range(n_steps):
+            last, cache = step(params, toks[-1], cache)
+            mark()
+            finite.append(torch.isfinite(last).all())
+            toks.append(torch.argmax(last, dim=-1))
+        return torch.cat(toks, 1), pos, cache, finite
+
+    with torch.no_grad():
+        serve(1, 4, lambda: None)           # warm-up, not counted
+        torch.cuda.synchronize()
+        events = []
+
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        start.record()
+        toks, pos, cache, finite = serve(VLM_PREFILLS, VLM_NEW, mark)
+        events[-1].synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        routes = dict(all_counts["flash_attention"].routes)
+        # ------------------------------------------------------------------
+    n = L * VLM_PREFILLS
+    expect = {k: ((n if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or routes != {"fma": 0, "wgmma": n}:
+        fail(f"{VLM_ARCH} serving: (kernel launches, plain calls) {got}, B4 "
+             f"routes {routes}; expected {expect} ({L} B4 launches a "
+             f"prefill, none in decode), all on the bf16 route")
+    if pos != VLM_SEQ or cache["pos"] != VLM_SEQ + VLM_NEW:
+        fail(f"{VLM_ARCH}: the cache's pos {pos} after the prefill and "
+             f"{cache['pos']} after {VLM_NEW} steps; expected {VLM_SEQ} "
+             f"({n_vis} patches + {n_text} tokens) and {VLM_SEQ + VLM_NEW}")
+    if not bool(torch.stack(finite).all()) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{VLM_ARCH}: non-finite logits or token ids outside the vocab")
+    launches = n
+    times = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    prefill, steps = times[:VLM_PREFILLS], times[VLM_PREFILLS:]
+    p50 = float(np.percentile(prefill, 50))
+    total_ms = p50 + float(steps.sum())
+    print(f"[54] {VLM_ARCH} serving: B4 launches {n} ({L} a prefill; by "
+          f"route {routes}), plain calls {got['flash_attention'][1]}; no "
+          f"other kernel; the cache's pos {pos} after the prefill, "
+          f"{cache['pos']} after {VLM_NEW} steps; every logit finite")
+    print(f"[54] {VLM_ARCH} image-plus-prompt prefill (batch {VLM_BATCH}, "
+          f"{n_vis} + {n_text} positions, last logits only) p50 {p50:.3f} "
+          f"ms, p99 {float(np.percentile(prefill, 99)):.3f} ms over "
+          f"{VLM_PREFILLS} ({VLM_BATCH * VLM_SEQ / p50 * 1e3:,.0f} positions "
+          f"/s at p50; {2 * n_params * VLM_BATCH * VLM_SEQ / p50 / 1e9:.1f} "
+          f"TFLOP/s in the matmuls of the parameters); decode step p50 "
+          f"{float(np.percentile(steps, 50)):.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms over {VLM_NEW} steps of "
+          f"{VLM_BATCH} tokens; {VLM_BATCH * VLM_NEW / total_ms * 1e3:.1f} "
+          f"tok/s generated including the p50 prefill; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (on the "
+          f"card's clock, each prefill and step end to end)")
+    print(f"[54]   request 0, first 12 greedy ids: {toks[0, :12].tolist()}")
+    del params, batch, cache, finite, toks
+    torch.cuda.empty_cache()
+
+    c = cfg.replace(num_layers=2, dtype="float32")
+    small = M.init(torch.Generator().manual_seed(SEED + 4), c, "cpu")
+    b1 = make_batch(c, 1, VLM_CHECK_SEQ, seed=SEED + 5, device="cpu")
+    runs = {}
+    for d in ("cpu", dev):
+        p = M.map_params(lambda x: x.to(d), small)
+        fa.counts.reset()
+        with torch.no_grad():
+            lg, cache = make_prefill_fn(c)(
+                p, {k: v.to(d) for k, v in b1.items()},
+                VLM_CHECK_SEQ + VLM_CHECK_NEW)
+            seen, picks = [lg.cpu()], []
+            for _ in range(VLM_CHECK_NEW):
+                picks.append(torch.argmax(seen[-1][:, -1:], dim=-1))
+                lg, cache = make_serve_step(c)(p, picks[-1].to(d), cache)
+                seen.append(lg.cpu())
+        runs[str(d)] = (seen, torch.cat(picks, 1), fa.counts.launches,
+                        fa.counts.plain_calls)
+    (lg_c, tk_c, l_c, p_c), (lg_g, tk_g, l_g, p_g) = runs["cpu"], \
+        runs[str(dev)]
+    err = max(float((a - b).abs().max()) for a, b in zip(lg_g, lg_c))
+    top2 = torch.stack([torch.topk(x[0, -1], 2).values for x in lg_c])
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    if (l_c, p_c, l_g, p_g) != (0, 2, 2, 0) or err > LOGIT_ATOL \
+            or not torch.equal(tk_c, tk_g):
+        fail(f"phase 54: {VLM_ARCH} depth 2 fp32 card logits differ from "
+             f"the CPU's by {err:.3e} (> {LOGIT_ATOL}), or greedy tokens "
+             f"card {tk_g.tolist()}, CPU {tk_c.tolist()} (smallest CPU top-2 "
+             f"gap {gap:.3e}), or B4 (launches, plain calls) card "
+             f"{(l_g, p_g)}, CPU {(l_c, p_c)}")
+    print(f"[54] {VLM_ARCH} full width, depth 2, fp32 (TF32 off), batch 1, "
+          f"{b1['vision'].shape[1]} patches + {b1['tokens'].shape[1]} "
+          f"tokens, from one seed's weights: prefill and {VLM_CHECK_NEW} "
+          f"decode steps' logits card vs CPU max |diff| {err:.3e} (<= "
+          f"{LOGIT_ATOL}; |logits| up to {float(lg_c[0].abs().max()):.2f}); "
+          f"greedy ids {tk_g[0].tolist()} identical (smallest CPU top-2 gap "
+          f"{gap:.3e}); B4 2 launches on the card (fp32 route), 2 plain "
+          f"calls on the CPU")
+    del small, runs, lg, cache
+    print(f"[54] phase 54 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 55. train internvl2-1b at full size ---------------------------------
+    tcfg = T.TrainConfig(lr=3e-4, warmup=min(20, VLM_TRAIN_STEPS // 5 + 1),
+                         total_steps=VLM_TRAIN_STEPS)
+    t0 = t_phase = time.perf_counter()
+    trainer = T.Trainer(cfg, tcfg, SEED, device=dev)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in M.leaves(trainer.state))
+    n_vis_t = min(cfg.num_vision_tokens, VLM_TRAIN_SEQ // 2)
+    n_text_t = VLM_TRAIN_SEQ - n_vis_t
+    print(f"[55] {VLM_ARCH}: the train state ({n_params:,} bf16 parameters, "
+          f"fp32 moments) {state_bytes / 1e9:.2f} GB made on the card from "
+          f"seed {SEED} in {time.perf_counter() - t0:.2f}s; batch "
+          f"{VLM_BATCH} x ({n_vis_t} patches + {n_text_t} text tokens), lr "
+          f"{tcfg.lr}, warmup {tcfg.warmup}, {VLM_TRAIN_STEPS} steps")
+    stream = TokenStream(cfg, VLM_BATCH, VLM_TRAIN_SEQ, seed=SEED, device=dev)
+    held_out = [make_batch(cfg, VLM_BATCH, VLM_TRAIN_SEQ,
+                           seed=HELD_OUT_SEED + i, device=dev)
+                for i in range(HELD_OUT_BATCHES)]
+
+    def held_out_loss():
+        with torch.no_grad():
+            return float(torch.stack([M.loss_fn(trainer.state["params"], b,
+                                                cfg)[0]
+                                      for b in held_out]).mean())
+    before = held_out_loss()
+    # warm-up, not counted: one forward and backward at these shapes (the
+    # donating step would train the state)
+    T._compute_grads(trainer.state["params"], next(TokenStream(
+        cfg, VLM_BATCH, VLM_TRAIN_SEQ, seed=SEED + 11, device=dev)), cfg,
+        tcfg)
+    torch.cuda.synchronize()
+    events, losses = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted main-path run ---
+    start.record()
+    trainer.run(stream, VLM_TRAIN_STEPS, log_every=VLM_TRAIN_STEPS,
+                log=lambda s: print(f"[55]   {s}"), on_step=on_step)
+    events[-1].synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    routes = dict(all_counts["flash_attention"].routes)
+    backward = all_counts["flash_attention"].backward_plain
+    # ----------------------------------------------------------------------
+    n = 2 * L * VLM_TRAIN_STEPS
+    expect = {k: ((n if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or backward != L * VLM_TRAIN_STEPS \
+            or routes != {"fma": 0, "wgmma": n}:
+        fail(f"{VLM_ARCH} training: (kernel launches, plain calls) {got}, B4 "
+             f"routes {routes}, B4 backward passes {backward}; expected "
+             f"{expect}, all on the bf16 route, and {L * VLM_TRAIN_STEPS} "
+             f"backward passes (B4 twice a layer a step: the forward and the "
+             f"remat recompute)")
+    loss = torch.stack(losses).float().cpu().numpy()
+    after = held_out_loss()
+    if not np.isfinite(loss).all() or not np.isfinite([before, after]).all():
+        fail(f"{VLM_ARCH}: non-finite loss {loss}, held out {before} -> "
+             f"{after}")
+    if not after < before:
+        fail(f"{VLM_ARCH}: the loss did not fall: held-out loss "
+             f"{before:.4f} before training, {after:.4f} after")
+    launches += n
+    steps = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(steps, 50))
+    print(f"[55] {VLM_ARCH} training: B4 launches {n} "
+          f"({n // VLM_TRAIN_STEPS} a step; by route {routes}), plain calls "
+          f"{got['flash_attention'][1]}, B4 backward passes (the VJP of the "
+          f"plain version) {backward}; no other kernel")
+    print(f"[55] {VLM_ARCH} loss on the {HELD_OUT_BATCHES} held-out batches "
+          f"(text positions only): {before:.4f} before training, "
+          f"{after:.4f} after (fell by {before - after:.4f}; ln "
+          f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}: the tokens are "
+          f"random); every step's loss finite")
+    print(f"[55] {VLM_ARCH} training loss by step (each a new random "
+          f"batch): " + " ".join(f"{v:.4f}" for v in loss))
+    print(f"[55] {VLM_ARCH} step time p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms, first {steps[0]:.3f} ms "
+          f"(on the card's clock, from one step's end to the next); "
+          f"{VLM_BATCH * n_text_t / p50 * 1e3:,.0f} text tokens/s and "
+          f"{VLM_BATCH * VLM_TRAIN_SEQ / p50 * 1e3:,.0f} positions/s at p50; "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB")
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(stream, PROFILED_STEPS, log_every=PROFILED_STEPS,
+                    log=lambda s: None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    def part(low, op):      # a dense model's gathers are not routing
+        grp = step_part(low, op)
+        return ("gathers and their backward (the embedding lookup, the "
+                "loss's label gather)" if grp.startswith("routing") else grp)
+    report_profile("55", f"{VLM_ARCH} training", prof, wall_us,
+                   PROFILED_STEPS, "step", part)
+    del trainer, stream, events, losses, prof, held_out
+    torch.cuda.empty_cache()
+    print(f"[55] phase 55 {time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
 def time_phase(dev, strict):
     """Phase 4: each kernel, its plain version and the library call timed
     at the main-path shapes, B1 also at the trainer's and B3 at large
@@ -5369,6 +5776,12 @@ def main():
     max_err["flash_attention"] = max(max_err["flash_attention"], err)
 
     clock("50-52")
+    # -- 53-55. the vlm family: internvl2-1b served and trained ------------
+    n, err = vlm_phases(dev, all_counts)
+    launches["flash_attention"] += n
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+
+    clock("53-55")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

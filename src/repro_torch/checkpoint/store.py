@@ -174,8 +174,9 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
     nested dict of numpy arrays ({"periods": {"sub0": {"attn": {"wq":
     ...}}}, "final_norm", "embed", ["lm_head"]}, the blocks stacked with a
     leading n_periods axis; an audio encoder has "frontend": {"proj"} and
-    "lm_head" in place of "embed") -> the port's params on `device`, same
-    keys.
+    "lm_head" in place of "embed", a VLM "frontend": {"proj"} beside
+    "embed"; "proj" is [features, d_model]) -> the port's params on
+    `device`, same keys.
 
     The blocks may be attention blocks ("attn", "ln1", "ln2", and "mlp"
     or a MoE's "moe": `router` [D, E], fp32 in a bf16 model; `we1`, `we3`
@@ -197,14 +198,17 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
         raise ValueError(f"not an LLM parameter tree: expected 'periods', "
                          f"'final_norm' and 'embed', or an audio encoder's "
                          f"'frontend' and 'lm_head', got {sorted(keys)}")
-    extra = keys - {"periods", "final_norm", "lm_head"} - inputs
-    if audio and (not isinstance(tree["frontend"], dict)
-                  or set(tree["frontend"]) != {"proj"}):
+    extra = keys - {"periods", "final_norm", "lm_head", "embed", "frontend"}
+    front = tree.get("frontend")
+    if front is not None and not (
+            isinstance(front, dict) and set(front) == {"proj"}
+            and np.shape(front["proj"])[1:] == np.shape(tree["final_norm"])):
         extra.add("frontend")
     if extra:
         raise ValueError(f"unexpected leaves {sorted(extra)} (the port runs "
-                         f"text decoders and the audio encoder, whose "
-                         f"frontend is {{'proj'}})")
+                         f"text decoders, the audio encoder and the VLM, "
+                         f"whose frontend is {{'proj': [features, "
+                         f"d_model]}})")
     depth = {np.shape(a)[0] for a in leaves(tree["periods"])}
     if len(depth) != 1:
         raise ValueError(f"the stacked blocks disagree on n_periods: "

@@ -4,15 +4,17 @@ of the LLM paths (serving and training): `--arch <id>` resolves here, as
 in `repro.configs`.
 
 Registered: the dense decoders, the MoE decoders (qwen2-moe-a2.7b,
-granite-moe-3b-a800m), mamba2-130m (the ssm family) and hubert-xlarge
-(the audio family: an encoder-only stack behind the stubbed frame
-projection of `models.model`), whose layers are all ported
+granite-moe-3b-a800m), mamba2-130m (the ssm family), hubert-xlarge (the
+audio family: an encoder-only stack behind the stubbed frame projection
+of `models.model`) and internvl2-1b (the vlm family: a Qwen2 decoder
+behind the stubbed patch projection), whose layers are all ported
 (`models.layers`, `models.moe`, `models.ssm`, `models.blocks`).  The
-other archs of the JAX package raise `NotImplementedError` naming the
-ROADMAP item that ports them.
+hybrid, jamba-1.5-large-398b, raises `NotImplementedError` naming the
+ROADMAP item that ports it.
 """
-from . import (deepseek_67b, granite_moe_3b, hubert_xlarge, mamba2_130m,
-               qwen2_5_3b, qwen2_moe_a2_7b, qwen3_32b, tinyllama_1_1b)
+from . import (deepseek_67b, granite_moe_3b, hubert_xlarge, internvl2_1b,
+               mamba2_130m, qwen2_5_3b, qwen2_moe_a2_7b, qwen3_32b,
+               tinyllama_1_1b)
 
 ARCHS = {
     "qwen3-32b": qwen3_32b,
@@ -23,14 +25,13 @@ ARCHS = {
     "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
     "granite-moe-3b-a800m": granite_moe_3b,
     "hubert-xlarge": hubert_xlarge,
+    "internvl2-1b": internvl2_1b,
 }
 
 # archs of the JAX package not ported yet -> what ports them
 LATER = {
     "jamba-1.5-large-398b": "the hybrid family (SSM + MoE layers), "
                             "ROADMAP.md queue A item 10",
-    "internvl2-1b": "the VLM family (vision frontend), ROADMAP.md queue A "
-                    "item 10",
 }
 
 

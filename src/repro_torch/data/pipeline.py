@@ -3,9 +3,9 @@
 
 Both draw from one numpy `RandomState(seed)`, as the JAX package does
 (the audio batch: `randn` for the frame features first, then `randint`
-for the labels), and the stream uses its seed formula, so the port's
-batches are bitwise the JAX package's.  The VLM batch raises: its
-frontend is not ported.
+for the labels; the vlm batch: `randint` for the text tokens first, then
+`randn` for the patch embeddings), and the stream uses its seed formula,
+so the port's batches are bitwise the JAX package's.
 """
 from __future__ import annotations
 
@@ -17,28 +17,37 @@ import torch
 from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.layers import torch_dtype
-from ..models.model import AUDIO_FEAT_DIM
+from ..models.model import AUDIO_FEAT_DIM, VISION_EMB_DIM
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                device=None):
-    """{"tokens": [batch, seq] int32}, or for the audio family
-    {"features": [batch, seq, AUDIO_FEAT_DIM] in cfg.dtype, "labels":
-    [batch, seq] int32}, on `device` (CUDA by default)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm batches come with the vision frontend "
-            f"(ROADMAP.md queue A item 10)")
+    """{"tokens": [batch, seq] int32}; for the audio family {"features":
+    [batch, seq, AUDIO_FEAT_DIM] in cfg.dtype, "labels": [batch, seq]
+    int32}; for the vlm family {"tokens": [batch, seq − n_vis] int32,
+    "vision": [batch, n_vis, VISION_EMB_DIM] in cfg.dtype} with n_vis =
+    min(num_vision_tokens or 256, seq // 2), so `seq` counts the patches
+    and the text together.  On `device` (CUDA by default).  Float64 draws
+    reach cfg.dtype in one rounding, as `jnp.asarray` casts them."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
+
+    def ints(shape):
+        return torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, shape).astype(np.int32)).to(dev)
+
+    def normal(shape):
+        return torch.from_numpy(rng.randn(*shape)).to(
+            dev, torch_dtype(cfg.dtype))
+    # a dict display evaluates in order: the draws are JAX's, in its order
     if cfg.family == "audio":
-        # float64 -> cfg.dtype in one rounding, as jnp.asarray casts
-        feats = torch.from_numpy(rng.randn(batch, seq, AUDIO_FEAT_DIM))
-        labels = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-        return {"features": feats.to(dev, torch_dtype(cfg.dtype)),
-                "labels": torch.from_numpy(labels).to(dev)}
-    toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-    return {"tokens": torch.from_numpy(toks).to(dev)}
+        return {"features": normal((batch, seq, AUDIO_FEAT_DIM)),
+                "labels": ints((batch, seq))}
+    if cfg.family == "vlm":
+        n_vis = min(cfg.num_vision_tokens or 256, seq // 2)
+        return {"tokens": ints((batch, seq - n_vis)),
+                "vision": normal((batch, n_vis, VISION_EMB_DIM))}
+    return {"tokens": ints((batch, seq))}
 
 
 class TokenStream:

@@ -13,6 +13,12 @@ weights from `--seed`), not its text.
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke \\
         --device cpu --arch qwen2-moe-a2.7b
 
+The prompts are text only, as the JAX example's are: an encoder-only
+arch (hubert-xlarge) and a VLM (internvl2-1b) exit with a message.  A
+VLM's image-plus-prompt batch (`data.make_batch`) is served by
+`serving.make_prefill_fn` and then `make_serve_step`, as `chip_smoke.py`
+does.
+
 Runs the arch's full config on CUDA unless asked otherwise: `--smoke`
 takes its smoke-test reduction (the JAX example always does), and
 `--device cpu` runs the plain PyTorch path on the CPU.  Prints the
@@ -64,6 +70,12 @@ def main(argv=None):
         raise SystemExit(f"[serve_llm] {e}")
     if not cfg.supports_decode:
         raise SystemExit(f"{args.arch} is encoder-only — no decode step")
+    if cfg.family == "vlm":
+        raise SystemExit(
+            f"{args.arch} takes an image with its prompt, and this CLI's "
+            f"prompts are text only: serve its image-plus-prompt batch "
+            f"(data.make_batch) with serving.make_prefill_fn, then "
+            f"make_serve_step")
     if args.window:
         cfg = cfg.replace(sliding_window=args.window)
     gen = torch.Generator(device=device).manual_seed(args.seed)

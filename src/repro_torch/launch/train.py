@@ -8,9 +8,14 @@
         --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
         --steps 30
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
+        --steps 30
 
 `--seq` counts tokens, or frames for the audio family (hubert-xlarge:
-the stubbed frame features and their labels, `data.make_batch`).
+the stubbed frame features and their labels, `data.make_batch`), or for
+the vlm family (internvl2-1b) the patches and the text tokens together:
+min(256, seq // 2) stubbed patch embeddings, then the text, whose
+positions alone carry the loss.
 
 The flags are the JAX launcher's plus `--device` (CUDA unless `cpu` is
 asked for) and `--seed` (the random weights; the JAX launcher uses key 0).

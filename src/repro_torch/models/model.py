@@ -1,25 +1,34 @@
 """Unified LM: embed, the layer stack, final norm, LM head; the training
 loss; prefill and one-token decode for serving.  Counterpart of
 `repro.models.model` for the text-only decoders of the dense, moe and
-ssm families and the encoder-only audio family (hubert-xlarge).
+ssm families, the encoder-only audio family (hubert-xlarge) and the vlm
+family (internvl2-1b).
 
 Batch formats, as in the JAX package:
     text  {"tokens": [B, S] int32}
     audio {"features": [B, S, AUDIO_FEAT_DIM], "labels": [B, S] int32}
+    vlm   {"tokens": [B, S_text] int32,
+           "vision": [B, N_VIS, VISION_EMB_DIM]}
+
+The vlm batch's patch embeddings are projected and put before the token
+embeddings, so its sequence is N_VIS + S_text long: the loss is masked
+to the text positions, `prefill` takes the whole sequence and returns
+`pos` = N_VIS + S_text, and `decode_step` continues on text tokens.
 
 Parameters keep the JAX package's layout, so checkpoint and parameter
 keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
 stacked with a leading `n_periods` axis (one period of one layer for a
 homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head";
 the audio family has "frontend": {"proj": [AUDIO_FEAT_DIM, D]} and
-"lm_head" in place of "embed".  Where JAX scans over that axis, the port
-loops over it in Python.
+"lm_head" in place of "embed"; the vlm family has "frontend": {"proj":
+[VISION_EMB_DIM, D]} beside "embed" (tied: no "lm_head").  Where JAX
+scans over that axis, the port loops over it in Python.
 
 The decode cache is {"pos": int, "blocks": {"sub{j}": ...}} with
 attention's k/v [n_periods, B, W, KV, hd] or the SSM's state
 [n_periods, B, H, P, N] (fp32) and conv window [n_periods, B, K − 1, ch];
-`pos` is a Python int (tokens already processed), so the loop needs no
-device read.  `decode_step` writes the
+`pos` is a Python int (positions already processed), so the loop needs
+no device read.  `decode_step` writes the
 cache in place and returns it.
 """
 from __future__ import annotations
@@ -45,14 +54,7 @@ def period_structure(cfg: ModelConfig):
 
 
 AUDIO_FEAT_DIM = 512     # stubbed conv-feature-extractor output (w2v2/HuBERT)
-
-
-def _check_frontend(cfg: ModelConfig):
-    if cfg.family == "vlm" or cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend is not ported; the port runs "
-            f"text decoders and the audio encoder (ROADMAP.md queue A item "
-            f"10)")
+VISION_EMB_DIM = 1024    # stubbed InternViT patch-embedding output
 
 
 def map_params(fn, tree):
@@ -97,7 +99,6 @@ def init(gen, cfg: ModelConfig, device=None):
     the order the periods are drawn, so the peak holds one period beside
     the model (qwen2-moe-a2.7b's 28 GB in bf16 would double if the
     periods were made apart and then stacked)."""
-    _check_frontend(cfg)
     dtype = layers.torch_dtype(cfg.dtype)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
@@ -124,9 +125,11 @@ def init(gen, cfg: ModelConfig, device=None):
     if not cfg.tie_embeddings or audio:
         p["lm_head"] = layers.kaiming(gen, (cfg.d_model, cfg.vocab_size),
                                       dtype, device=device)
-    if cfg.frontend == "audio":
+    feat = {"audio": AUDIO_FEAT_DIM, "vision": VISION_EMB_DIM}.get(
+        cfg.frontend)
+    if feat is not None:
         p["frontend"] = {"proj": layers.kaiming(
-            gen, (AUDIO_FEAT_DIM, cfg.d_model), dtype, device=device)}
+            gen, (feat, cfg.d_model), dtype, device=device)}
     return p
 
 
@@ -139,15 +142,26 @@ def param_count(params) -> int:
 
 
 def embed_inputs(params, batch, cfg: ModelConfig):
-    """Text batch {"tokens": [B, S]} or audio batch {"features": [B, S,
-    AUDIO_FEAT_DIM], "labels": [B, S]} -> (x [B,S,D], labels, loss_mask
-    fp32)."""
-    _check_frontend(cfg)
+    """Text batch {"tokens": [B, S]}, audio batch {"features": [B, S,
+    AUDIO_FEAT_DIM], "labels": [B, S]} or vlm batch {"tokens": [B,
+    S_text], "vision": [B, N_VIS, VISION_EMB_DIM]} -> (x [B,S,D], labels,
+    loss_mask fp32).  The vlm batch's S is N_VIS + S_text: the projected
+    patches, then the token embeddings; its labels are 0 over the patches
+    and its mask 0 there, so only text positions are trained."""
     if cfg.family == "audio":
         labels = batch["labels"]
         x = torch.matmul(batch["features"], params["frontend"]["proj"])
         return x, labels, torch.ones(labels.shape, dtype=torch.float32,
                                      device=labels.device)
+    if cfg.family == "vlm":
+        tok = batch["tokens"]
+        vis = torch.matmul(batch["vision"].to(params["embed"].dtype),
+                           params["frontend"]["proj"])
+        x = torch.cat([vis, params["embed"][tok]], dim=1)
+        pad = tok.new_zeros(vis.shape[:2])
+        labels = torch.cat([pad, tok], dim=1).to(torch.int32)
+        mask = torch.cat([pad, torch.ones_like(tok)], dim=1).float()
+        return x, labels, mask
     tok = batch["tokens"]
     x = params["embed"][tok]
     return x, tok, torch.ones(tok.shape, dtype=torch.float32,
@@ -260,8 +274,9 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, tap=None):
 
 def prefill(params, batch, cfg: ModelConfig, context_len: Optional[int] = None,
             last_logits_only: bool = False, tap=None):
-    """Run the full prompt (a text or an audio batch), building the
-    decode cache.
+    """Run the full prompt (a text, an audio or a vlm batch: the vlm's
+    patches and then its tokens, at positions 0 .. N_VIS + S_text − 1),
+    building the decode cache.
 
     Returns (logits [B,S,V], or [B,1,V] with last_logits_only, the serving
     path that never makes the full-sequence logits; and the cache).  The

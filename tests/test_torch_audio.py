@@ -9,7 +9,8 @@ numpy so that every parameter counts) carried across by
   config, data    `get_config("hubert-xlarge")` and its smoke config
                   field for field; `make_batch`/`TokenStream` bitwise
                   (features in fp32 and bf16, labels); the init's leaves
-                  against JAX's, the full size on the meta device
+                  against JAX's, the full size on the meta device; the
+                  hybrid still raises
   model           forward logits (JAX at attn_impl "naive" and at
                   "pallas" in interpret mode, the port on B4's plain
                   version, non-causal), the non-causal loss, prefill
@@ -110,7 +111,7 @@ def test_config_matches_jax(smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.param_counts() == want.param_counts()
     assert not got.causal and not got.supports_decode
-    assert set(LATER) == {"jamba-1.5-large-398b", "internvl2-1b"}
+    assert set(LATER) == {"jamba-1.5-large-398b"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -145,12 +146,13 @@ def test_make_batch_and_token_stream_are_bitwise_jax(dtype):
 
 
 def test_vlm_still_raises():
-    cfg = get_config(ARCH, smoke=True).replace(family="vlm",
-                                               frontend="vision")
+    """The last arch of the zoo that the port does not run, the hybrid
+    jamba-1.5-large-398b, still raises naming its ROADMAP item (the VLM
+    that this test first pinned is ported: tests/test_torch_vlm.py)."""
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        make_batch(cfg, 1, 4, device="cpu")
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+        get_config("jamba-1.5-large-398b", smoke=True)
 
 
 def test_init_leaves_match_jax_and_full_size_on_meta():

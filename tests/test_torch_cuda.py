@@ -23,7 +23,10 @@ full fp32; under the update cadences, B1 on each epoch where a half runs
 and backward on the generator's).  Flash attention is held at head dim
 80 on both routes, and at GQA group 3 (granite-moe-3b-a800m's);
 non-causal at head dim 80 in the model layout at hubert-xlarge's heads,
-with a depth-2 hubert forward on the card against the CPU.  The MoE
+with a depth-2 hubert forward on the card against the CPU; causal at GQA
+group 7 in the model layout at internvl2-1b's heads, with a depth-2
+internvl2 image-plus-prompt prefill and its greedy decode on the card
+against the CPU.  The MoE
 layer on the card is held against the CPU with capacity drops, and
 is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
@@ -564,6 +567,70 @@ def test_hubert_forward_on_the_card_matches_the_cpu(sm90_card):
     assert (l_c, p_c) == (0, 2) and (l_g, p_g) == (2, 0)
     assert lg_g.shape == (1, 64, 504) and torch.isfinite(lg_g).all()
     torch.testing.assert_close(lg_g, lg_c, rtol=0, atol=1e-3)
+
+
+def test_flash_tc_causal_at_internvl2_heads(sm90_card):
+    """internvl2-1b's attention: 14 heads over 2 KV heads (GQA group 7,
+    odd and not a power of two) of 64, causal, in the model layout q [2,
+    256, 2, 7, 64] bf16 on the wgmma route, forward and backward, against
+    the plain version."""
+    g = torch.Generator().manual_seed(53)
+    xs = [torch.randn(2, 256, 2, 7, 64, generator=g),
+          torch.randn(2, 256, 2, 64, generator=g),
+          torch.randn(2, 256, 2, 64, generator=g)]
+    w = torch.randn(2, 256, 2, 7, 64, generator=g).to(sm90_card)
+    outs, grads = [], []
+    for fn in (fa.flash_attention_model, fa._plain_model):
+        ts = [x.to(sm90_card, torch.bfloat16).requires_grad_() for x in xs]
+        fa.counts.reset()
+        o = fn(*ts, True, None)
+        (o.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        outs.append(o.detach().float())
+        grads.append([t.grad.float() for t in ts])
+        if fn is fa.flash_attention_model:
+            assert fa.counts.routes == {"fma": 0, "wgmma": 1}
+            assert fa.counts.backward_plain == 1
+    torch.testing.assert_close(outs[0], outs[1], **BF16)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **BF16)
+
+
+def test_internvl2_prefill_and_decode_on_the_card_match_the_cpu(sm90_card):
+    """internvl2-1b at full width (d_model 896, 14 heads over 2, d_ff
+    4864), depth 2, its vocab cut to 257, fp32 (TF32 off): an
+    image-plus-prompt batch (16 patches, 16 tokens) prefilled, then two
+    greedy decode steps.  One B4 launch a layer on the card (the fp32
+    route), a plain call on the CPU; the logits agree within 1e-3 and the
+    greedy tokens are equal."""
+    from repro_torch.data import make_batch
+    cfg = get_config("internvl2-1b").replace(num_layers=2, vocab_size=257,
+                                             dtype="float32")
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = make_batch(cfg, 1, 32, seed=1, device="cpu")
+    assert batch["vision"].shape == (1, 16, M.VISION_EMB_DIM)
+    runs = {}
+    for dev in ("cpu", sm90_card):
+        p = M.map_params(lambda t: t.to(dev), params)
+        fa.counts.reset()
+        with torch.no_grad():
+            logits, cache = M.prefill(p, {k: v.to(dev) for k, v in
+                                          batch.items()}, cfg, 40)
+            seen, toks = [logits.cpu()], []
+            for _ in range(2):
+                toks.append(torch.argmax(seen[-1][:, -1:], -1))
+                lg, cache = M.decode_step(p, toks[-1].to(dev), cache, cfg)
+                seen.append(lg.cpu())
+        assert cache["pos"] == 34
+        runs[str(dev)] = (seen, toks, fa.counts.launches,
+                          fa.counts.plain_calls)
+    (lg_c, tk_c, l_c, p_c), (lg_g, tk_g, l_g, p_g) = runs.values()
+    assert (l_c, p_c) == (0, 2) and (l_g, p_g) == (2, 0)
+    assert lg_g[0].shape == (1, 32, 257)
+    for a, b in zip(lg_g, lg_c):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(tk_g, tk_c))
 
 
 @pytest.mark.parametrize("window", [None, 8])

@@ -393,7 +393,7 @@ def test_tap_records_and_pins_the_routing_through_generate(arch):
 
 
 def test_configs_match_jax():
-    assert set(LATER) == {"jamba-1.5-large-398b", "internvl2-1b"}
+    assert set(LATER) == {"jamba-1.5-large-398b"}
     for arch in MOE:
         assert arch in ARCHS
         for smoke in (False, True):

@@ -308,8 +308,16 @@ def test_make_batch_and_token_stream_are_bitwise_jax():
     for _ in range(3):
         np.testing.assert_array_equal(next(ours)["tokens"].numpy(),
                                       np.asarray(next(theirs)["tokens"]))
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        make_batch(cfg.replace(family="vlm"), 1, 4, device="cpu")
+    # the same config as a vlm: its image-plus-prompt batch, bitwise too
+    got = make_batch(cfg.replace(family="vlm"), 3, 17, seed=5, device="cpu")
+    want = jax_make_batch(jcfg.replace(family="vlm"), 3, 17, seed=5)
+    assert set(got) == set(want) == {"tokens", "vision"}
+    assert got["vision"].shape == (3, 8, 1024)
+    assert got["vision"].dtype == torch.bfloat16          # cfg.dtype
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(want["tokens"]))
+    np.testing.assert_array_equal(got["vision"].view(torch.int16).numpy(),
+                                  np.asarray(want["vision"]).view(np.int16))
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "sgd_momentum"])
