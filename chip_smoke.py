@@ -171,8 +171,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (the flat problems 1024 x 100 events a rank, the image problems 64 x
      32 with the capped generator step and the conv generator at
      CONV_CHANNELS (32, 32, 16)), 8 ranks as 2 x 4, rma_arar_arar, h
-     1000, fp32 with TF32 off, 200 epochs (imaging_blur 50: phase 46
-     trains it for 200) after an uncounted 2-epoch
+     1000, fp32 with TF32 off, imaging for 200 epochs and the others
+     for 50 (phase 46 trains imaging_blur for 200; phases 40, 42 and 48
+     train the stacked trainer at PAPER's widths for 200) after an
+     uncounted 2-epoch
      warm-up, history every 20: every state leaf finite, the ensemble in
      (0, 1), every recorded d_loss finite and its minimum below the
      first; B1 launched once an epoch (u [8192, 100, 3] / [8192, 100, 4],
@@ -215,12 +217,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
  30. serve qwen2-moe-a2.7b at full size (24 layers, d_model 2048, bf16,
      14.0 B parameters, random weights from a seed) through
      `serving.engine.generate`: batch 8, prompt 1024, 64 greedy tokens
-     after an uncounted warm-up; 24 B4 launches a prefill (head dim 128,
-     GQA group 1), all on the bf16 route, and no plain call; prefill ms,
-     decode ms a step p50/p99, tok/s, peak memory, the (token, expert)
-     assignments dropped by capacity, and the bounds: the prefill's
-     operations at the bf16 peak, a decode step's weight and KV-cache
-     reads at the memory rate;
+     after an uncounted warm-up (the prefill and 4 greedy tokens at the
+     same context, which counts the drops); 24 B4 launches a prefill
+     (head dim 128, GQA group 1), all on the bf16 route, and no plain
+     call; prefill ms, decode ms a step p50/p99, tok/s, peak memory, the
+     (token, expert) assignments dropped by capacity, and the bounds: the
+     prefill's operations at the bf16 peak, a decode step's weight and
+     KV-cache reads at the memory rate;
  31. qwen2-moe-a2.7b at full width, depth 2, fp32 (TF32 off), batch 1,
      prompt 256, 8 greedy tokens, on the card and on the CPU with the same
      weights: logits within 1e-3, token ids equal unless the CPU's top-2
@@ -266,12 +269,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
      events/s, the wall time from spawn to result and the workers'
      start-up, the summed B1 counts, beside phase 22's stacked epoch p50;
  36. the bf16 ring payload (`payload_precision="bf16"`, fp32 master
-     state), stacked: `PAPER` at R 8 in `rma_arar_arar` (h 1000) for 50
-     epochs (phase 42 trains the bf16 payload in it for 200) and in
-     `conv_arar` for 200 with phase 22's bars and counts, each epoch
-     p50/p99 and events/s beside phase 22's fp32 p50 of the same run,
-     `conv_arar`'s generator-parameter and residual gaps to phase 22's
-     fp32 run printed;
+     state), stacked: `PAPER` at R 8 in `rma_arar_arar` (h 1000) and in
+     `conv_arar` for 50 epochs each (phase 42 trains the bf16 payload for
+     200, phase 40 `conv_arar` for 200) with phase 22's bars and counts,
+     each epoch p50/p99 and events/s beside phase 22's fp32 p50 of the
+     same run;
      `for_problem("imaging_blur", PAPER)` at bf16 for 50 epochs (phase
      46 trains imaging_blur for 200, phases 41-42 the bf16 payload) with
      phase 26's bars and counts (B1 on u [512, 32], B3 on [512, 32, 32]
@@ -477,7 +479,40 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (forward and remat recompute) and 24 plain-VJP backward passes a
      step, no plain forward, every loss finite, the loss of 4 held-out
      batches lower after than before; step p50 / p99, text tokens/s and
-     positions/s, peak memory, a profile of PROFILED_STEPS (1) step.
+     positions/s, peak memory, a profile of PROFILED_STEPS (1) step;
+ 56. B4 and B5 at jamba-1.5-large-398b's calls: `flash_attention_model`
+     on q [8, 1024, 8, 8, 128] bf16 causal (64 heads over 8: GQA group 8,
+     hd 128, row stride 16,384 B), timed as phase 53 times internvl2's
+     beside the plain version, `scaled_dot_product_attention` with GQA
+     (timed, never used by the port) and the bound; `ssd_scan` on x [8,
+     1024, 256, 64] bf16, N 128, chunk 256 (four chunks: the chunk-state
+     pass), timed as phase 17 times B5 beside the plain version and the
+     bound; each against its plain version at 2e-2 (the largest errors
+     join the kernels line's);
+ 57. jamba-1.5-large-398b served at full width with two cuts, one period
+     of 8 layers and 8 of its 16 experts (bf16, random weights from a
+     seed, `param_count` 25,817,044,992; the init's peak memory at most
+     the model plus one leaf's fp32 draw and bf16 copy: the one-period
+     stack is views of its draws): 8 prompts of 1024 tokens through
+     `serving.make_prefill_fn` at context 1024 + 64 with last logits
+     only, 10 counted prefills after an uncounted one, then 64 greedy
+     steps of `make_serve_step`, a `moe.Tap` counting the capacity drops:
+     one B4 launch a prefill, all wgmma, no B5 call (the prefill's scan is
+     plain, as in the JAX package), no plain call, the cache's pos 1024
+     after the prefill, every logit finite; prefill p50 / p99, decode
+     step p50 / p99, tok/s including the prefill, the drops, peak memory;
+ 58. the same model's scoring pass, `loss_fn` without gradients on
+     `make_batch(cfg, 8, 1024)`, 5 counted passes after an uncounted one:
+     1 B4 and 7 B5 launches a pass, all wgmma, no plain call, the loss
+     finite; pass p50 / p99, positions/s, peak memory; then a narrow
+     hybrid at jamba's period (8 layers, attention at offset 4, MoE on
+     the odd layers) and kernel widths (8 heads over 1 of 128; 32
+     Mamba-2 heads of P 64, N 128, chunk 256; d_model 1024, d_ff and
+     moe_d_ff 1024, 4 experts, vocab 257), fp32 with TF32 off, on the
+     card and on the CPU from one seed's weights: forward logits at batch
+     2 x 512 within 1e-3, a 1 x 512 prefill and 4 greedy steps with equal
+     tokens, and one `Trainer` step at 1 x 300 (two chunks) through
+     `step_card_vs_cpu` (routing pinned at near-ties).
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -533,10 +568,11 @@ PROC_READOUT_SHAPE = (PROC_IMAGES, 32)
 PROC_BLUR_SHAPE = (PROC_IMAGES, 32, 32)
 L2_ROTATION = 8                 # B2/B3 input sets cycled: 67 MB > the 50 MB L2
 SPIN_CYCLES = 20_000_000        # ~10 ms at 1.98 GHz: outlasts 20 enqueues
+MARK_CYCLES = 1_000             # phase 44's marker kernel, ~0.5 us
 RANKS = 16
 LLM_ARCH = "tinyllama-1.1b"
 LLM_BATCH, LLM_PROMPT, LLM_NEW = 8, 1024, 64
-WARM_NEW = 4                    # phases 13, 21: the warm-up's greedy tokens
+WARM_NEW = 4                    # phases 13, 21, 30: the warm-up's tokens
 LLM_WINDOW = 256
 FLASH_Q = (8, 32, 1024, 64)     # B4 q at the prefill shape; k/v have 4 heads
 FLASH_KV_HEADS = 4
@@ -631,6 +667,18 @@ VLM_PREFILLS = 10               # ... prompt tokens; counted prefills
 VLM_CHECK_SEQ, VLM_CHECK_NEW = 32, 4   # phase 54's depth-2 card vs CPU
 VLM_TRAIN_SEQ = 512             # phase 55: 256 patches + 256 text tokens
 VLM_TRAIN_STEPS = 30            # phase 55, as phase 52's hubert
+HYBRID_ARCH = "jamba-1.5-large-398b"   # phases 56-58
+HYBRID_CUT = dict(num_layers=8, num_experts=8)   # one period, 8 of 16
+HYBRID_PARAMS = 25_817_044_992  # ... experts: the JAX init's leaves
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 8, 1024, 64   # phase 57
+HYBRID_PREFILLS = 10            # ... counted prefills
+HYBRID_PASSES = 5               # phase 58's counted scoring passes
+HYBRID_NARROW = dict(d_model=1024, num_heads=8, num_kv_heads=1, d_ff=1024,
+                     num_experts=4, moe_d_ff=1024, vocab_size=257,
+                     dtype="float32")   # phase 58: hd 128, G 8; ssm as cut
+HYBRID_CHECK_BATCH, HYBRID_CHECK_SEQ = 2, 512   # ... its forward
+HYBRID_CHECK_NEW = 4            # ... greedy steps after a 1 x 512 prefill
+HYBRID_STEP_SEQ = 300           # ... its step: two chunks, 256 and 44
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -1508,7 +1556,8 @@ def train_phases(dev, all_counts):
 
     # -- 20. one step on the card against the CPU, full width, depth 2 -------
     for arch, batch, seq in CARD_VS_CPU_STEPS:
-        step_card_vs_cpu("20", dev, arch, batch, seq)
+        step_card_vs_cpu("20", dev, get_config(arch).replace(
+            num_layers=2, dtype="float32"), batch, seq)
 
     # -- 21. serve mamba2-130m -----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1727,9 +1776,12 @@ def moe_phases(dev, all_counts):
           f"{cfg.vocab_size}, tied) made on the card from seed {SEED} in "
           f"{time.perf_counter() - t0:.2f}s")
     # the warm-up, not counted, counts the dropped assignments: the counted
-    # run takes the same inputs, so the same routes, without the count
+    # run takes the same inputs, so the same routes, without the count.
+    # WARM_NEW tokens at the same context: every drop is the prefill's (a
+    # decode step's buffers of C 8 rows hold all 8 tokens of an expert)
     tap = moe.Tap()
-    generate(params, cfg, prompts, LLM_NEW, tap=tap)
+    generate(params, cfg, prompts, WARM_NEW, context_len=LLM_PROMPT + LLM_NEW,
+             tap=tap)
     events, finite = [], []
 
     def on_logits(i, lg):
@@ -1778,7 +1830,8 @@ def moe_phases(dev, all_counts):
           f"{routes}), plain calls {got['flash_attention'][1]}; no other "
           f"kernel; logits finite; {tap.dropped} (token, expert) "
           f"assignments dropped by capacity over {tap.calls} run_moe calls "
-          f"of the warm-up run, the same inputs (C "
+          f"of the warm-up run (the prefill and {WARM_NEW} steps), the same "
+          f"inputs (C "
           f"{moe.moe_capacity(LLM_BATCH * LLM_PROMPT, cfg)} in the "
           f"prefill, {moe.moe_capacity(LLM_BATCH, cfg)} a decode step)")
     print(f"[30] {MOE_SERVE_ARCH}: prefill {prefill_ms:.3f} ms "
@@ -1961,7 +2014,8 @@ def moe_phases(dev, all_counts):
     torch.cuda.empty_cache()
 
     # -- 33. one granite step on the card against the CPU --------------------
-    step_card_vs_cpu("33", dev, MOE_TRAIN_ARCH, 1, 256, pin_routing=True)
+    step_card_vs_cpu("33", dev, cfg.replace(num_layers=2, dtype="float32"),
+                     1, 256, pin_routing=True)
     return launches
 
 
@@ -2038,10 +2092,11 @@ def step_part(low, op):
         else "other (elementwise, norms, loss, optimizer, copies)")
 
 
-def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
+def step_card_vs_cpu(tag, dev, c, batch, seq, pin_routing=False):
     """One training step on the card and on the CPU from the same weights
-    and batch, at `arch`'s full width, depth 2, fp32, TF32 off (phases 20
-    and 33): the loss at rtol STEP_LOSS_RTOL, every gradient leaf within
+    and batch, of the fp32 config `c` (phases 20 and 33: an arch's full
+    width at depth 2; phase 58: a narrow hybrid at jamba's period), TF32
+    off: the loss at rtol STEP_LOSS_RTOL, every gradient leaf within
     STEP_GRAD_REL in relative norm, the card's new parameters against the
     CPU's optimizer on the card's gradients at UPDATE_TOL, every entry;
     the new parameters against the CPU's own step are reported (where |g|
@@ -2050,13 +2105,12 @@ def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
     call and, where they differ at a near-tie, the CPU's step is taken
     again at the card's choices (a `models.moe.Tap`)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data import make_batch
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.training import trainer as T
 
-    c = get_config(arch).replace(num_layers=2, dtype="float32")
+    arch = c.name
     tc = T.TrainConfig(lr=3e-4, warmup=11, total_steps=TRAIN_STEPS)
     small = M.init(torch.Generator().manual_seed(SEED + 8), c, "cpu")
     data = make_batch(c, batch, seq, seed=SEED + 9, device="cpu")
@@ -2109,7 +2163,8 @@ def step_card_vs_cpu(tag, dev, arch, batch, seq, pin_routing=False):
              f"leaf off by {grad_rel:.3e} in relative norm, the card's "
              f"update off the CPU's arithmetic by {update_err:.3e} (bars "
              f"{STEP_LOSS_RTOL}, {STEP_GRAD_REL}, {UPDATE_TOL}){routing}")
-    print(f"[{tag}] {arch} full width, depth 2, fp32, TF32 off, batch "
+    print(f"[{tag}] {arch} at d_model {c.d_model}, depth {c.num_layers}, "
+          f"fp32, TF32 off, batch "
           f"{batch}, seq {seq}: one step card vs CPU from the same "
           f"weights and batch: loss {lg:.6f} vs {lc:.6f} (rel "
           f"{abs(lg - lc) / abs(lc):.2e} <= {STEP_LOSS_RTOL}), grad norm "
@@ -2200,8 +2255,11 @@ def problem_phases(dev, all_counts):
             torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
             device=dev)
         wcfg = for_problem(name, PAPER)
-        # imaging_blur cut to CUT_EPOCHS: phase 46 trains it for GAN_EPOCHS
-        n = CUT_EPOCHS if name == "imaging_blur" else GAN_EPOCHS
+        # imaging_blur cut to CUT_EPOCHS: phase 46 trains it for GAN_EPOCHS;
+        # proxy2d and linear_blur too: their forward models run the same
+        # calls every epoch, and phases 40, 42 and 48 train the stacked
+        # trainer at PAPER's widths (proxy1d) for GAN_EPOCHS
+        n = GAN_EPOCHS if name == "imaging" else CUT_EPOCHS
         got, p50s[name], _ = train_and_check(
             "26", f"{name} for_problem(PAPER)", dev, wcfg, data, all_counts,
             gan_expect(wcfg, n, all_counts), gan_improving, n_epochs=n)
@@ -2654,20 +2712,18 @@ def proc_phases(dev, all_counts, stacked_p50):
 
 def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     """Phases 36-37: the bf16 ring payload (`payload_precision="bf16"`) on
-    the card.  36: PAPER stacked at R 8 in both ring modes with phase 22's
-    bars and counts, beside phase 22's fp32 runs (`fp32`: mode -> (p50
-    ms, final generator on the CPU, final ensemble mean|r̂|)); imaging_blur
-    for CUT_EPOCHS with phase 26's bars and counts beside its fp32 p50;
-    one epoch card
-    vs CPU.  37: the proc runtime, lock-step bitwise its reference in
-    both modes and PAPER for CUT_EPOCHS epochs with phase 35's bars,
+    the card.  36: PAPER stacked at R 8 in both ring modes for CUT_EPOCHS
+    with phase 22's bars and counts, beside phase 22's fp32 runs (`fp32`:
+    mode -> (p50 ms, ...)); imaging_blur for CUT_EPOCHS with phase 26's
+    bars and counts beside its fp32 p50; one epoch card vs CPU.  37: the
+    proc runtime, lock-step bitwise its reference in both modes and PAPER
+    for CUT_EPOCHS epochs with phase 35's bars,
     beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
     kernel's launches over the counted runs and phase 36's PAPER epoch
     p50 (ms) by mode."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
-    from repro_torch.core.tree import tree_leaves
     from repro_torch.problems import get_problem
 
     def bf16(wcfg, **sync):
@@ -2679,29 +2735,23 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         device=dev)
 
     # -- 36. stacked: PAPER in both ring modes, imaging_blur, card vs CPU ---
-    # rma_arar_arar cut to CUT_EPOCHS: phase 42 trains the bf16 payload in
-    # rma_arar_arar (throughput(PAPER), chunked, at depth 2) for GAN_EPOCHS
-    for mode, n in zip(GAN_MODES, (CUT_EPOCHS, GAN_EPOCHS)):
+    # both modes cut to CUT_EPOCHS: phase 42 trains the bf16 payload in
+    # rma_arar_arar (throughput(PAPER), chunked, at depth 2) for
+    # GAN_EPOCHS, and phase 40 trains conv_arar (at disc_every 2,
+    # gen_every 3) for GAN_EPOCHS
+    for mode in GAN_MODES:
         wcfg = bf16(PAPER, mode=mode)
-        got, p50, final = train_and_check(
+        got, p50, _ = train_and_check(
             "36", f"GAN PAPER {mode} bf16 payload", dev, wcfg, data,
-            all_counts, gan_expect(wcfg, n, all_counts), gan_healthy,
-            n_epochs=n)
+            all_counts, gan_expect(wcfg, CUT_EPOCHS, all_counts),
+            gan_healthy, n_epochs=CUT_EPOCHS)
         launches["inverse_cdf"] += got["inverse_cdf"][0]
         p50s[mode] = p50
-        p50_32, gen_32, r_32 = fp32[mode][:3]
-        gap = max(float((a - b).abs().max()) for a, b in zip(
-            tree_leaves(final["gen"]), tree_leaves(gen_32)))
+        p50_32 = fp32[mode][0]
         print(f"[36] GAN PAPER {mode} bf16 payload: epoch p50 {p50:.3f} ms "
               f"beside phase 22's fp32 {p50_32:.3f} ms in the same run "
-              f"({p50 / p50_32:.3f}x)" + (
-                  f"; after {n} epochs from one seed, the generator "
-                  f"parameters max |bf16 - fp32| {gap:.3e}, the ensemble's "
-                  f"mean|r̂| {final['residual']:.4f} against {r_32:.4f} "
-                  f"(|gap| {abs(final['residual'] - r_32):.4f}; printed, "
-                  f"the bars are the healthy ones)" if n == GAN_EPOCHS
-                  else f"; {n} epochs (phase 22 trains {GAN_EPOCHS}: no "
-                  f"generator gap printed)"))
+              f"({p50 / p50_32:.3f}x); {CUT_EPOCHS} epochs (phase 22 trains "
+              f"{GAN_EPOCHS}: no generator gap printed)")
 
     name = "imaging_blur"
     wcfg = bf16(for_problem(name, PAPER))
@@ -3783,37 +3833,39 @@ def obs_phases(dev, all_counts, fp32, depth_p50, proc_p50, proc_free_p50):
               f"B3 at `due_counts`")
         del blur_data
 
-        # the profiler's first epoch is not held to the count: late in the
-        # script it has dropped device events at its start (phase 40, and
-        # here 1 of 10 B1 events once); epoch 0 ends in a synchronize()
-        # and a marker op, and every B1 launch after it must have its
-        # device event after the marker
+        # the profiler's first epoch is not held to the count: it drops
+        # device events at its start (phase 40, and here epoch 0's B1
+        # event in each whole run of this script so far).  Epoch 0 ends in a synchronize() and a
+        # marker kernel on the stream, and every B1 launch after it must
+        # have its device event after the marker's.  Both times are the
+        # device's: a host op's time beside a kernel's is on another clock
+        # (one run placed epoch 1's B1 event before a host marker).
         prof_dir = os.path.join(tmp, "profile")
         w = dataclasses.replace(PAPER, obs=ObsConfig(profile_dir=prof_dir))
-        marker, first = "chip_smoke: epoch 0 done on the card", []
+        first = []
 
         def on_epoch(e, metrics):
             if e == 0:
                 torch.cuda.synchronize()
                 first.append(all_counts["inverse_cdf"].launches)
-                with torch.profiler.record_function(marker):
-                    pass
+                torch.cuda._sleep(MARK_CYCLES)
         counted("[44] profile_dir", w, data, OBS_PROFILED, on_epoch=on_epoch)
         n = all_counts["inverse_cdf"].launches - first[0]
         with open(os.path.join(prof_dir, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
-        t_mark = [e["ts"] for e in events if e.get("name") == marker]
+        t_mark = [e["ts"] for e in kernels
+                  if "spin_kernel" in e.get("name", "")]
         b1 = [e["ts"] for e in kernels if "icdf_kernel" in e.get("name", "")]
         later = sum(ts > t_mark[0] for ts in b1) if t_mark else -1
         if not kernels:
             print(f"[44] profile_dir: the profiler recorded no device "
                   f"events; B1's device events: not measured")
-        elif later != n:
+        elif later != n or len(t_mark) != 1:
             fail(f"[44] profile_dir, {OBS_PROFILED} epochs: the Chrome "
                  f"trace holds {later} device events of icdf_kernel after "
-                 f"epoch 0 (marker found: {bool(t_mark)}), the wrapper "
-                 f"counted {n} launches there")
+                 f"epoch 0's marker kernel ({len(t_mark)} marker events), "
+                 f"the wrapper counted {n} launches there")
         else:
             print(f"[44] profile_dir, {OBS_PROFILED} epochs of PAPER: "
                   f"trace.json holds {len(kernels)} device events; after "
@@ -5067,6 +5119,410 @@ def vlm_phases(dev, all_counts):
     return launches, worst
 
 
+def hybrid_phases(dev, all_counts):
+    """Phases 56-58: B4 (causal, G 8, head dim 128) and B5 (256 heads,
+    P 64, N 128, chunk 256) at jamba-1.5-large-398b's shapes against their
+    plain versions and timed; jamba at full width with two cuts (one
+    period of 8 layers, 8 of its 16 experts; `HYBRID_CUT`) served: the
+    prefill of 8 x 1024 tokens and 64 greedy decode steps; its scoring
+    pass (`loss_fn` without gradients); a narrow hybrid at jamba's period
+    and kernel widths on the card against the CPU.  Returns (B4's and B5's
+    launches over the counted runs of phases 57 and 58, the largest |kernel
+    - plain| of phase 56's B4 and B5 calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving import generate, make_prefill_fn, make_serve_step
+
+    cfg = get_config(HYBRID_ARCH).replace(**HYBRID_CUT)
+    n_periods, plen, kinds, mlp_kinds = M.period_structure(cfg)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G = H // KV
+    SH, P, N, Q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                   cfg.ssm_chunk)
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    if (G, hd, SH, P, N, Q, n_periods, plen, n_attn, n_ssm) != (
+            8, 128, 256, 64, 128, 256, 1, 8, 1, 7) or cfg.family != "hybrid" \
+            or mlp_kinds != ("dense", "moe") * 4 or cfg.d_model != 8192:
+        fail(f"{HYBRID_ARCH} cut {HYBRID_CUT}: G {G}, hd {hd}, {SH} SSM "
+             f"heads of P {P}, N {N}, chunk {Q}, {n_periods} periods of "
+             f"{plen} ({kinds}, {mlp_kinds}); expected one period of 8 at "
+             f"G 8, hd 128, 256 heads of 64, N 128, chunk 256")
+    B, S = HYBRID_BATCH, HYBRID_PROMPT
+    errs = {}
+
+    # -- 56. B4 and B5 at jamba's shapes, bf16 -------------------------------
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 56)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q = randn(B, S, KV, G, hd).to(torch.bfloat16)
+    k, v = (randn(B, S, KV, hd).to(torch.bfloat16) for _ in range(2))
+    fa.counts.reset()
+    o = fa.flash_attention_model(q, k, v, True, None)
+    torch.cuda.synchronize()
+    ok, err = close(o, fa._plain_model(q, k, v, True, None), **BF16)
+    if (not ok or o.dtype != q.dtype or o.shape != q.shape
+            or fa.counts.routes != {"fma": 0, "wgmma": 1}):
+        fail(f"phase 56: flash_attention_model disagrees with its plain "
+             f"version at {HYBRID_ARCH}'s call q{list(q.shape)} bf16 causal "
+             f"(max {err:.3e}, routes {fa.counts.routes})")
+    errs["flash_attention"] = err
+    del o
+    print(f"[56] flash_attention_model q{list(q.shape)} k/v{list(k.shape)} "
+          f"bf16 causal ({HYBRID_ARCH}'s prefill and scoring call, GQA "
+          f"group {G}, head dim {hd}, wgmma route, tiles "
+          f"{fa.TC_BLOCK_Q}x{fa.TC_BLOCK_K}, row stride {H * hd * 2} B): "
+          f"max |kernel - plain| = {err:.3e} (bf16 2e-2) ok")
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    ok, err = close(library(), flash_attention_ref(qh, kh, vh, True, None),
+                    **BF16)
+    if not ok:
+        fail(f"phase 56: scaled_dot_product_attention computes another "
+             f"function than the plain version (max err {err:.3e})")
+    ms = cuda_ms(lambda: fa.flash_attention_model(q, k, v, True, None), True)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(qh, kh, vh, True, None),
+                       True, inner=3, samples=10, warmup=3)
+    lib_ms = cuda_ms(library, True)
+    n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    n_ops = 4 * B * H * hd * (S * (S + 1) // 2)    # QK^T and PV, causal
+    bound_ms, bound_by = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    print(f"[56] flash_attention_model q{list(q.shape)} bf16 causal, card "
+          f"time: kernel {ms:.5f} ms ({n_ops / ms / 1e9:.2f} TFLOP/s, "
+          f"{bound_ms / ms:.1%} of its bound), plain {plain_ms:.5f} ms, "
+          f"scaled_dot_product_attention(is_causal=True) {lib_ms:.5f} ms "
+          f"(enable_gqa=True, on [B, H, S, hd]; max err against the plain "
+          f"version {err:.3e}); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B, {n_ops:.4g} FLOP at the bf16 tensor-core peak)")
+    del q, k, v, qh, kh, vh
+
+    xs = [randn(B, S, SH, P).to(torch.bfloat16), F.softplus(randn(B, S, SH)),
+          -torch.exp(randn(SH)), randn(B, S, N).to(torch.bfloat16),
+          randn(B, S, N).to(torch.bfloat16)]
+    ssd.counts.reset()
+    y = ssd.ssd_scan(*xs, chunk=Q)
+    torch.cuda.synchronize()
+    want = ssd_chunked_ref(*xs, Q)[0]
+    ok, err = close(y, want, **BF16)
+    y_max = float(want.float().abs().max())
+    if (not ok or y.dtype != xs[0].dtype or y.shape != xs[0].shape
+            or ssd.counts.routes != {"fma": 0, "wgmma": 1}):
+        fail(f"phase 56: ssd_scan disagrees with its plain version at "
+             f"{HYBRID_ARCH}'s call x{list(xs[0].shape)} N {N} chunk {Q} "
+             f"bf16 (max {err:.3e}, routes {ssd.counts.routes})")
+    errs["ssd_scan"] = err
+    del y, want
+    nc = -(-S // Q)
+    print(f"[56] ssd_scan x{list(xs[0].shape)} N {N} chunk {Q} bf16 "
+          f"({HYBRID_ARCH}'s scoring call, 7 a pass; {nc} chunks, so the "
+          f"chunk-state pass runs on {B * (nc - 1) * SH} blocks; wgmma "
+          f"route, x row stride {SH * P * 2} B): max |kernel - plain| = "
+          f"{err:.3e} at |y| up to {y_max:.1f}, where a bf16 ulp is "
+          f"{2.0 ** (np.floor(np.log2(y_max)) - 7):.3g} (bf16 rtol/atol "
+          f"2e-2) ok")
+    L = [min(Q, S - c0) for c0 in range(0, S, Q)]
+    n_ops = B * SH * sum(2 * (N + P) * l * (l + 1) // 2 + 4 * l * N * P
+                         for l in L)
+    n_bytes = sum(t.numel() * t.element_size() for t in xs) \
+        + xs[0].numel() * xs[0].element_size()
+    ms = cuda_ms(lambda: ssd.ssd_scan(*xs, chunk=Q), True, inner=5,
+                 samples=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ssd_chunked_ref(*xs, Q), True, inner=1,
+                       samples=5, warmup=1)
+    bound_ms, bound_by = bound(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    print(f"[56] ssd_scan x{list(xs[0].shape)} N {N} chunk {Q} bf16, card "
+          f"time: kernel (bf16 route, wgmma) {ms:.5f} ms "
+          f"({n_ops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.1%} of its "
+          f"bound), plain {plain_ms:.5f} ms, no single PyTorch call computes "
+          f"it (library_ms null); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B, {n_ops:.4g} FLOP at the bf16 tensor-core peak)")
+    del xs
+    torch.cuda.empty_cache()
+    print(f"[56] phase 56 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 57. serving jamba at full width: prefill, then greedy decode --------
+    t0 = t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init(gen, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = M.param_count(params)
+    model_bytes = sum(t.numel() * t.element_size() for t in M.leaves(params))
+    biggest = max(t.numel() for t in M.leaves(params))
+    init_peak = torch.cuda.max_memory_allocated(dev) - before
+    # one leaf's transient on top of the model: kaiming's fp32 draw and its
+    # bf16 copy (3 x 2 B an entry) of the largest leaf, drawn last but two
+    held_once = model_bytes + 6 * biggest
+    if n_params != HYBRID_PARAMS or "lm_head" not in params:
+        fail(f"{HYBRID_ARCH} cut {HYBRID_CUT}: {n_params} parameters "
+             f"(expected {HYBRID_PARAMS}), keys {sorted(params)}")
+    if init_peak > held_once or not all(
+            t._is_view() for t in M.leaves(params["periods"])):
+        fail(f"{HYBRID_ARCH}: the init's peak {init_peak / 2**30:.2f} GiB "
+             f"over the {before / 2**30:.2f} GiB held before it, above the "
+             f"model ({model_bytes / 2**30:.2f} GiB) and one leaf's draw "
+             f"({held_once / 2**30:.2f} GiB), or a stacked leaf that is not "
+             f"a view of its draw: the one-period stack holds the model "
+             f"twice")
+    print(f"[57] {HYBRID_ARCH} cut to one period and {cfg.num_experts} of "
+          f"its 16 experts: param_count {n_params:,} ({cfg.dtype}, "
+          f"{model_bytes / 2**30:.2f} GiB; {plen} layers: {n_ssm} Mamba-2 "
+          f"mixers of {SH} heads, attention at offset {cfg.attn_offset} with "
+          f"{H} heads over {KV} of {hd}, dense MLPs of {cfg.d_ff} and "
+          f"{cfg.num_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k} on "
+          f"the odd layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"untied) made on the card from seed {SEED} in {init_s:.2f}s; "
+          f"peak memory of the init {init_peak / 2**30:.2f} GiB over the "
+          f"{before / 2**30:.2f} GiB held before it (<= the model plus one "
+          f"leaf's fp32 draw and bf16 copy, {held_once / 2**30:.2f} GiB: the "
+          f"stack is views of its draws); batch {B} x {S} prompt tokens, "
+          f"context {S + HYBRID_NEW}, {HYBRID_PREFILLS} counted prefills, "
+          f"then {HYBRID_NEW} greedy decode steps")
+    batch = make_batch(cfg, B, S, seed=SEED, device=dev)
+    ctx = S + HYBRID_NEW
+
+    def serve(tap, n_prefills, n_steps, mark):
+        """n_prefills prefills, then n_steps greedy decode steps from the
+        last one's cache, every MoE layer reporting to `tap`; `mark()`
+        after each."""
+        prefill_fn = make_prefill_fn(cfg, tap)
+        step = make_serve_step(cfg, tap)
+        finite = []
+        for _ in range(n_prefills):
+            last, cache = prefill_fn(params, batch, ctx,
+                                     last_logits_only=True)
+            mark()
+            finite.append(torch.isfinite(last).all())
+        pos = cache["pos"]
+        toks = [torch.argmax(last, dim=-1)]
+        for _ in range(n_steps):
+            last, cache = step(params, toks[-1], cache)
+            mark()
+            finite.append(torch.isfinite(last).all())
+            toks.append(torch.argmax(last, dim=-1))
+        return torch.cat(toks, 1), pos, cache, finite
+
+    with torch.no_grad():
+        serve(None, 1, 4, lambda: None)     # warm-up, not counted
+        torch.cuda.synchronize()
+        events = []
+
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tap = moe.Tap()                # counts the capacity drops
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        start.record()
+        toks, pos, cache, finite = serve(tap, HYBRID_PREFILLS, HYBRID_NEW,
+                                         mark)
+        events[-1].synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        routes = dict(all_counts["flash_attention"].routes)
+        # ------------------------------------------------------------------
+    n = n_attn * HYBRID_PREFILLS
+    expect = {k: ((n if k == "flash_attention" else 0), 0)
+              for k in all_counts}
+    if got != expect or routes != {"fma": 0, "wgmma": n}:
+        fail(f"{HYBRID_ARCH} serving: (kernel launches, plain calls) {got}, "
+             f"B4 routes {routes}; expected {expect} (one B4 launch a "
+             f"prefill, none in decode; no B5 call: the prefill's scan is "
+             f"plain, as in the JAX package), all on the bf16 route")
+    if pos != S or cache["pos"] != S + HYBRID_NEW:
+        fail(f"{HYBRID_ARCH}: the cache's pos {pos} after the prefill and "
+             f"{cache['pos']} after {HYBRID_NEW} steps; expected {S} and "
+             f"{S + HYBRID_NEW}")
+    if not bool(torch.stack(finite).all()) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{HYBRID_ARCH}: non-finite logits or token ids outside the "
+             f"vocab")
+    launches = {"flash_attention": n, "ssd_scan": 0}
+    times = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    prefill, steps = times[:HYBRID_PREFILLS], times[HYBRID_PREFILLS:]
+    p50 = float(np.percentile(prefill, 50))
+    total_ms = p50 + float(steps.sum())
+    active = cfg.param_counts()["active"]
+    print(f"[57] {HYBRID_ARCH} serving: B4 launches {n} ({n_attn} a "
+          f"prefill; by route {routes}), plain calls "
+          f"{got['flash_attention'][1]}; B5 launches and plain calls 0 (the "
+          f"prefill's scan is the plain chunked scan); the cache's pos {pos} "
+          f"after the prefill, {cache['pos']} after {HYBRID_NEW} steps; "
+          f"every logit finite; {tap.dropped} (token, expert) assignments "
+          f"dropped by capacity over {tap.calls} run_moe calls (C "
+          f"{moe.moe_capacity(B * S, cfg)} in a prefill, "
+          f"{moe.moe_capacity(B, cfg)} a decode step)")
+    print(f"[57] {HYBRID_ARCH} prefill (batch {B}, {S} tokens, last logits "
+          f"only) p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(prefill, 99)):.3f} ms over {HYBRID_PREFILLS} ({B * S / p50 * 1e3:,.0f} prompt tok/s "
+          f"at p50; {2 * active * B * S / p50 / 1e9:.1f} TFLOP/s in the "
+          f"matmuls of the {active:,} parameters a token uses); decode step "
+          f"p50 {float(np.percentile(steps, 50)):.3f} ms, p99 "
+          f"{float(np.percentile(steps, 99)):.3f} ms over {HYBRID_NEW} steps "
+          f"of {B} tokens (bound {model_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms"
+          f" reading every weight once); {B * HYBRID_NEW / total_ms * 1e3:.1f}"
+          f" tok/s generated including the p50 prefill; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (on the "
+          f"card's clock, each prefill and step end to end)")
+    print(f"[57]   request 0, first 12 greedy ids: {toks[0, :12].tolist()}")
+    del batch, cache, finite, toks
+    torch.cuda.empty_cache()
+    print(f"[57] phase 57 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 58. the scoring pass; a narrow hybrid on the card against the CPU --
+    t_phase = time.perf_counter()
+    batch = make_batch(cfg, B, S, seed=SEED + 58, device=dev)
+    with torch.no_grad():
+        M.loss_fn(params, batch, cfg)       # warm-up, not counted
+        torch.cuda.synchronize()
+        events, losses = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- the counted main-path run ---
+        start.record()
+        for _ in range(HYBRID_PASSES):
+            loss, _ = M.loss_fn(params, batch, cfg)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            losses.append(loss)
+        events[-1].synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        routes = {k: dict(all_counts[k].routes)
+                  for k in ("flash_attention", "ssd_scan")}
+        # ------------------------------------------------------------------
+    per = {"flash_attention": n_attn, "ssd_scan": n_ssm}
+    expect = {k: (per.get(k, 0) * HYBRID_PASSES, 0) for k in all_counts}
+    if got != expect or routes != {
+            k: {"fma": 0, "wgmma": m * HYBRID_PASSES} for k, m in per.items()}:
+        fail(f"{HYBRID_ARCH} scoring pass: (kernel launches, plain calls) "
+             f"{got}, routes {routes}; expected {expect} ({n_attn} B4 and "
+             f"{n_ssm} B5 launches a pass), all on the bf16 routes")
+    loss = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(loss).all():
+        fail(f"{HYBRID_ARCH}: non-finite scoring loss {loss}")
+    for k_, m in per.items():
+        launches[k_] += m * HYBRID_PASSES
+    times = np.array([a.elapsed_time(b) for a, b in
+                      zip([start] + events[:-1], events)])
+    p50 = float(np.percentile(times, 50))
+    print(f"[58] {HYBRID_ARCH} scoring pass (loss_fn without gradients, "
+          f"batch {B} x {S}): B4 launches {got['flash_attention'][0]}, B5 "
+          f"launches {got['ssd_scan'][0]} ({n_attn} and {n_ssm} a pass; by "
+          f"route {routes}), plain calls 0; loss {loss[0]:.4f} (ln "
+          f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}: random tokens), "
+          f"finite in every pass")
+    print(f"[58] {HYBRID_ARCH} scoring pass p50 {p50:.3f} ms, p99 "
+          f"{float(np.percentile(times, 99)):.3f} ms over {HYBRID_PASSES} "
+          f"({B * S / p50 * 1e3:,.0f} positions/s at p50); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (on the "
+          f"card's clock)")
+    del params, batch, losses, events
+    torch.cuda.empty_cache()
+
+    c = get_config(HYBRID_ARCH).replace(num_layers=8, **HYBRID_NARROW)
+    if (c.num_heads // c.num_kv_heads, c.resolved_head_dim, c.ssm_head_dim,
+            c.ssm_state, c.ssm_chunk) != (8, 128, 64, 128, 256):
+        fail(f"phase 58's narrow hybrid: {c}")
+    small = M.init(torch.Generator().manual_seed(SEED + 58), c, "cpu")
+    cb = make_batch(c, HYBRID_CHECK_BATCH, HYBRID_CHECK_SEQ, seed=SEED + 59,
+                    device="cpu")
+
+    def forward(d, choices=None):
+        tap_ = moe.Tap(record=True, choices=choices)
+        fa.counts.reset()
+        ssd.counts.reset()
+        with torch.no_grad():
+            lg, _ = M.forward(M.map_params(lambda x: x.to(d), small),
+                              {k: x.to(d) for k, x in cb.items()}, c, tap_)
+        counts = ((fa.counts.launches, fa.counts.plain_calls),
+                  (ssd.counts.launches, ssd.counts.plain_calls))
+        return (lg.cpu(), counts), tap_.routes
+    (lg_g, n_g), rec_g = forward(dev)
+    (lg_c, n_c), rec_c = forward("cpu")
+    n_diff, gap = routing_diff(rec_g, rec_c, "phase 58 forward")
+    if n_diff:
+        (lg_c, n_c), _ = forward("cpu", [i for _, i in rec_g])
+    err = float((lg_g - lg_c).abs().max())
+    if err > LOGIT_ATOL or n_g != ((1, 0), (7, 0)) \
+            or n_c != ((0, 1), (0, 7)):
+        fail(f"phase 58: the narrow hybrid's fp32 card logits differ from "
+             f"the CPU's by {err:.3e} (> {LOGIT_ATOL}), or (launches, plain "
+             f"calls) of B4 and B5 card {n_g}, CPU {n_c}")
+    print(f"[58] narrow hybrid at jamba's period (8 layers: attention at "
+          f"offset 4 with {c.num_heads} heads over {c.num_kv_heads} of "
+          f"{c.resolved_head_dim}, 7 Mamba-2 mixers of {c.ssm_heads} heads, "
+          f"P {c.ssm_head_dim}, N {c.ssm_state}, chunk {c.ssm_chunk}; d_model "
+          f"{c.d_model}, d_ff {c.d_ff}, {c.num_experts} experts on the odd "
+          f"layers, vocab {c.vocab_size}), fp32 (TF32 off), batch "
+          f"{HYBRID_CHECK_BATCH} x {HYBRID_CHECK_SEQ}: forward logits card "
+          f"vs CPU max |diff| {err:.3e} (<= {LOGIT_ATOL}; |logits| up to "
+          f"{float(lg_c.abs().max()):.2f}); B4 1 and B5 7 launches on the "
+          f"card (fp32 routes), as many plain calls on the CPU; top-k "
+          f"choices of {len(rec_g)} router calls "
+          + ("identical" if not n_diff else
+             f"differ in {n_diff} rows at CPU gaps down to {gap:.2e}: the "
+             f"CPU at the card's choices"))
+
+    prompt = cb["tokens"][:1]
+
+    def serve_small(d, choices=None):
+        seen, tap_ = [], moe.Tap(record=True, choices=choices)
+        out = generate(M.map_params(lambda x: x.to(d), small), c,
+                       prompt.to(d), HYBRID_CHECK_NEW,
+                       on_logits=lambda i, lg: seen.append(lg.cpu()),
+                       tap=tap_)
+        return (out.cpu(), torch.cat(seen, 1)), tap_.routes
+    (out_g, lg_g), rec_g = serve_small(dev)
+    (out_c, lg_c), rec_c = serve_small("cpu")
+    n_diff, gap = routing_diff(rec_g, rec_c, "phase 58 serving")
+    if n_diff:
+        (out_c, lg_c), _ = serve_small("cpu", [i for _, i in rec_g])
+    err = float((lg_g - lg_c).abs().max())
+    top2 = torch.topk(lg_c, 2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    if err > LOGIT_ATOL or not torch.equal(out_g, out_c):
+        fail(f"phase 58: the narrow hybrid's prefill and "
+             f"{HYBRID_CHECK_NEW} greedy steps: logits card vs CPU max "
+             f"|diff| {err:.3e} (> {LOGIT_ATOL}?), greedy ids card "
+             f"{out_g[:, HYBRID_CHECK_SEQ:].tolist()}, CPU "
+             f"{out_c[:, HYBRID_CHECK_SEQ:].tolist()} (smallest CPU top-2 "
+             f"gap {float(gaps.min()):.3e})")
+    print(f"[58] narrow hybrid: prefill of 1 x {HYBRID_CHECK_SEQ} tokens "
+          f"and {HYBRID_CHECK_NEW} greedy steps "
+          f"(the SSM state and the k/v ring side by side): logits card vs "
+          f"CPU max |diff| {err:.3e} (<= {LOGIT_ATOL}); greedy ids "
+          f"{out_g[:, HYBRID_CHECK_SEQ:].tolist()} identical (smallest CPU "
+          f"top-2 gap {float(gaps.min()):.3e}); top-k choices of "
+          f"{len(rec_g)} router calls "
+          + ("identical" if not n_diff else
+             f"differ in {n_diff} rows at CPU gaps down to {gap:.2e}: the "
+             f"CPU at the card's choices"))
+    del small, cb
+    step_card_vs_cpu("58", dev, c, 1, HYBRID_STEP_SEQ, pin_routing=True)
+    print(f"[58] phase 58 {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 def time_phase(dev, strict):
     """Phase 4: each kernel, its plain version and the library call timed
     at the main-path shapes, B1 also at the trainer's and B3 at large
@@ -5782,6 +6238,13 @@ def main():
     max_err["flash_attention"] = max(max_err["flash_attention"], err)
 
     clock("53-55")
+    # -- 56-58. the hybrid family: jamba-1.5-large-398b served and scored ---
+    n, err = hybrid_phases(dev, all_counts)
+    for k, v in n.items():
+        launches[k] += v
+        max_err[k] = max(max_err[k], err[k])
+
+    clock("56-58")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

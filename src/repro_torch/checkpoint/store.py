@@ -180,12 +180,14 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
 
     The blocks may be attention blocks ("attn", "ln1", "ln2", and "mlp"
     or a MoE's "moe": `router` [D, E], fp32 in a bf16 model; `we1`, `we3`
-    [E, D, F], `we2` [E, F, D] and the shared experts' "shared" MLP) or
+    [E, D, F], `we2` [E, F, D] and the shared experts' "shared" MLP),
     Mamba-2 blocks ("ssm", "ln1"), whose `A_log`, `D` and `dt_bias` are
-    fp32 in a bf16 model.  `dtype` ("float32", "bfloat16" or a torch
-    dtype) casts every leaf; None keeps each leaf's own (bf16 stays bf16,
-    fp32 stays fp32).  Raises ValueError on a tree that is not such a
-    model."""
+    fp32 in a bf16 model, or, in a hybrid's period ("sub0" ..
+    "sub{attn_period - 1}"), Mamba-2 blocks with "ln2" and "mlp" or
+    "moe" beside its attention block.  `dtype` ("float32", "bfloat16" or
+    a torch dtype) casts every leaf; None keeps each leaf's own (bf16
+    stays bf16, fp32 stays fp32).  Raises ValueError on a tree that is not
+    such a model, a block of other keys among them."""
     from ..models.layers import torch_dtype
     from ..models.model import leaves, map_params
     dev = resolve_device(device)
@@ -206,9 +208,22 @@ def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
         extra.add("frontend")
     if extra:
         raise ValueError(f"unexpected leaves {sorted(extra)} (the port runs "
-                         f"text decoders, the audio encoder and the VLM, "
-                         f"whose frontend is {{'proj': [features, "
-                         f"d_model]}})")
+                         f"text decoders, the hybrid, whose periods hold "
+                         f"Mamba-2 blocks with 'ln2' and 'mlp' or 'moe' "
+                         f"beside an attention block, the audio encoder "
+                         f"and the VLM, whose frontend is {{'proj': "
+                         f"[features, d_model]}})")
+    for name, blk in tree["periods"].items():
+        got = set(blk) if isinstance(blk, dict) else set()
+        mixer, mlp = got & {"attn", "ssm"}, got & {"mlp", "moe"}
+        if len(mixer) != 1 or len(mlp) > 1 \
+                or got != {"ln1"} | mixer | ({"ln2"} | mlp if mlp else set()):
+            raise ValueError(
+                f"periods/{name} holds {sorted(got)}: a block is 'ln1' and "
+                f"one mixer, 'attn' or a Mamba-2 'ssm', then, where it has "
+                f"an MLP, 'ln2' and 'mlp' or 'moe' (a hybrid's period holds "
+                f"Mamba-2 blocks with 'ln2' and 'mlp' or 'moe' beside its "
+                f"attention block)")
     depth = {np.shape(a)[0] for a in leaves(tree["periods"])}
     if len(depth) != 1:
         raise ValueError(f"the stacked blocks disagree on n_periods: "

@@ -3,18 +3,19 @@
 of the LLM paths (serving and training): `--arch <id>` resolves here, as
 in `repro.configs`.
 
-Registered: the dense decoders, the MoE decoders (qwen2-moe-a2.7b,
-granite-moe-3b-a800m), mamba2-130m (the ssm family), hubert-xlarge (the
-audio family: an encoder-only stack behind the stubbed frame projection
-of `models.model`) and internvl2-1b (the vlm family: a Qwen2 decoder
-behind the stubbed patch projection), whose layers are all ported
-(`models.layers`, `models.moe`, `models.ssm`, `models.blocks`).  The
-hybrid, jamba-1.5-large-398b, raises `NotImplementedError` naming the
-ROADMAP item that ports it.
+Registered: every arch of the JAX package's registry: the dense
+decoders, the MoE decoders (qwen2-moe-a2.7b, granite-moe-3b-a800m),
+mamba2-130m (the ssm family), hubert-xlarge (the audio family: an
+encoder-only stack behind the stubbed frame projection of
+`models.model`), internvl2-1b (the vlm family: a Qwen2 decoder behind the
+stubbed patch projection) and jamba-1.5-large-398b (the hybrid family:
+periods of Mamba-2 and attention blocks with dense and MoE MLPs), whose
+layers are all ported (`models.layers`, `models.moe`, `models.ssm`,
+`models.blocks`).  `LATER`, the archs not ported yet, is empty.
 """
 from . import (deepseek_67b, granite_moe_3b, hubert_xlarge, internvl2_1b,
-               mamba2_130m, qwen2_5_3b, qwen2_moe_a2_7b, qwen3_32b,
-               tinyllama_1_1b)
+               jamba_1_5_large, mamba2_130m, qwen2_5_3b, qwen2_moe_a2_7b,
+               qwen3_32b, tinyllama_1_1b)
 
 ARCHS = {
     "qwen3-32b": qwen3_32b,
@@ -26,23 +27,16 @@ ARCHS = {
     "granite-moe-3b-a800m": granite_moe_3b,
     "hubert-xlarge": hubert_xlarge,
     "internvl2-1b": internvl2_1b,
+    "jamba-1.5-large-398b": jamba_1_5_large,
 }
 
-# archs of the JAX package not ported yet -> what ports them
-LATER = {
-    "jamba-1.5-large-398b": "the hybrid family (SSM + MoE layers), "
-                            "ROADMAP.md queue A item 10",
-}
+# archs of the JAX package not ported yet -> what ports them: none left
+LATER: dict = {}
 
 
 def get_config(arch: str, smoke: bool = False):
     """The `ModelConfig` of `arch` (its smoke-test reduction with
-    `smoke=True`).  Raises NotImplementedError for an arch the port does
-    not run yet and KeyError for an unknown one."""
-    if arch in LATER:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it comes with {LATER[arch]}; the "
-            f"port runs {sorted(ARCHS)}")
+    `smoke=True`).  Raises KeyError for an unknown arch."""
     mod = ARCHS[arch]
     return mod.SMOKE if smoke else mod.CONFIG
 

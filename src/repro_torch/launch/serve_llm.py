@@ -2,9 +2,10 @@
 
 Counterpart of `examples/serve_llm.py`: the engine's mechanics (the
 ring-buffer KV cache, the flash-attention kernel B4 in prefill; for
-mamba2-130m the SSM state and conv window, in plain PyTorch; for the MoE
-archs the routed experts) with a freshly initialized model (random
-weights from `--seed`), not its text.
+mamba2-130m and the hybrid jamba-1.5-large-398b the SSM state and conv
+window, in plain PyTorch; for the MoE archs and the hybrid the routed
+experts) with a freshly initialized model (random weights from
+`--seed`), not its text.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm \\
         --arch tinyllama-1.1b --batch 8 --prompt-len 1024 --new-tokens 64
@@ -12,6 +13,8 @@ weights from `--seed`), not its text.
         --device cpu --window 16
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke \\
         --device cpu --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke \\
+        --device cpu --arch jamba-1.5-large-398b
 
 The prompts are text only, as the JAX example's are: an encoder-only
 arch (hubert-xlarge) and a VLM (internvl2-1b) exit with a message.  A
@@ -21,10 +24,13 @@ does.
 
 Runs the arch's full config on CUDA unless asked otherwise: `--smoke`
 takes its smoke-test reduction (the JAX example always does), and
-`--device cpu` runs the plain PyTorch path on the CPU.  Prints the
-throughput including prefill, the steady-state decode time per step,
-B4's launches and plain calls, and for a MoE arch the (token, expert)
-assignments its capacity dropped, summed over layers and steps.
+`--device cpu` runs the plain PyTorch path on the CPU.  The full
+jamba-1.5-large-398b (397.7 B parameters) fits no one card, as it fits
+no one device of the JAX package: serve its smoke config here, and see
+`chip_smoke.py` (phases 56-58) for one period of it at full width.
+Prints the throughput including prefill, the steady-state decode time
+per step, B4's launches and plain calls, and for a MoE arch the (token,
+expert) assignments its capacity dropped, summed over layers and steps.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS, LATER, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import model as M
@@ -49,7 +55,7 @@ def _sync(device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=sorted(set(ARCHS) | set(LATER)),
+    ap.add_argument("--arch", choices=sorted(ARCHS),
                     default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -64,10 +70,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    try:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    except NotImplementedError as e:
-        raise SystemExit(f"[serve_llm] {e}")
+    cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.supports_decode:
         raise SystemExit(f"{args.arch} is encoder-only — no decode step")
     if cfg.family == "vlm":

@@ -1,8 +1,10 @@
 """Unified LM: embed, the layer stack, final norm, LM head; the training
 loss; prefill and one-token decode for serving.  Counterpart of
-`repro.models.model` for the text-only decoders of the dense, moe and
-ssm families, the encoder-only audio family (hubert-xlarge) and the vlm
-family (internvl2-1b).
+`repro.models.model` for the text-only decoders of the dense, moe,
+ssm and hybrid families (jamba-1.5-large-398b: periods of 8 blocks, one
+attention and seven Mamba-2 mixers, each with a dense or a MoE MLP), the
+encoder-only audio family (hubert-xlarge) and the vlm family
+(internvl2-1b).
 
 Batch formats, as in the JAX package:
     text  {"tokens": [B, S] int32}
@@ -18,10 +20,11 @@ to the text positions, `prefill` takes the whole sequence and returns
 Parameters keep the JAX package's layout, so checkpoint and parameter
 keys map one to one: `params["periods"]["sub{j}"]` holds the blocks,
 stacked with a leading `n_periods` axis (one period of one layer for a
-homogeneous stack), beside "final_norm", "embed" and, untied, "lm_head";
-the audio family has "frontend": {"proj": [AUDIO_FEAT_DIM, D]} and
-"lm_head" in place of "embed"; the vlm family has "frontend": {"proj":
-[VISION_EMB_DIM, D]} beside "embed" (tied: no "lm_head").  Where JAX
+homogeneous stack, of attn_period layers for the hybrid), beside
+"final_norm", "embed" and, untied, "lm_head"; the audio family has
+"frontend": {"proj": [AUDIO_FEAT_DIM, D]} and "lm_head" in place of
+"embed"; the vlm family has "frontend": {"proj": [VISION_EMB_DIM, D]}
+beside "embed" (tied: no "lm_head").  Where JAX
 scans over that axis, the port loops over it in Python.
 
 The decode cache is {"pos": int, "blocks": {"sub{j}": ...}} with
@@ -98,7 +101,11 @@ def init(gen, cfg: ModelConfig, device=None):
     The stacked leaves are allocated once and filled period by period, in
     the order the periods are drawn, so the peak holds one period beside
     the model (qwen2-moe-a2.7b's 28 GB in bf16 would double if the
-    periods were made apart and then stacked)."""
+    periods were made apart and then stacked).  A stack of one period (a
+    hybrid of attn_period layers, 48 GiB for one period of
+    jamba-1.5-large-398b at 8 experts in bf16) is `unsqueeze(0)` views of
+    the drawn tensors, with no copy, so it is held once; the draws and
+    their order are the same either way."""
     dtype = layers.torch_dtype(cfg.dtype)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
@@ -109,12 +116,16 @@ def init(gen, cfg: ModelConfig, device=None):
                                              dtype, device)
                 for j in range(plen)}
     first = period()
-    stacked = map_params(lambda t: t.new_empty((n_periods,) + t.shape), first)
-    for i in range(n_periods):
-        made = first if i == 0 else period()
-        for dst, src in zip(leaves(stacked), leaves(made)):
-            dst[i].copy_(src)
-        del made
+    if n_periods == 1:           # views of the one drawn period: no copy
+        stacked = map_params(lambda t: t.unsqueeze(0), first)
+    else:
+        stacked = map_params(lambda t: t.new_empty((n_periods,) + t.shape),
+                             first)
+        for i in range(n_periods):
+            made = first if i == 0 else period()
+            for dst, src in zip(leaves(stacked), leaves(made)):
+                dst[i].copy_(src)
+            del made
     del first
     p = {"periods": stacked}
     p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)

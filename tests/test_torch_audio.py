@@ -111,7 +111,7 @@ def test_config_matches_jax(smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.param_counts() == want.param_counts()
     assert not got.causal and not got.supports_decode
-    assert set(LATER) == {"jamba-1.5-large-398b"}
+    assert set(LATER) == set()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -146,13 +146,15 @@ def test_make_batch_and_token_stream_are_bitwise_jax(dtype):
 
 
 def test_vlm_still_raises():
-    """The last arch of the zoo that the port does not run, the hybrid
-    jamba-1.5-large-398b, still raises naming its ROADMAP item (the VLM
-    that this test first pinned is ported: tests/test_torch_vlm.py)."""
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        get_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        get_config("jamba-1.5-large-398b", smoke=True)
+    """The archs this test pinned as not ported, the VLM and then the
+    hybrid jamba-1.5-large-398b, are ported (tests/test_torch_vlm.py,
+    tests/test_torch_hybrid.py): the hybrid's config resolves, and it is
+    JAX's field for field."""
+    for smoke in (False, True):
+        got = get_config("jamba-1.5-large-398b", smoke)
+        want = jax_get_config("jamba-1.5-large-398b", smoke)
+        assert got.family == "hybrid"
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_init_leaves_match_jax_and_full_size_on_meta():

@@ -26,7 +26,10 @@ non-causal at head dim 80 in the model layout at hubert-xlarge's heads,
 with a depth-2 hubert forward on the card against the CPU; causal at GQA
 group 7 in the model layout at internvl2-1b's heads, with a depth-2
 internvl2 image-plus-prompt prefill and its greedy decode on the card
-against the CPU.  The MoE
+against the CPU; causal at GQA group 8, head dim 128 at
+jamba-1.5-large-398b's heads, the bf16 SSD scan at its 256 heads over two
+chunks, and a narrow hybrid at jamba's period prefilled and decoded on
+the card against the CPU.  The MoE
 layer on the card is held against the CPU with capacity drops, and
 is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
@@ -631,6 +634,80 @@ def test_internvl2_prefill_and_decode_on_the_card_match_the_cpu(sm90_card):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
     assert all(torch.equal(a, b) for a, b in zip(tk_g, tk_c))
+
+
+def test_flash_tc_causal_at_jamba_heads(sm90_card):
+    """jamba-1.5-large-398b's attention: 64 heads over 8 KV heads (GQA
+    group 8) of 128, causal, in the model layout q [2, 256, 8, 8, 128]
+    bf16 (a q row stride of 16,384 B) on the wgmma route, against the
+    plain version."""
+    g = torch.Generator().manual_seed(56)
+    q = torch.randn(2, 256, 8, 8, 128, generator=g).to(sm90_card,
+                                                        torch.bfloat16)
+    k, v = (torch.randn(2, 256, 8, 128, generator=g).to(sm90_card,
+                                                         torch.bfloat16)
+            for _ in range(2))
+    fa.counts.reset()
+    o = fa.flash_attention_model(q, k, v, True, None)
+    torch.cuda.synchronize()
+    assert fa.counts.routes == {"fma": 0, "wgmma": 1}
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), fa._plain_model(
+        q, k, v, True, None).float(), **BF16)
+
+
+def test_ssd_tc_at_jamba_heads(sm90_card):
+    """jamba-1.5-large-398b's Mamba-2 mixer: 256 heads of P 64, N 128,
+    chunk 256, over two chunks (the chunk-state pass on 2 x 1 x 256
+    blocks; an x row stride of 32,768 B), bf16 on the wgmma route, against
+    the plain version."""
+    xs = _ssd(2, 512, 256, 64, 128, torch.bfloat16, sm90_card, seed=57)
+    ssd.counts.reset()
+    y = ssd.ssd_scan(*xs, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.counts.routes == {"fma": 0, "wgmma": 1}
+    assert y.dtype == torch.bfloat16 and y.shape == xs[0].shape
+    torch.testing.assert_close(y.float(),
+                               ssd_chunked_ref(*xs, 256)[0].float(), **BF16)
+
+
+def test_hybrid_prefill_and_decode_on_the_card_match_the_cpu(sm90_card):
+    """A narrow hybrid at jamba's period (8 layers: attention at offset 4
+    with 8 heads over 1 of 128, 7 Mamba-2 mixers of P 64, N 128, chunk
+    256; MoE of 4 experts on the odd layers), fp32 (TF32 off): a 2 x 300
+    prompt prefilled, then a greedy decode step.  The prefill's one B4
+    launch on the card (the fp32 route), a plain call on the CPU, and no
+    B5 call on either (the prefill's scan is plain); the logits agree
+    within 1e-3, the greedy tokens, `pos` and the routing are equal."""
+    from repro_torch.data import make_batch
+    cfg = get_config("jamba-1.5-large-398b").replace(
+        num_layers=8, d_model=1024, num_heads=8, num_kv_heads=1, d_ff=2048,
+        num_experts=4, moe_d_ff=2048, vocab_size=257, dtype="float32")
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = make_batch(cfg, 2, 300, seed=1, device="cpu")
+    runs = {}
+    for dev in ("cpu", sm90_card):
+        p = M.map_params(lambda t: t.to(dev), params)
+        tap = moe.Tap(record=True)
+        fa.counts.reset()
+        ssd.counts.reset()
+        with torch.no_grad():
+            logits, cache = M.prefill(p, {"tokens": batch["tokens"].to(dev)},
+                                      cfg, 310, tap=tap)
+            tok = torch.argmax(logits[:, -1:], -1)
+            lg, cache = M.decode_step(p, tok, cache, cfg, tap)
+        assert cache["pos"] == 301
+        runs[str(dev)] = (logits.cpu(), lg.cpu(), tok.cpu(),
+                          torch.argmax(lg, -1).cpu(), tap.routes,
+                          (fa.counts.launches, fa.counts.plain_calls,
+                           ssd.counts.launches, ssd.counts.plain_calls))
+    (pc, dc, tc, nc, rc, cc), (pg, dg, tg, ng, rg, cg) = runs.values()
+    assert cc == (0, 1, 0, 0) and cg == (1, 0, 0, 0)
+    assert all(torch.equal(a[1], b[1]) for a, b in zip(rg, rc))
+    for a, b in ((pg, pc), (dg, dc)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    assert torch.equal(tg, tc) and torch.equal(ng, nc)
 
 
 @pytest.mark.parametrize("window", [None, 8])

@@ -393,7 +393,7 @@ def test_tap_records_and_pins_the_routing_through_generate(arch):
 
 
 def test_configs_match_jax():
-    assert set(LATER) == {"jamba-1.5-large-398b"}
+    assert set(LATER) == set()
     for arch in MOE:
         assert arch in ARCHS
         for smoke in (False, True):

@@ -129,7 +129,7 @@ def test_config_matches_jax(smoke):
     if not smoke:
         assert (got.num_heads // got.num_kv_heads,
                 got.resolved_head_dim) == (7, 64)
-    assert set(LATER) == {"jamba-1.5-large-398b"}
+    assert set(LATER) == set()
 
 
 def _bits(t):
