@@ -113,12 +113,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
  19. train mamba2-130m at full size (24 layers, d_model 768, bf16,
      128,983,488 parameters, random weights from a seed) through
      `training.Trainer` at the `launch/train` defaults: batch 8, seq 256,
-     lr 3e-4, warmup 11, 50 steps; 48 B5 calls a step (24 layers,
+     lr 3e-4, warmup 7, 30 steps (phase 59 drives its train step again,
+     and the train CLI); 48 B5 calls a step (24 layers,
      forward and remat recompute), all on the bf16 route, and no plain
      call; every loss finite,
      and the loss of 4 held-out batches lower after training than before
      (each step's batch is new random tokens, and the spread between
-     batches is larger than what 50 steps at lr 3e-4 take off, so a
+     batches is larger than what 30 steps at lr 3e-4 take off, so a
      step's loss against another's is not the test); step time p50/p99,
      tokens/s, peak memory; then profile PROFILED_STEPS (1) step: the
      card's busy share and B5's share of its time;
@@ -231,8 +232,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  32. train granite-moe-3b-a800m at full size (32 layers, d_model 1536,
      bf16, 3.3 B parameters, random weights from a seed) through
      `training.Trainer` (its donating step) at the `launch/train`
-     defaults: batch 8, seq 256, lr 3e-4, warmup 7, MOE_TRAIN_STEPS (30;
-     phase 33 steps it again) steps after an uncounted forward and
+     defaults: batch 8, seq 256, lr 3e-4, warmup 4, MOE_TRAIN_STEPS (15;
+     phase 33 steps it again, and phase 60 drives its forward, backward
+     and donating step at full size) steps after an uncounted forward and
      backward; 64 B4 launches a step
      (32 layers, forward and remat recompute), all on the bf16 route, 32
      backward passes through the plain VJP, no plain call; every loss
@@ -284,9 +286,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      and 34-35 check the same at fp32);
  37. the bf16 payload on the proc runtime: phase 34's bitwise runs at
      bf16 (the deposit 101,632 B, half of fp32's, read off the ring's
-     window from rank 0 to rank 1) and phase 35's lock-step run at bf16
-     for 50 epochs (phase 41 trains bf16 lock-step workers for 200), its
-     epoch p50 a rank beside phase 35's fp32 one;
+     window from rank 0 to rank 1); phase 41 trains bf16 lock-step
+     workers at h 1000 for 200 epochs, with phase 35's bars;
  38. the chunked ring (`SyncConfig(ring_chunking=N)`: the fused payload
      crosses as ceil(bytes / N) segments, one `torch.roll` each), stacked:
      `PAPER` at R 8 at 65,536 B (4 segments) in both ring modes, for 50
@@ -309,8 +310,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      phase 41 lock-step workers) with phase 26's bars, B1 on u [64, 32]
      and B3 on
      [64, 32, 32] and as its backward in every worker, epoch p50 a rank,
-     start-up and peak memory a worker; and a free-running imaging_blur
-     run of 50 epochs with phase 35's lag, which must end finite;
+     start-up and peak memory a worker (phase 49 runs these workers
+     free-running, adaptive, at 524,288 B);
  40. the update cadences (`disc_every`, `gen_every`: the discriminator
      updates on epochs e with e % disc_every == 0, the generator with its
      exchange and Adam step on e % gen_every == 0; a skipped half launches
@@ -334,8 +335,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      `lockstep_reference`; `throughput(PAPER)` for 200 lock-step epochs
      with phase 35's bars read on the discriminator's epochs, the
      workers' B1 counts as phase 40 counts them, epoch p50 a rank by the
-     halves that ran, start-up; a free run of 50 epochs with phase 35's
-     lag, which must end finite;
+     halves that ran, start-up (phase 43 runs `throughput(PAPER)`
+     workers free-running, at depth 2 and 65,536 B);
  42. the depth-k RMA mailbox (`staleness` k: epoch e reads its ring
      predecessor's deposit of epoch e - k from slot e % k of an [R, k,
      ...] mailbox, zeros before epoch k), stacked: `PAPER` at k 2 (the
@@ -355,8 +356,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
  43. the depth-k mailbox on the proc runtime: `PAPER` at k 3, h 2 as 8
      workers, 10 lock-step epochs bitwise `lockstep_reference` (the [8,
      3, ...] mailbox included; the wire is the depth-1 one); a free run
-     of 50 epochs at k 2 with phase 35's lag, which must end finite,
-     epoch p50 a rank;
+     of 50 epochs of phase 42's `throughput(PAPER)` at k 2 and 65,536 B
+     (the bf16 payload, disc_every 2, 2 windows a deposit) with phase
+     35's lag, which must end finite, epoch p50 a rank;
  44. the telemetry (`ObsConfig`), stacked: `PAPER` at k 2 with metrics
      and a metrics file for 50 epochs in chunks of 20 (phase 48 trains
      `PAPER` with metrics for 200), with phase 22's bars and
@@ -424,10 +426,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
  49. adaptive staleness as 8 workers: `adaptive-overlap` at k_max 3, h
      2, 10 lock-step epochs bitwise `lockstep_reference`, every rank's
      max_skew_ema 0 and max_k_eff 1, the inner deposit its payload and
-     tag in one window; 50 free-running epochs adaptive at k_max 4 with
-     rank r sleeping 5r ms an epoch: every leaf and d_loss finite, some
-     rank's max_skew_ema > 0 and max_k_eff > 1, every k_eff in [1, 4],
-     epoch p50 a rank;
+     tag in one window; 50 free-running epochs of phase 48's
+     imaging_blur adaptive at k_max 4 and 524,288 B (B3 and its backward
+     in every worker, 3 windows a deposit) with rank r sleeping 5r ms an
+     epoch: every leaf and d_loss finite, some rank's max_skew_ema > 0
+     and max_k_eff > 1, every k_eff in [1, 4], epoch p50 a rank;
  50. B4 at hubert-xlarge's calls (16 heads of 80, G 1, no mask, row
      stride 2,560 B): `flash_attention_model` on q [8, 1024, 16, 1, 80]
      (the encode pass) and [8, 256, 16, 1, 80] (a training step) bf16,
@@ -512,7 +515,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
      card and on the CPU from one seed's weights: forward logits at batch
      2 x 512 within 1e-3, a 1 x 512 prefill and 4 greedy steps with equal
      tokens, and one `Trainer` step at 1 x 300 (two chunks) through
-     `step_card_vs_cpu` (routing pinned at near-ties).
+     `step_card_vs_cpu` (routing pinned at near-ties);
+ 59. the remat policy "dots" (keep every matmul output without batch
+     dimensions, recompute the rest) against "full" on mamba2-130m at
+     full size (bf16, batch 8 x 256, random weights from a seed): one
+     forward and backward under no remat, "dots" and "full" from one set
+     of weights and one batch: "dots" against "full" at phase 20's bars
+     (loss, every gradient leaf; whether bitwise), the backward's
+     `aten.mm`/`aten.addmm` and `aten.bmm` beyond the backward without
+     remat (`REMAT_RERUN`: 120 and 0 under "full", 0 and 0 under "dots"),
+     48 B5 launches, all wgmma, under either policy, the memory held
+     after the forward ("dots" above "full" by at least the outputs the
+     policy kept) and each run's peak; 3 donating train steps a policy in
+     turns on one state (`REMAT_STEPS`): step p50 and peak memory by
+     policy; then `launch.train --steps 3 --ckpt-dir` in this process
+     writes one checkpoint, its bytes and write seconds, and
+     `restore_checkpoint` reads it back onto the card, every leaf equal;
+ 60. the same for granite-moe-3b-a800m at full size (B4 at G 3; the
+     router's matmul kept, the experts' batched GEMMs recomputed; the
+     routing of "full" pinned to the choices of "dots"): 160 and 96
+     re-run under "full", 0 and 96 under "dots", 64 B4 launches a step,
+     all wgmma, the memory held after the forward, 2 train steps a
+     policy in turns.
 
 `python3 chip_smoke.py --times` runs phases 1, 2 and 4 alone, to compare
 two checkouts on one card: copy this script into the root of the other
@@ -585,7 +609,7 @@ SSD_MULTI = (8, 2048, 24, 64, 128)   # four chunks of 512
 SSD_FP32 = dict(rtol=1e-3, atol=1e-3)          # tests/test_kernels.py
 SSD_INVARIANCE = dict(rtol=1e-4, atol=1e-4)
 TRAIN_ARCH = "mamba2-130m"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 50
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30   # phase 19 (59 again)
 MAMBA_PARAMS = 128_983_488
 CARD_VS_CPU_STEPS = (("mamba2-130m", 1, 1024), ("tinyllama-1.1b", 1, 256))
 HELD_OUT_SEED, HELD_OUT_BATCHES = 10_000, 4   # phases 19, 32: loss check
@@ -616,7 +640,7 @@ MOE_Y = dict(rtol=1e-4, atol=1e-5)   # phase 29: y (fp32) against float64,
                                      # atol in units of max |y|
 AUX_RTOL = 1e-6                 # phase 29, the aux loss
 ROUTE_GAP = 1e-6                # a top-k choice may differ below this gap
-MOE_TRAIN_STEPS = 30            # phase 32 (phase 33 steps it again)
+MOE_TRAIN_STEPS = 15            # phase 32 (33 and 60 step it again)
 PROFILED_STEPS = 1              # phases 19, 32, 52: steps under the profiler
                                 # (reading a step's events back takes ~6 s)
 MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")  # models.moe's
@@ -627,10 +651,10 @@ PROC_TIMEOUT_S = 600            # a proc run, spawn to result
 RING_CHUNK = 65_536             # phases 38-39: PAPER's 50,816 scalars in 4
 IMAGE_RING_CHUNK = 524_288      # ... the conv generator's 290,448 in 3
 CHUNK_BITWISE_EPOCHS = 10       # phase 38: chunked = unchunked, stacked
-PROC_FREE_EPOCHS = 50           # free runs (35, 39, 41, 43)
+PROC_FREE_EPOCHS = 50           # free runs (35, 43, 45, 47, 49)
 CUT_EPOCHS = 50                 # paths a later phase drives again for
-                                # GAN_EPOCHS: 35's and 37's lock-step runs
-                                # (41's), 38's chunked runs (42's), 42's
+                                # GAN_EPOCHS: 35's lock-step run (41's),
+                                # 38's chunked runs (42's), 42's
                                 # PAPER at staleness 2 (44's), 36's, 38's
                                 # and 39's imaging_blur (46's), 46's
                                 # overlap (48's)
@@ -659,7 +683,7 @@ AUDIO_ARCH = "hubert-xlarge"    # phases 50-52
 HUBERT_PARAMS = 1_259_715_840   # the JAX init's leaves
 ENCODE_BATCH, ENCODE_FRAMES = 8, 1024   # phase 51: the encoder's prefill
 ENCODE_PASSES = 20              # phase 51's counted passes
-AUDIO_TRAIN_STEPS = 30          # phase 52, as phase 32's granite
+AUDIO_TRAIN_STEPS = 30          # phase 52
 VLM_ARCH = "internvl2-1b"       # phases 53-55
 INTERNVL2_PARAMS = 494_698_496  # the JAX init's leaves
 VLM_BATCH, VLM_SEQ, VLM_NEW = 8, 1024, 64   # phase 54: 256 patches + 768
@@ -679,6 +703,15 @@ HYBRID_NARROW = dict(d_model=1024, num_heads=8, num_kv_heads=1, d_ff=1024,
 HYBRID_CHECK_BATCH, HYBRID_CHECK_SEQ = 2, 512   # ... its forward
 HYBRID_CHECK_NEW = 4            # ... greedy steps after a 1 x 512 prefill
 HYBRID_STEP_SEQ = 300           # ... its step: two chunks, 256 and 44
+REMAT_RERUN = {"mamba2-130m": (5, 0),          # phases 59-60: aten.mm/addmm
+               "granite-moe-3b-a800m": (5, 3)}  # and aten.bmm the backward
+# re-runs a layer under "full" (the SSM's five in-projections; q, k, v, o
+# and the router, and the three expert GEMMs); the recompute stops once
+# the backward has what it reads, before a product only the residual add
+# reads (the SSM's out_proj)
+REMAT_STEPS = {"mamba2-130m": 3,           # phases 59-60: train steps a
+               "granite-moe-3b-a800m": 2}  # policy, in turns
+CKPT_STEPS = 3                  # phase 59: the CLI's steps before its write
 FLAG_NAMES = {(True, True): "both halves", (True, False): "disc only",
               (False, True): "gen only", (False, False): "neither"}
 
@@ -2710,17 +2743,16 @@ def proc_phases(dev, all_counts, stacked_p50):
     return launches, p50["lock-step"], states, p50["free"]
 
 
-def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+def bf16_phases(dev, all_counts, fp32, imaging_blur_p50):
     """Phases 36-37: the bf16 ring payload (`payload_precision="bf16"`) on
     the card.  36: PAPER stacked at R 8 in both ring modes for CUT_EPOCHS
     with phase 22's bars and counts, beside phase 22's fp32 runs (`fp32`:
     mode -> (p50 ms, ...)); imaging_blur for CUT_EPOCHS with phase 26's
     bars and counts beside its fp32 p50; one epoch card vs CPU.  37: the
-    proc runtime, lock-step bitwise its reference in both modes and PAPER
-    for CUT_EPOCHS epochs with phase 35's bars,
-    beside phase 35's fp32 epoch p50 a rank (`proc_p50`).  Returns each
-    kernel's launches over the counted runs and phase 36's PAPER epoch
-    p50 (ms) by mode."""
+    proc runtime, lock-step bitwise its reference in both modes (phase 41
+    trains bf16 lock-step workers for 200 epochs).  Returns each kernel's
+    launches over the counted runs and phase 36's PAPER epoch p50 (ms) by
+    mode."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, REDUCED, for_problem
@@ -2785,15 +2817,6 @@ def bf16_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         counts, _ = proc_bitwise("37", dev, bf16(PAPER, mode=mode, h=h),
                                  data, all_counts)
         add_launches(launches, counts)
-    counts, p50 = proc_workflow("37", "lock-step", dev, bf16(PAPER), data,
-                                all_counts, fp32[PAPER.sync.mode][0],
-                                n_epochs=CUT_EPOCHS)
-    add_launches(launches, counts)
-    print(f"[37] PAPER {PAPER.sync.mode} bf16 payload, lock-step: epoch p50 "
-          f"a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
-          f"{np.median(p50):.3f}) beside phase 35's fp32 "
-          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (median "
-          f"{np.median(proc_p50):.3f}) in the same run")
     return launches, p50s
 
 
@@ -2811,17 +2834,16 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
     the proc runtime, phase 34's bitwise runs chunked, bitwise their
     reference and phase 34's states (`proc_states` by mode);
     imaging_blur as 8 workers, bitwise its reference, then CUT_EPOCHS
-    lock-step epochs with phase 26's bars beside its stacked p50, and a
-    free run with phase 35's lag (finite); PAPER's lock-step epoch a rank
-    is phase 35's (`proc_p50`).  Returns each kernel's launches over the
-    counted runs."""
+    lock-step epochs with phase 26's bars beside its stacked p50 (phase
+    49 runs these workers free at IMAGE_RING_CHUNK); PAPER's lock-step
+    epoch a rank is phase 35's (`proc_p50`).  Returns each kernel's
+    launches over the counted runs."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import PAPER, for_problem
     from repro_torch.core import workflow as W
     from repro_torch.core.tree import tree_leaves, tree_paths
     from repro_torch.problems import get_problem
-    from repro_torch.runtime import JitterConfig
 
     def chunked(wcfg, chunk=RING_CHUNK, **sync):
         return dataclasses.replace(wcfg, sync=dataclasses.replace(
@@ -2920,21 +2942,12 @@ def chunked_phases(dev, all_counts, fp32, bf16_p50, imaging_blur_p50,
         wcfg, sync=dataclasses.replace(wcfg.sync, h=2)), blur_data,
         all_counts)
     add_launches(launches, counts)
-    p50 = {}
-    for label, kw in (
-            ("lock-step", {}),
-            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
-             {"lockstep": False,
-              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
-        locked = label == "lock-step"
-        # the lock-step run cut to CUT_EPOCHS: phase 46 trains imaging_blur
-        # at 524,288 B for GAN_EPOCHS, phase 41 lock-step workers
-        counts, p50[label] = proc_workflow(
-            "39", label, dev, wcfg, blur_data, all_counts, blur_p50,
-            d_bar=gan_improving if locked else (lambda d: (True, "finite")),
-            n_epochs=CUT_EPOCHS if locked else PROC_FREE_EPOCHS, **kw)
-        add_launches(launches, counts)
-    lock = p50["lock-step"]
+    # cut to CUT_EPOCHS: phase 46 trains imaging_blur at 524,288 B for
+    # GAN_EPOCHS, phase 41 lock-step workers
+    counts, lock = proc_workflow("39", "lock-step", dev, wcfg, blur_data,
+                                 all_counts, blur_p50, d_bar=gan_improving,
+                                 n_epochs=CUT_EPOCHS)
+    add_launches(launches, counts)
     print(f"[39] {name} as 8 workers at ring_chunking {IMAGE_RING_CHUNK:,} "
           f"B, lock-step: epoch p50 a rank {np.min(lock):.3f}-"
           f"{np.max(lock):.3f} ms (median {np.median(lock):.3f}) beside "
@@ -3403,15 +3416,14 @@ def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     `throughput(PAPER)` epochs one at a time.  41: the proc runtime,
     PAPER at CADENCE bitwise `lockstep_reference`, `throughput(PAPER)`
     for GAN_EPOCHS lock-step epochs with phase 35's bars beside phase
-    35's epoch p50 a rank (`proc_p50`), and a free run with phase 35's
-    lag (finite).  Returns each kernel's launches over the counted
+    35's epoch p50 a rank (`proc_p50`; phase 43 runs these workers free,
+    chunked, at depth 2).  Returns each kernel's launches over the counted
     runs."""
     import dataclasses
     import torch
     from repro_torch.configs.sagips_gan import (PAPER, REDUCED, for_problem,
                                                 throughput)
     from repro_torch.problems import get_problem
-    from repro_torch.runtime import JitterConfig
 
     D, G = CADENCE
 
@@ -3474,18 +3486,9 @@ def cadence_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     counts, _ = proc_bitwise("41", dev, cadenced(PAPER, h=2), data,
                              all_counts)
     add_launches(launches, counts)
-    p50 = {}
-    for label, kw in (
-            ("lock-step", {}),
-            (f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
-             {"lockstep": False, "n_epochs": PROC_FREE_EPOCHS,
-              "d_bar": lambda d: (True, "finite"),
-              "jitter": JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS)})):
-        counts, p50[label] = proc_workflow(
-            "41", label, dev, throughput(PAPER), data, all_counts,
-            fp32[PAPER.sync.mode][0], **kw)
-        add_launches(launches, counts)
-    lock = p50["lock-step"]
+    counts, lock = proc_workflow("41", "lock-step", dev, throughput(PAPER),
+                                 data, all_counts, fp32[PAPER.sync.mode][0])
+    add_launches(launches, counts)
     print(f"[41] throughput(PAPER) as 8 workers, lock-step: epoch p50 a "
           f"rank {np.min(lock):.3f}-{np.max(lock):.3f} ms (median "
           f"{np.median(lock):.3f}) beside PAPER's every-epoch fp32 "
@@ -3611,8 +3614,9 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     beside its p50 (`imaging_blur_p50`); the exchange card vs CPU and
     timed (`depth_exchange`).  43: the proc runtime, PAPER at
     STALENESS_BITWISE h 2 bitwise `lockstep_reference`, and a free run of
-    PROC_FREE_EPOCHS at STALENESS with phase 35's lag (finite) beside
-    phase 35's epoch p50 a rank (`proc_p50`).  Returns each kernel's
+    PROC_FREE_EPOCHS of 42's `throughput(PAPER)` at STALENESS and
+    RING_CHUNK with phase 35's lag (finite) beside phase 35's epoch p50 a
+    rank (`proc_p50`).  Returns each kernel's
     launches over the counted runs and the epoch p50 (ms) of PAPER at
     STALENESS."""
     import dataclasses
@@ -3672,16 +3676,19 @@ def depth_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     counts, _ = proc_bitwise("43", dev, deep(PAPER, STALENESS_BITWISE, h=2),
                              data, all_counts)
     add_launches(launches, counts)
+    # phase 42's throughput(PAPER) at depth 2 and 65,536 B: a free-running
+    # read may meet one of the deposit's windows still empty
     counts, p50 = proc_workflow(
         "43", f"free-running, rank r sleeps r x {PROC_LAG_MS} ms an epoch",
-        dev, deep(PAPER), data, all_counts, fp32[PAPER.sync.mode][0],
-        d_bar=lambda d: (True, "finite"), n_epochs=PROC_FREE_EPOCHS,
-        lockstep=False, jitter=JitterConfig(seed=SEED,
-                                            rank_lag_ms=PROC_LAG_MS))
+        dev, deep(throughput(PAPER), ring_chunking=RING_CHUNK), data,
+        all_counts, p50s[1], d_bar=lambda d: (True, "finite"),
+        n_epochs=PROC_FREE_EPOCHS, lockstep=False,
+        jitter=JitterConfig(seed=SEED, rank_lag_ms=PROC_LAG_MS))
     add_launches(launches, counts)
-    print(f"[43] PAPER at staleness {STALENESS} as 8 free-running workers: "
-          f"epoch p50 a rank {np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
-          f"{np.median(p50):.3f}) beside phase 35's lock-step depth-1 "
+    print(f"[43] throughput(PAPER) at staleness {STALENESS}, ring_chunking "
+          f"{RING_CHUNK:,} B as 8 free-running workers: epoch p50 a rank "
+          f"{np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
+          f"{np.median(p50):.3f}) beside phase 35's PAPER lock-step depth-1 "
           f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms (same run); "
           f"phase 43 {time.perf_counter() - t0:.1f} s")
     return launches, p50s[0]
@@ -4297,7 +4304,7 @@ def adaptive_exchange(dev):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
+def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50):
     """Phases 48-49: adaptive staleness (`adaptive`) on the card.  48,
     stacked: PAPER adaptive at ADAPTIVE_K in `rma_arar_arar` (h 1000)
     with metrics, phase 22's bars and counts, every epoch's obs row k_eff
@@ -4311,9 +4318,10 @@ def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     depth 1 and adaptive in turns (`scripts/payload_ab.py --lane
     adaptive`).  49, 8 workers: `adaptive-overlap` at ADAPTIVE_K, h
     OVERLAP_BITWISE_H, bitwise `lockstep_reference` with skew 0 and k_eff
-    1 on every rank; PROC_FREE_EPOCHS free-running at ADAPTIVE_FREE_K,
-    rank r ADAPTIVE_LAG_MS x r late an epoch: finite, skew measured and
-    k_eff widened, beside phase 35's p50 a rank (`proc_p50`).  Returns
+    1 on every rank; PROC_FREE_EPOCHS of 48's imaging_blur free-running
+    at ADAPTIVE_FREE_K and IMAGE_RING_CHUNK, rank r ADAPTIVE_LAG_MS x r
+    late an epoch: finite, skew measured and k_eff widened, beside 48's
+    stacked p50.  Returns
     each kernel's launches over the counted runs."""
     import dataclasses
     import importlib.util
@@ -4408,16 +4416,15 @@ def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
     blur_data = get_problem(name).make_reference_data(
         torch.Generator(device=dev).manual_seed(99), GAN_REF_EVENTS,
         device=dev)
-    got, p50, _ = train_and_check(
+    got, blur_p50, _ = train_and_check(
         "48", f"{name} for_problem(PAPER) adaptive at k_max {ADAPTIVE_K}, "
         f"ring_chunking {IMAGE_RING_CHUNK:,} B", dev, wcfg, blur_data,
         all_counts, gan_expect(wcfg, CUT_EPOCHS, all_counts), gan_improving,
         n_epochs=CUT_EPOCHS)
     add_launches(launches, got)
     print(f"[48] {name} adaptive, {IMAGE_RING_CHUNK:,} B segments: epoch "
-          f"p50 {p50:.3f} ms beside phase 26's static whole p50 "
+          f"p50 {blur_p50:.3f} ms beside phase 26's static whole p50 "
           f"{imaging_blur_p50:.3f} ms (same run)")
-    del blur_data
     # (d) the exchange alone, card vs CPU, skew driven in
     adaptive_exchange(dev)
     # (e) static depth 1 against adaptive, in turns
@@ -4455,14 +4462,18 @@ def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
         seen["skew"] = [s["max_skew_ema"] for s in out["summaries"]]
         seen["k"] = [s["max_k_eff"] for s in out["summaries"]]
         seen["hist"] = out["history"]["k_eff"]
+    # 48's imaging_blur at 524,288 B: B3 and its backward in free-running
+    # workers, and reads across 3 windows a deposit
     counts, p50 = proc_workflow(
         "49", f"free-running adaptive at k_max {k_free}, rank r sleeps r x "
-        f"{lag} ms an epoch", dev, adaptive(PAPER, k=k_free), data,
-        all_counts, fp32[PAPER.sync.mode][0],
-        d_bar=lambda d: (True, "finite"), n_epochs=PROC_FREE_EPOCHS,
-        inspect=inspect, lockstep=False,
+        f"{lag} ms an epoch", dev,
+        adaptive(for_problem(name, PAPER), k=k_free,
+                 ring_chunking=IMAGE_RING_CHUNK), blur_data, all_counts,
+        blur_p50, d_bar=lambda d: (True, "finite"),
+        n_epochs=PROC_FREE_EPOCHS, inspect=inspect, lockstep=False,
         jitter=JitterConfig(seed=SEED, rank_lag_ms=lag))
     add_launches(launches, counts)
+    del blur_data
     ks = seen["hist"]
     if not (max(seen["skew"]) > 0 and max(seen["k"]) > 1
             and float(ks.min()) >= 1 and float(ks.max()) <= k_free):
@@ -4473,15 +4484,15 @@ def adaptive_phases(dev, all_counts, fp32, imaging_blur_p50, proc_p50):
              f"[1, {k_free}]")
     first = [int(np.argmax(ks[:, r].numpy() > 1)) if bool((ks[:, r] > 1)
              .any()) else None for r in range(R)]
-    print(f"[49] free-running adaptive at k_max {k_free}, rank r {lag} ms x "
-          f"r late, {PROC_FREE_EPOCHS} epochs: max_skew_ema by rank "
+    print(f"[49] {name} free-running adaptive at k_max {k_free}, "
+          f"{IMAGE_RING_CHUNK:,} B segments, rank r {lag} ms x r late, "
+          f"{PROC_FREE_EPOCHS} epochs: max_skew_ema by rank "
           + ", ".join(f"{v:.3f}" for v in seen["skew"])
           + f"; max_k_eff by rank {seen['k']} (first epoch above 1 by rank "
           f"{first}); every k_eff in [1, {k_free}]; epoch p50 a rank "
           f"{np.min(p50):.3f}-{np.max(p50):.3f} ms (median "
-          f"{np.median(p50):.3f}) beside phase 35's lock-step static "
-          f"{np.min(proc_p50):.3f}-{np.max(proc_p50):.3f} ms; phase "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{np.median(p50):.3f}) beside phase 48's stacked {blur_p50:.3f} "
+          f"ms; phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return launches
 
@@ -5523,6 +5534,281 @@ def hybrid_phases(dev, all_counts):
     return launches, errs
 
 
+def remat_phase(tag, dev, arch, kernel, all_counts):
+    """Phase 59 (mamba2-130m, B5) or 60 (granite-moe-3b-a800m, B4): the
+    remat policy "dots" against "full" at full size, bf16.  From one set
+    of parameters and one batch, a forward and backward under no remat,
+    "dots" and "full" (a MoE's routing under "full" pinned to the choices
+    "dots" made): the loss and every gradient leaf of "dots" against
+    "full" at phase 20's bars, the products (`aten.mm`/`aten.addmm`, and
+    the batched `aten.bmm`) each policy's backward runs beyond the
+    backward without remat (`REMAT_RERUN` a layer under "full"; none of
+    the first kind under "dots"), the kernel's launches (twice a layer
+    under either policy, all wgmma), the memory each forward adds to what
+    was held before it ("dots" above "full" by the outputs `keep_dots`
+    kept) and each forward and backward's peak above it.  Then `REMAT_STEPS` donating train steps a policy in turns on
+    one train state: step ms and peak memory by policy.  Returns the
+    kernel's launches over the counted runs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.training import trainer as T
+
+    class Products(TorchDispatchMode):
+        """Counts the matmuls dispatched: aten.mm and aten.addmm (no batch
+        dimensions), aten.bmm (batched)."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                self.n["mm"] += 1
+            elif func is torch.ops.aten.bmm.default:
+                self.n["bmm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    cfgs = {"none": cfg.replace(remat=False),
+            "full": cfg.replace(remat_policy="full"),
+            "dots": cfg.replace(remat_policy="dots")}
+    t0 = time.perf_counter()
+    params = M.init(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    init_s = time.perf_counter() - t0
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + int(tag),
+                       device=dev)
+    ctr = all_counts[kernel]
+    kept_bytes = []
+    keep = M.keep_dots
+
+    def spy(ctx, op, *args, **kwargs):        # the outputs "dots" keeps
+        policy = keep(ctx, op, *args, **kwargs)
+        if policy == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            a, b = args[-2:]
+            kept_bytes.append(a.shape[0] * b.shape[1] * a.element_size())
+        return policy
+    out, launches, taps = {}, 0, {}
+    t0 = time.perf_counter()
+    M.keep_dots = spy
+    try:
+        for name in ("none", "dots", "full"):
+            taps[name] = (moe.Tap(record=True) if name == "dots" else
+                          moe.Tap(choices=[i for _, i in
+                                           taps["dots"].routes])
+                          if name == "full" else moe.Tap())
+            for cnt in all_counts.values():
+                cnt.reset()            # --- a counted forward and backward ---
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ps = M.map_params(lambda t: t.detach().requires_grad_(), params)
+            loss, _ = M.loss_fn(ps, batch, cfgs[name], taps[name])
+            held = torch.cuda.memory_allocated(dev) - base
+            forward = ctr.launches
+            with Products() as prod:
+                grads = torch.autograd.grad(loss, list(M.leaves(ps)))
+            torch.cuda.synchronize()
+            got = {k: (c.launches, c.plain_calls)
+                   for k, c in all_counts.items()}
+            routes = dict(ctr.routes)
+            # --------------------------------------------------------------
+            want = L if name == "none" else 2 * L
+            expect = {k: ((want if k == kernel else 0), 0)
+                      for k in all_counts}
+            if got != expect or forward != L \
+                    or routes != {"fma": 0, "wgmma": want} \
+                    or ctr.backward_plain != L:
+                fail(f"phase {tag} {arch} under {name}: (kernel launches, "
+                     f"plain calls) {got}, {forward} in the forward, routes "
+                     f"{routes}, {ctr.backward_plain} backward passes; "
+                     f"expected {expect}, {L} in the forward, all wgmma, "
+                     f"{L} backward passes")
+            launches += got[kernel][0]
+            out[name] = (loss.detach(), None if name == "none" else grads,
+                         dict(prod.n), held,
+                         torch.cuda.max_memory_allocated(dev) - base)
+            del ps, loss, grads
+    finally:
+        M.keep_dots = keep
+    parity_s = time.perf_counter() - t0
+    rerun = {p: {k: out[p][2][k] - out["none"][2][k] for k in ("mm", "bmm")}
+             for p in ("full", "dots")}
+    mm, bmm = REMAT_RERUN[arch]
+    if rerun != {"full": {"mm": mm * L, "bmm": bmm * L},
+                 "dots": {"mm": 0, "bmm": bmm * L}}:
+        fail(f"phase {tag} {arch}: the backward re-ran {rerun} products "
+             f"beyond the backward without remat; expected {mm * L} "
+             f"aten.mm/addmm and {bmm * L} aten.bmm under 'full', no "
+             f"aten.mm/addmm and {bmm * L} aten.bmm under 'dots'")
+    (lf, gf, _, held_f, _), (ld, gd, _, held_d, _) = out["full"], out["dots"]
+    kept = sum(kept_bytes)
+    if not kept > 0 or not held_d - held_f >= 0.99 * kept:
+        fail(f"phase {tag} {arch}: the forward under 'dots' added "
+             f"{held_d - held_f:,} B more than under 'full'; the policy "
+             f"kept {len(kept_bytes)} outputs of {kept:,} B")
+    loss_rel = abs(float(ld) - float(lf)) / abs(float(lf))
+    grad_rel = max(float((a.float() - b.float()).norm()
+                         / max(float(b.float().norm()), 1e-30))
+                   for a, b in zip(gd, gf))
+    bitwise = torch.equal(ld, lf) and all(torch.equal(a, b)
+                                          for a, b in zip(gd, gf))
+    if not loss_rel <= STEP_LOSS_RTOL or not grad_rel <= STEP_GRAD_REL:
+        fail(f"phase {tag} {arch}: 'dots' against 'full': loss {float(ld)} "
+             f"vs {float(lf)} (rel {loss_rel:.3e}), worst gradient leaf "
+             f"{grad_rel:.3e} in relative norm (bars {STEP_LOSS_RTOL}, "
+             f"{STEP_GRAD_REL})")
+    gib = {p: out[p][4] / 2**30 for p in out}
+    print(f"[{tag}] {arch} at full size ({M.param_count(params):,} "
+          f"parameters, {cfg.dtype}, {L} layers, made on the card in "
+          f"{init_s:.2f} s), batch {TRAIN_BATCH} x {TRAIN_SEQ}, one forward "
+          f"and backward from one set of weights and one batch: 'dots' vs "
+          f"'full' loss {float(ld):.6f} vs {float(lf):.6f} (rel "
+          f"{loss_rel:.2e} <= {STEP_LOSS_RTOL}), worst gradient leaf "
+          f"{grad_rel:.3e} in relative norm (<= {STEP_GRAD_REL}) over "
+          f"{len(gd)} leaves; "
+          + ("bitwise equal" if bitwise else "not bitwise equal")
+          + (f"; routing of 'full' pinned to the {len(taps['dots'].routes)} "
+             f"router calls of 'dots'" if taps["dots"].routes else ""))
+    print(f"[{tag}] {arch} products the backward re-ran beyond the backward "
+          f"without remat (aten.mm/addmm, aten.bmm): 'full' "
+          f"{rerun['full']['mm']}, {rerun['full']['bmm']}; 'dots' "
+          f"{rerun['dots']['mm']}, {rerun['dots']['bmm']}; {kernel} "
+          f"launches {2 * L} under each policy ({L} under no remat), all "
+          f"wgmma; 'dots' kept {len(kept_bytes)} matmul outputs of "
+          f"{kept:,} B ({kept / 2**30:.3f} GiB), and its forward added "
+          f"{held_d - held_f:,} B more than 'full''s ({held_f / 2**30:.3f} "
+          f"GiB); peak of the forward and backward above what was held "
+          f"before it: no remat {gib['none']:.3f} GiB, 'full' "
+          f"{gib['full']:.3f} GiB, 'dots' {gib['dots']:.3f} GiB; "
+          f"{parity_s:.1f} s for the three")
+    del out, gf, gd
+
+    # -- the train step under each policy, in turns, on one state ----------
+    t0 = time.perf_counter()
+    tcfg = T.TrainConfig(lr=3e-4, warmup=min(20, TRAIN_STEPS // 5 + 1),
+                         total_steps=TRAIN_STEPS)
+    state = T.train_state_from_params(params, tcfg)
+    del params
+    steps = {p: T.make_train_step(cfgs[p], tcfg)[0] for p in ("full", "dots")}
+    n = REMAT_STEPS[arch]
+    order = (["full", "dots", "dots", "full"] * n)[:2 * n]
+    ms, peak, losses = ({p: [] for p in steps} for _ in range(3))
+    for i, p in enumerate(order):
+        b = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 100 + i,
+                       device=dev)
+        for cnt in all_counts.values():
+            cnt.reset()                # --- a counted train step ---
+        torch.cuda.reset_peak_memory_stats(dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, metrics = steps[p](state, b)
+        e1.record()
+        e1.synchronize()
+        got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+        # ------------------------------------------------------------------
+        expect = {k: ((2 * L if k == kernel else 0), 0) for k in all_counts}
+        if got != expect or dict(ctr.routes) != {"fma": 0, "wgmma": 2 * L}:
+            fail(f"phase {tag} {arch} train step under {p}: (kernel "
+                 f"launches, plain calls) {got}, routes {dict(ctr.routes)}; "
+                 f"expected {expect}, all wgmma")
+        launches += got[kernel][0]
+        ms[p].append(e0.elapsed_time(e1))
+        peak[p].append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        losses[p].append(float(metrics["loss"]))
+    if not np.isfinite(losses["full"] + losses["dots"]).all():
+        fail(f"phase {tag} {arch}: non-finite loss in the train steps "
+             f"{losses}")
+    p50 = {p: float(np.percentile(v, 50)) for p, v in ms.items()}
+    top = {p: max(v) for p, v in peak.items()}
+    print(f"[{tag}] {arch} train step (AdamW, donating) in turns on one "
+          f"state ({' '.join(order)}), each step's own batch: 'full' p50 "
+          f"{p50['full']:.3f} ms (" + ", ".join(f"{v:.3f}" for v in
+                                                ms["full"])
+          + f"), 'dots' p50 {p50['dots']:.3f} ms ("
+          + ", ".join(f"{v:.3f}" for v in ms["dots"])
+          + f"); dots / full {p50['dots'] / p50['full']:.4f}; peak memory "
+          f"'full' {top['full']:.3f} GiB, 'dots' {top['dots']:.3f} GiB "
+          f"({top['dots'] - top['full']:+.3f}); {kernel} {2 * L} launches a "
+          f"step, all wgmma; every loss finite; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state, steps
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ckpt_phase(dev, all_counts):
+    """Phase 59's checkpoint: `launch.train` (the CLI's `main`, in this
+    process) trains mamba2-130m at full size for CKPT_STEPS steps with
+    `--ckpt-dir` and writes one checkpoint; `restore_checkpoint` reads it
+    back into the returned state's structure, every leaf equal.  Returns
+    B5's launches over the CLI's run."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.store import restore_checkpoint
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "repro_torch", "smoke_ckpt_llm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    write = train_cli.save_checkpoint
+    written = {}
+
+    def timed_write(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = write(*args, **kwargs)
+        written["s"] = time.perf_counter() - t0
+        return path
+    train_cli.save_checkpoint = timed_write
+    for cnt in all_counts.values():
+        cnt.reset()                    # --- the counted CLI run ---
+    try:
+        state = train_cli.main(["--arch", TRAIN_ARCH, "--steps",
+                                str(CKPT_STEPS), "--ckpt-dir", ckpt])
+    finally:
+        train_cli.save_checkpoint = write
+    torch.cuda.synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in all_counts.items()}
+    # ----------------------------------------------------------------------
+    L = len(state["params"]["periods"]["sub0"]["ssm"]["wz"])
+    expect = {k: ((2 * L * CKPT_STEPS if k == "ssd_scan" else 0), 0)
+              for k in all_counts}
+    path = os.path.join(ckpt, f"step_{CKPT_STEPS:08d}")
+    if got != expect or os.listdir(ckpt) != [os.path.basename(path)]:
+        fail(f"phase 59 checkpoint: (kernel launches, plain calls) {got}, "
+             f"expected {expect}; {ckpt} holds {os.listdir(ckpt)}")
+    n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path))
+    t0 = time.perf_counter()
+    back = restore_checkpoint(ckpt, CKPT_STEPS, state)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    pairs = list(zip(M.leaves(back), M.leaves(state)))
+    same = all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b) for a, b in pairs)
+    if not same or int(back["step"]) != CKPT_STEPS:
+        fail(f"phase 59 checkpoint: the restored state differs from the "
+             f"one the CLI returned (step {int(back['step'])})")
+    print(f"[59] checkpoint: `launch.train --arch {TRAIN_ARCH} --steps "
+          f"{CKPT_STEPS} --ckpt-dir` wrote {path} ({n_bytes:,} B: bf16 "
+          f"parameters, fp32 moments, int32 steps) in {written['s']:.3f} s "
+          f"(the page cache warm); `restore_checkpoint` read it back onto "
+          f"the card in {read_s:.3f} s, all {len(pairs)} leaves equal "
+          f"(dtype, device, every bit); B5 {got['ssd_scan'][0]} launches "
+          f"over the CLI's {CKPT_STEPS} steps, all wgmma")
+    shutil.rmtree(ckpt)
+    print(f"[59] checkpoint {time.perf_counter() - t_phase:.1f} s")
+    return got["ssd_scan"][0]
+
+
 def time_phase(dev, strict):
     """Phase 4: each kernel, its plain version and the library call timed
     at the main-path shapes, B1 also at the trainer's and B3 at large
@@ -6179,7 +6465,7 @@ def main():
     clock("34-35")
     # -- 36-37. the bf16 ring payload, stacked and as worker processes ------
     n, bf16_p50 = bf16_phases(dev, all_counts, gan_fp32,
-                              problem_p50["imaging_blur"], proc_p50)
+                              problem_p50["imaging_blur"])
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
 
@@ -6221,7 +6507,7 @@ def main():
     clock("46-47")
     # -- 48-49. adaptive staleness, stacked and as workers -----------------
     n = adaptive_phases(dev, all_counts, gan_fp32,
-                        problem_p50["imaging_blur"], proc_p50)
+                        problem_p50["imaging_blur"])
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
 
@@ -6245,6 +6531,14 @@ def main():
         max_err[k] = max(max_err[k], err[k])
 
     clock("56-58")
+    # -- 59-60. the remat policy "dots" and the LLM trainer's checkpoint ----
+    launches["ssd_scan"] += remat_phase("59", dev, TRAIN_ARCH, "ssd_scan",
+                                        all_counts)
+    launches["ssd_scan"] += ckpt_phase(dev, all_counts)
+    launches["flash_attention"] += remat_phase(
+        "60", dev, MOE_TRAIN_ARCH, "flash_attention", all_counts)
+
+    clock("59-60")
     # -- the kernels ---------------------------------------------------------
     sources = {"inverse_cdf": ("src/repro_torch/kernels/csrc/inverse_cdf.cu",
                                "src/repro/kernels/inverse_cdf.py:23"),

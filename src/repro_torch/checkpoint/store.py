@@ -23,6 +23,18 @@ differs is "rng": the port stores its `torch.Generator`'s state there
 so a resume continues the run bitwise.  `gan_state_from_numpy` carries
 a JAX training state, as path-flattened numpy arrays, into the port.
 
+The LLM trainer's state ({"params", "opt": {"mu", "nu", "step"},
+"step"}, and "mailbox" under `sync_mode="rma_arar_grouped"`) crosses
+the same way, both ways, with no conversion: its keys are the JAX
+state's ("params/periods/sub0/attn/wq", "opt/mu/embed", "opt/step",
+"step", "mailbox/final_norm", ...), bf16 parameters stored as their bits
+with "bfloat16" in `dtypes`, fp32 moments and mailbox as fp32, the two
+steps as int32 0-d arrays.  The JAX package's `restore_checkpoint` reads
+`launch/train.py --ckpt-dir`'s checkpoint into
+`repro.training.trainer.init_train_state`'s template, and
+`restore_checkpoint` here reads a JAX trainer's into
+`training.trainer.init_train_state`'s, each leaf bit for bit.
+
 `lm_params_from_numpy` carries an LLM's parameter pytree (the JAX
 `models.model.init` layout, as numpy arrays) into the port.
 
@@ -279,8 +291,9 @@ def _to_numpy(t) -> Tuple[np.ndarray, str]:
 
 def save_checkpoint(directory: str, step: int, tree,
                     metadata: Optional[dict] = None) -> str:
-    """Write `tree` (nested dicts and lists of tensors) as
-    `<directory>/step_<step:08d>/` in the JAX store's layout."""
+    """Write `tree` (nested dicts and lists of tensors on any device: a
+    GAN or an LLM training state) as `<directory>/step_<step:08d>/` in
+    the JAX store's layout."""
     path = os.path.join(directory, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
     stored, dtypes = {}, {}

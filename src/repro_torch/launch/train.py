@@ -22,17 +22,22 @@ asked for) and `--seed` (the random weights; the JAX launcher uses key 0).
 `--mesh` takes only `host`, one device: the multi-device meshes and the
 hierarchical sync modes across them are ROADMAP.md queue A item 6; every
 `--sync` mode runs the all-reduce step on one device, as the JAX package
-does without a mesh.  `--ckpt-dir` raises: the checkpoint writer of
-ROADMAP.md queue A item 2 serves the GAN trainer, and the LLM trainer
-does not call it yet (item 12).  Prints the loss as it goes, then the SSD
-scan's (B5) and flash attention's (B4) kernel launches and plain calls,
-and for a MoE arch the (token, expert) assignments its capacity dropped,
-summed over layers and steps (the remat recompute included).
+does without a mesh.  With `--ckpt-dir` the final state is written once,
+after the last step, in the JAX package's checkpoint layout
+(`<dir>/step_<steps:08d>/`, `checkpoint.save_checkpoint`), which the JAX
+package's `restore_checkpoint` reads into its trainer's state; as in the
+JAX launcher, `--ckpt-every` is parsed and not used.  Prints the loss as
+it goes, then the SSD scan's (B5) and flash attention's (B4) kernel
+launches and plain calls, and for a MoE arch the (token, expert)
+assignments its capacity dropped, summed over layers and steps (the
+remat recompute included: it routes again under either `remat_policy`,
+since "dots" keeps the router's matmul but not its top-k or dispatch).
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch.checkpoint.store import save_checkpoint
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import TokenStream
 from repro_torch.kernels import build
@@ -65,11 +70,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"--mesh {args.mesh}: the port trains on one device; the "
             f"multi-device meshes are ROADMAP.md queue A item 6")
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: the LLM trainer writes no checkpoints yet; the "
-            "writer of ROADMAP.md queue A item 2 serves the GAN trainer, "
-            "and wiring it in here is queue A item 12")
     cfg = get_config(args.arch, smoke=args.smoke)
     tcfg = TrainConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
                        total_steps=args.steps,
@@ -95,6 +95,9 @@ def main(argv=None):
         print(f"[train] MoE: {tap.dropped} (token, expert) assignments "
               f"dropped by capacity over {tap.calls} run_moe calls (every "
               f"layer's forward and its remat recompute)")
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, int(state["step"]), state)
+        print(f"checkpoint written to {args.ckpt_dir}")
     return state
 
 

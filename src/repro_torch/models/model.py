@@ -39,7 +39,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts,
+                                     noop_context_fn)
 
 from .. import resolve_device
 from . import blocks, layers, ssm as ssm_lib
@@ -189,20 +191,46 @@ def unembed(params, x, cfg: ModelConfig):
 # forward
 
 
+REMAT_POLICIES = ("full", "dots")
+
+# the products without batch dimensions that a period reaches
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def keep_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of remat_policy "dots", JAX's
+    `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`: keep the
+    output of every product without batch dimensions that autograd
+    records (`aten.mm`, `aten.addmm`: the projections, the dense MLPs,
+    the router), and recompute the rest, such as the batched `aten.bmm`
+    of the experts and of the plain attention.  Autograd records nothing
+    inside a `torch.autograd.Function`'s forward, so the kernel wrappers
+    (B4, B5) are recomputed whole, their plain versions' products
+    included, as JAX recomputes a `pallas_call`."""
+    if op in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(keep_dots)
+
+
 def forward(params, batch, cfg: ModelConfig, tap=None):
     """Returns (logits [B,S,V], aux_loss scalar).  `tap`: a
     `models.moe.Tap` every MoE layer reports to.
 
-    With `cfg.remat` and autograd on, each period runs under
-    `torch.utils.checkpoint` (policy "full": nothing inside a period is
-    kept for the backward, which recomputes it), as the JAX package wraps
-    each period in `jax.checkpoint`."""
+    With `cfg.remat` and autograd on, each period runs under the
+    non-reentrant `torch.utils.checkpoint`, as the JAX package wraps each
+    period in `jax.checkpoint`.  `cfg.remat_policy` "full" keeps nothing
+    inside a period for the backward, which recomputes it whole; "dots"
+    keeps the output of every matmul without batch dimensions
+    (`keep_dots`) and recomputes the rest.  Another policy raises
+    ValueError."""
     n_periods, plen, kinds, mlp_kinds = period_structure(cfg)
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (keep the matmul outputs) is "
-            f"not ported; the port checkpoints whole periods (policy "
-            f"'full'): ROADMAP.md queue A item 12")
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: "
+                         f"expected one of {REMAT_POLICIES}")
     x, _, _ = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -215,10 +243,13 @@ def forward(params, batch, cfg: ModelConfig, tap=None):
         return x, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
+    contexts = _dots_contexts if cfg.remat_policy == "dots" \
+        else noop_context_fn
     for i in range(n_periods):
         pp = period_params(params, i)
         if remat:
-            x, aux = checkpoint(period, x, aux, pp, use_reentrant=False)
+            x, aux = checkpoint(period, x, aux, pp, use_reentrant=False,
+                                context_fn=contexts)
         else:
             x, aux = period(x, aux, pp)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

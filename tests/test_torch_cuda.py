@@ -29,7 +29,10 @@ internvl2 image-plus-prompt prefill and its greedy decode on the card
 against the CPU; causal at GQA group 8, head dim 128 at
 jamba-1.5-large-398b's heads, the bf16 SSD scan at its 256 heads over two
 chunks, and a narrow hybrid at jamba's period prefilled and decoded on
-the card against the CPU.  The MoE
+the card against the CPU.  A train step under the remat policy "dots"
+equals its step under "full" on the card, B4 or B5 recomputed as under
+"full", and an LLM train state written from the card restores onto it
+bit for bit.  The MoE
 layer on the card is held against the CPU with capacity drops, and
 is bitwise repeatable in bf16.  The exchange with the bf16 ring payload,
 and the depth-k RMA mailbox's at fp32 and bf16, whole and chunked, are
@@ -1000,6 +1003,68 @@ def test_trainer_on_the_card_launches_b5_and_matches_the_cpu(sm90_card):
                                atol=1e-5)
     for a, b in zip(M.leaves(ng["params"]), M.leaves(nc["params"])):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2.5e-4)
+
+
+@pytest.mark.parametrize("arch,kernel", [("mamba2-130m", "ssd_scan"),
+                                         ("granite-moe-3b-a800m",
+                                          "flash_attention")])
+def test_dots_step_on_the_card_equals_full(sm90_card, arch, kernel):
+    """One train step of a bf16 smoke config on the card under
+    remat_policy "dots" and under "full", from one state and one batch (a
+    MoE's routing under "full" pinned to the choices of "dots"): B5 or B4
+    launched twice a layer under both (the forward and the recompute),
+    all on the wgmma route, no plain call; the loss, the gradient norm and
+    the new parameters of "full"."""
+    cfg = get_config(arch, smoke=True)
+    tcfg = T.TrainConfig(lr=1e-3, warmup=2, total_steps=10)
+    params = M.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    cnt = {"ssd_scan": ssd.counts, "flash_attention": fa.counts}[kernel]
+    seen, out = moe.Tap(record=True), {}
+    for policy in ("dots", "full"):
+        tap = seen if policy == "dots" else moe.Tap(
+            choices=[i for _, i in seen.routes])
+        state = T.train_state_from_params(
+            M.map_params(lambda t: t.to(sm90_card), params), tcfg)
+        step, _ = T.make_train_step(cfg.replace(remat_policy=policy), tcfg,
+                                    tap=tap)
+        cnt.reset()
+        out[policy] = step(state, {"tokens": tok.to(sm90_card)})
+        torch.cuda.synchronize()
+        L = cfg.num_layers
+        assert (cnt.launches, cnt.plain_calls) == (2 * L, 0)
+        assert cnt.routes == {"fma": 0, "wgmma": 2 * L}
+    (nd, md), (nf, mf) = out["dots"], out["full"]
+    torch.testing.assert_close(md["loss"], mf["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(md["gnorm"], mf["gnorm"], rtol=1e-3, atol=0)
+    for a, b in zip(M.leaves(nd["params"]), M.leaves(nf["params"])):
+        torch.testing.assert_close(a, b, **BF16)
+
+
+def test_llm_checkpoint_from_the_card_restores_bitwise(sm90_card, tmp_path):
+    """A train state on the card after two steps (granite-moe-3b-a800m's
+    smoke config under `rma_arar_grouped`, so a mailbox is in it) written
+    by `save_checkpoint` and read back by `restore_checkpoint` into
+    another state on the card: every leaf on the card, its dtype, every
+    bit."""
+    from repro_torch.checkpoint.store import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.data import TokenStream
+    cfg = get_config("granite-moe-3b-a800m", smoke=True)
+    tcfg = T.TrainConfig(lr=1e-3, warmup=2, total_steps=10,
+                         sync_mode="rma_arar_grouped")
+    trainer = T.Trainer(cfg, tcfg, seed=0, device=sm90_card)
+    state = trainer.run(TokenStream(cfg, 2, 40, device=sm90_card), 2,
+                        log=lambda s: None)
+    save_checkpoint(str(tmp_path), 2, state)
+    like = T.init_train_state(torch.Generator(device=sm90_card).manual_seed(1),
+                              cfg, tcfg, sm90_card)
+    back = restore_checkpoint(str(tmp_path), 2, like)
+    assert "mailbox" in back and int(back["step"]) == 2
+    for a, b in zip(M.leaves(back), M.leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------------

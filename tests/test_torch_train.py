@@ -544,10 +544,14 @@ def test_trainer_runs_and_refuses_what_is_not_ported():
     assert all(np.isfinite(seen))
     with pytest.raises(NotImplementedError, match="queue A item 6"):
         T.make_train_step(cfg, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        M.loss_fn(trainer.state["params"],
-                  make_batch(cfg, 1, 8, device="cpu"),
-                  cfg.replace(remat_policy="dots"))
+    batch = make_batch(cfg, 1, 8, device="cpu")
+    full = M.loss_fn(trainer.state["params"], batch, cfg)[0]
+    dots = M.loss_fn(trainer.state["params"], batch,
+                     cfg.replace(remat_policy="dots"))[0]
+    assert torch.equal(dots, full)     # item 12's policy is ported
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        M.loss_fn(trainer.state["params"], batch,
+                  cfg.replace(remat_policy="offload"))
 
 
 def test_microbatches_accumulate_like_jax():
@@ -664,14 +668,16 @@ def test_train_cli_runs_on_the_cpu():
     assert "SSD scan (B5): 0 kernel launches, 12 plain calls" in out.stdout
 
 
-def test_train_cli_defaults_to_cuda_and_refuses_the_rest():
+def test_train_cli_defaults_to_cuda_and_refuses_the_rest(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", "mamba2-130m", "--smoke"])
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        train_cli.main(["--arch", "mamba2-130m", "--smoke", "--device",
-                        "cpu", "--ckpt-dir", "ckpt"])
+    state = train_cli.main(["--arch", "mamba2-130m", "--smoke", "--device",
+                            "cpu", "--steps", "1", "--batch", "1", "--seq",
+                            "8", "--ckpt-dir", str(tmp_path)])
+    assert int(state["step"]) == 1     # item 12: the checkpoint is written
+    assert os.listdir(tmp_path) == ["step_00000001"]
     with pytest.raises(NotImplementedError, match="queue A item 6"):
         train_cli.main(["--arch", "mamba2-130m", "--smoke", "--device",
                         "cpu", "--mesh", "multi"])
